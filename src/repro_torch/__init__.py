@@ -1,0 +1,17 @@
+"""PyTorch port of ``repro`` for NVIDIA Hopper (H100, sm_90a).
+
+The package keeps ``repro``'s module layout and names.  It imports
+``torch`` and numpy only: never ``jax``, and nothing of ``repro`` (the
+numpy-only modules it needs are copied into it).  Plain tensor code is
+PyTorch; every Pallas kernel of ``repro`` on the ported path is a CUDA
+C++ kernel under ``csrc/``, built with ``nvcc`` at first use
+(``kernels/build.py``).
+
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``; without a card they raise instead of falling back.
+
+Ported so far: the DPconv[max] batch lane, from
+``service.batch.BatchedSolver`` down to the zeta/Moebius and
+ranked-convolution kernels.  Cost functions other than ``"max"``,
+warm-start seeds and ``shards > 1`` raise ``NotImplementedError``.
+"""

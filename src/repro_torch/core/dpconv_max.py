@@ -1,0 +1,188 @@
+"""DPconv[max] — Alg. 3 of the paper: optimal C_max in O(2^n n^3)
+(counterpart of ``repro.core.dpconv_max``).
+
+C_max minimizes the largest intermediate join cardinality.  The optimum
+is one of the 2^n join cardinalities, so Alg. 3 binary-searches the
+smallest feasible threshold gamma, where *feasible* means that V splits
+into a join tree whose intermediates are all <= gamma — one layered
+counting pass per probe (Kosaraju's {0,1} trick, Sec. 6).
+
+Two engines, as in the reference: ``"fused"`` (``core.engine``: the
+whole lockstep search and the Alg. 2 extraction scan on the device) and
+``"host"`` (one feasibility pass per round, host recursion for the tree;
+the parity reference and the ``dp_fn`` hook that the kernel tier's
+ranked convolution runs through).  Held over: the host loop's
+``gamma_batch > 1`` and ``early_exit`` variants, and warm-start seeds.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import jointree
+from repro_torch.core.bitset import popcounts
+from repro_torch.core.engine import (candidate_table, fused_dpconv_max,
+                                     host_cards)
+from repro_torch.core.lattice import popcounts_on
+from repro_torch.core.layered import layered_feasibility_dp
+from repro_torch.core.querygraph import QueryGraph
+from repro_torch.device import resolve_device
+
+
+@dataclasses.dataclass
+class CmaxResult:
+    optimum: float                 # optimal C_max value
+    tree: "jointree.JoinTree | None"
+    feasibility_passes: int
+    engine: str = "host"
+    dispatches: "int | None" = None
+
+
+def _check_engine(engine: str) -> None:
+    if engine not in ("auto", "fused", "host"):
+        raise ValueError(f"unknown engine {engine!r}")
+
+
+def dpconv_max(
+    q: QueryGraph,
+    card,
+    gamma_batch: int = 1,
+    direct_layers: int = 4,
+    extract_tree: bool = True,
+    engine: str = "auto",
+    backend: str = "f64",
+    shards: int = 1,
+    device=None,
+) -> CmaxResult:
+    """Optimal C_max value (and join tree) for query graph ``q`` with the
+    dense cardinality table ``card`` (2^n,).  Clique semantics: every
+    split is allowed, cross products priced by ``card``.
+
+    ``engine`` ``"auto"``/``"fused"`` runs the fused engine (``backend``
+    selects its tier, ``gamma_batch`` its probe width); ``"host"`` runs
+    the per-round host loop on the f64 tier."""
+    _check_engine(engine)
+    card = host_cards(card)
+    if engine == "host":
+        if shards != 1:
+            raise ValueError("shards > 1 is a fused-engine concept")
+        return dpconv_max_batch(card[None, :], q.n,
+                                direct_layers=direct_layers,
+                                extract_tree=extract_tree, engine="host",
+                                gamma_batch=gamma_batch, device=device)[0]
+    fs = fused_dpconv_max(card[None, :], q.n, direct_layers=direct_layers,
+                          extract_tree=extract_tree, backend=backend,
+                          gamma_batch=gamma_batch, shards=shards,
+                          device=device)
+    return CmaxResult(optimum=float(fs.optima[0]), tree=fs.trees[0],
+                      feasibility_passes=fs.passes, engine="fused",
+                      dispatches=fs.dispatches)
+
+
+# --------------------------------------------------------- batched queries
+def dpconv_max_batch(
+    cards,
+    n: int,
+    direct_layers: int = 4,
+    extract_tree: bool = True,
+    dp_fn=None,
+    engine: str = "auto",
+    backend: str = "f64",
+    gamma_batch: int = 1,
+    shards: int = 1,
+    device=None,
+) -> "list[CmaxResult]":
+    """Solve B same-``n`` DPconv[max] instances in lockstep; ``cards`` is
+    (B, 2^n).  Each round stacks the B pivot thresholds into one (B, 2^n)
+    gate and runs ONE batched feasibility pass.  Optima are bit-identical
+    to B independent ``dpconv_max`` calls.
+
+    ``dp_fn(gate, final_layer_shortcut)`` overrides the host loop's
+    feasibility pass (``service.batch.kernel_dp_fn`` is the kernel tier);
+    the default is the f64 layered DP.  ``engine="fused"`` (and
+    ``"auto"`` without ``dp_fn``) runs ``core.engine.fused_dpconv_max``.
+    """
+    _check_engine(engine)
+    cards = host_cards(cards)
+    B, size = cards.shape
+    if size != 1 << n:
+        raise ValueError(f"cards of width {size} do not fit n={n}")
+    if engine == "fused" or (engine == "auto" and dp_fn is None):
+        if dp_fn is not None:
+            raise ValueError("dp_fn is a host-loop override; "
+                             "use engine='host' or 'auto'")
+        fs = fused_dpconv_max(cards, n, direct_layers=direct_layers,
+                              extract_tree=extract_tree, backend=backend,
+                              gamma_batch=gamma_batch, shards=shards,
+                              device=device)
+        return [CmaxResult(optimum=float(fs.optima[b]), tree=fs.trees[b],
+                           feasibility_passes=fs.passes, engine="fused",
+                           dispatches=fs.dispatches) for b in range(B)]
+    if shards != 1:
+        raise ValueError("shards > 1 is a fused-engine concept; the "
+                         "host loop runs on one device")
+    if gamma_batch > 1:
+        raise NotImplementedError("the host loop's gamma_batch > 1 "
+                                  "variant is not ported yet")
+    dev = resolve_device(device)
+    pc = popcounts_on(n, dev)
+    cj = torch.as_tensor(cards, device=dev)
+
+    if dp_fn is None:
+        def dp_fn(gate, shortcut):
+            return layered_feasibility_dp(gate, n, direct_layers, shortcut)
+
+    def gate_of(gammas: np.ndarray) -> torch.Tensor:
+        g = cj <= torch.as_tensor(gammas, dtype=torch.float64,
+                                  device=dev)[:, None]
+        return torch.where(pc >= 2, g.to(torch.float64), 1.0)
+
+    cands = [candidate_table(cards[b], n) for b in range(B)]
+    lo = np.zeros(B, np.int64)
+    hi = np.array([len(c) - 1 for c in cands], np.int64)
+    passes = 0
+    while np.any(lo < hi):
+        active = lo < hi
+        mid = np.where(active, (lo + hi) // 2, hi)
+        gammas = np.array([cands[b][mid[b]] for b in range(B)])
+        dp = dp_fn(gate_of(gammas), True)
+        ok = (dp[..., -1] > 0.5).cpu().numpy().reshape(-1)
+        passes += 1
+        hi = np.where(active & ok, mid, hi)
+        lo = np.where(active & ~ok, mid + 1, lo)
+
+    opts = np.array([cands[b][hi[b]] for b in range(B)])
+    trees: list = [None] * B
+    if extract_tree:
+        dp = dp_fn(gate_of(opts), False)
+        passes += 1
+        dpn = dp.to(torch.float64).cpu().numpy().reshape(B, size)
+        trees = [jointree.extract_tree_feasibility(dpn[b], cards[b], n)
+                 for b in range(B)]
+    return [CmaxResult(optimum=float(opts[b]), tree=trees[b],
+                       feasibility_passes=passes, dispatches=passes)
+            for b in range(B)]
+
+
+# ------------------------------------------------------------------ oracle
+def dpconv_max_ref(card: np.ndarray, n: int) -> float:
+    """O(3^n) reference: DPsub-style (min,max) DP.  Test oracle."""
+    size = 1 << n
+    pc = popcounts(n)
+    INF = np.inf
+    dp = np.full(size, INF)
+    dp[pc == 1] = 0.0
+    for s in range(size):
+        if pc[s] < 2:
+            continue
+        best = INF
+        t = (s - 1) & s
+        while t:
+            v = max(dp[t], dp[s & ~t])
+            if v < best:
+                best = v
+            t = (t - 1) & s
+        dp[s] = max(best, card[s])
+    return float(dp[size - 1])

@@ -1,0 +1,395 @@
+"""The lattice-program layer of the port, DPconv[max] part: the paper's
+layered feasibility DP (Alg. 1 instantiated for C_max) and the
+whole-solve search program built on it.  Counterpart of
+``repro.core.lattice``, with the same names and the same arithmetic, so
+results are bitwise those of the reference.
+
+Transform tiers (``transforms``):
+
+========= ============================================== ================
+port      what                                            in ``repro``
+========= ============================================== ================
+``f64``   PyTorch float64 butterflies (``core.zeta``),    ``"xla"``
+          exact counts to n = 26
+``cuda``  int32 counting through the CUDA kernels         ``"pallas"``
+          (``kernels.ops``; plain versions on CPU
+          tensors), exact to n = 15, plus the ranked-
+          convolution kernel on the unrolled path
+========= ============================================== ================
+
+Differences from the reference, none of which changes a result:
+
+* JAX's ``lax.fori_loop``/``while_loop`` are Python loops over device
+  tensors.  The search loop reads ``any(lo < hi)`` on the host once per
+  round (one sync per round); the reference runs the loop on device.
+* Buffers are updated in place (the ranked-zeta buffer ``Z`` above all);
+  JAX rebuilds them functionally.
+* Bracket indices (``lo``, ``hi``, pivots) are int64 tensors (PyTorch
+  gathers take int64); the reference keeps int32.  Values are equal.
+* The scan-form convolution sums int32 products in int32; the reference
+  promotes the sum to int64.  Counts at n <= 15 fit either way, and
+  two's-complement intermediates are exact modulo 2^32.
+
+Held over to later slices: the (min,+) value layers (C_cap, C_out),
+warm-start seeds, and sharded sweeps (the entry points raise on
+``shards > 1``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import torch
+
+from repro_torch.core.bitset import layer_indices, popcounts, submask_table
+
+# ------------------------------------------------------------- transforms
+@dataclasses.dataclass(frozen=True)
+class Transforms:
+    """The transform backend of a lattice program: zeta/Moebius pair, the
+    DP dtype they are exact in, and (optionally) a fused ranked-conv
+    kernel for the unrolled static-``k`` path."""
+    name: str
+    zeta: callable
+    mobius: callable
+    dtype: torch.dtype
+    ranked_conv: "callable | None" = None
+
+
+def transforms(tier: str) -> Transforms:
+    """The two transform tiers (see the module docstring)."""
+    if tier == "f64":
+        from repro_torch.core.zeta import mobius, zeta
+        return Transforms("f64", zeta, mobius, torch.float64)
+    if tier == "cuda":
+        # int32 counting tier: exact while counts < 2^31 (n <= 15),
+        # enforced by the caller (BatchPolicy.kernel_max_n)
+        from repro_torch.kernels.ops import (mobius_batch_op,
+                                             ranked_conv_op, zeta_batch_op)
+        return Transforms("cuda", zeta_batch_op, mobius_batch_op,
+                          torch.int32, ranked_conv=ranked_conv_op)
+    raise ValueError(f"unknown lattice tier {tier!r}")
+
+
+# ------------------------------------------------- static tables
+@functools.lru_cache(maxsize=128)
+def direct_layer_indices(n: int, k: int):
+    """Static gather tables for direct evaluation of layer k (numpy):
+    sets (m,) int64 masks with |S| = k; subs/comps (m, 2^k) submask /
+    complement-in-S tables.  The rows T = 0 / T = S are neutralized by
+    dp[∅] = 0."""
+    sets = layer_indices(n)[k]
+    subs = submask_table(sets, k).T          # (m, 2^k)
+    comps = sets[:, None] & ~subs
+    return (sets, subs, comps)
+
+
+_DEVICE_TABLES: dict = {}
+
+
+def _on_device(key, make):
+    """Immutable per-device tables, built once per (table, device)."""
+    t = _DEVICE_TABLES.get(key)
+    if t is None:
+        t = _DEVICE_TABLES[key] = make()
+    return t
+
+
+def popcounts_on(n: int, device) -> torch.Tensor:
+    """popcounts(n) as an int32 tensor on ``device``."""
+    device = torch.device(device)
+    return _on_device(("pc", n, str(device)), lambda: torch.as_tensor(
+        popcounts(n), dtype=torch.int32, device=device))
+
+
+def direct_layer_tables(n: int, k: int, device):
+    """``direct_layer_indices`` as int64 tensors on ``device``."""
+    device = torch.device(device)
+    return _on_device(("direct", n, k, str(device)), lambda: tuple(
+        torch.as_tensor(a, dtype=torch.int64, device=device)
+        for a in direct_layer_indices(n, k)))
+
+
+# ------------------------------------------------------ layer primitives
+def direct_layer_full(dp, gate, n: int, k: int, pc, dtype):
+    """Layer k by gather-based split enumeration (paper Sec. 6): full
+    (..., 2^n) indicator of gated layer-k sets with a feasible split."""
+    sets, subs, comps = direct_layer_tables(n, k, dp.device)
+    prod = dp[..., subs] * dp[..., comps]          # (..., m, 2^k)
+    layer_ind = (prod.sum(dim=-1) > 0.5).to(dtype)
+    layer_full = torch.zeros(dp.shape, dtype=dtype, device=dp.device)
+    layer_full[..., sets] = layer_ind
+    layer_full = layer_full * gate
+    return torch.where(pc == k, layer_full, torch.zeros((), dtype=dtype,
+                                                        device=dp.device))
+
+
+def conv_fixed(Z, k: int, ranked_conv=None):
+    """Symmetry-halved ranked convolution at layer k:
+    conv_k = Σ_{d=1..k-1} Z[d] Z[k-d] = 2 Σ_{d<k/2} Z[d] Z[k-d]
+    (+ Z[k/2]^2 if k even).  ``ranked_conv`` routes to the fused kernel
+    (one read of the ranked table instead of k)."""
+    if ranked_conv is not None:
+        return ranked_conv(Z, k)
+    acc = torch.zeros_like(Z[0])
+    for d in range(1, (k - 1) // 2 + 1):
+        acc = acc + Z[d] * Z[k - d]
+    acc = acc + acc        # *2 in the table's dtype
+    if k % 2 == 0:
+        acc = acc + Z[k // 2] * Z[k // 2]
+    return acc
+
+
+def conv_masked(Z, k: int, n: int, dtype):
+    """The same convolution in the uniform scan form: all D = n//2 slots
+    are computed, and slots with d > k-d (stale values of an earlier
+    round) are masked by w = 0."""
+    D = max(n // 2, 1)
+    d = torch.arange(1, D + 1, device=Z.device)
+    w = torch.where(d < k - d, 2, torch.where(d == k - d, 1, 0))
+    Zhi = Z[torch.clamp(k - d, 1, n)]
+    wb = w.to(dtype).reshape((D,) + (1,) * (Z.ndim - 1))
+    return torch.sum(wb * Z[1:D + 1] * Zhi, dim=0, dtype=dtype)
+
+
+def moebius_at_v(acc, pc, n: int):
+    """Moebius transform evaluated at the single point V: the signed
+    O(2^n) sum Σ_T (-1)^{n-|T|} conv[T], reduced in f64 (exact integers,
+    so the order of the sum does not matter)."""
+    sign = 1.0 - 2.0 * ((n - pc) % 2).to(torch.float64)     # ±1
+    return torch.sum(acc.to(torch.float64) * sign, dim=-1)
+
+
+# --------------------------------------------- the feasibility recursion
+def feasibility_layers(gate, n: int, direct_layers: int = 4,
+                       tfm: "Transforms | None" = None,
+                       final_shortcut: bool = True,
+                       Z=None, scan_middle: bool = False):
+    """One full layered feasibility DP under ``gate`` (paper Sec. 5 + 6).
+
+    Returns ``(dp, Z, feas)``: the accumulated feasibility table, the
+    ranked-zeta buffer, and the boolean feasibility of the full set V.
+    With ``final_shortcut`` the final layer is evaluated only at V
+    (Moebius-at-V) and ``dp`` carries no layer-n entries; otherwise the
+    full final butterfly runs (the tree-extraction table).
+
+    ``gate`` (..., 2^n) may carry any leading batch axes.  ``Z`` — the
+    carried ``(n+1, ..., 2^n)`` ranked-zeta buffer, updated in place;
+    slot Z[1] (the singleton transform) must already be set.  ``Z=None``
+    allocates fresh.  ``scan_middle`` selects the middle-layer form:
+    unrolled (``conv_fixed``, the host-loop path and the ranked-conv
+    kernel) or scan form (``conv_masked``, the fused engine).  Both are
+    exact, so results are bit-identical across forms.
+    """
+    tfm = tfm or transforms("f64")
+    size = 1 << n
+    dev = gate.device
+    pc = popcounts_on(n, dev)
+    dtype = tfm.dtype
+    batch = tuple(gate.shape[:-1])
+    zero = torch.zeros((), dtype=dtype, device=dev)
+
+    singles = (pc == 1).to(dtype).expand(batch + (size,)).contiguous()
+    dp = singles.clone()
+    if Z is None:
+        Z = torch.zeros((n + 1,) + batch + (size,), dtype=dtype,
+                        device=dev)
+        Z[1] = tfm.zeta(singles)
+
+    dl = min(direct_layers, n - 1) if scan_middle else min(direct_layers, n)
+    for k in range(2, dl + 1):                 # direct small layers
+        layer_full = direct_layer_full(dp, gate, n, k, pc, dtype)
+        dp = dp + layer_full
+        if k < n:
+            Z[k] = tfm.zeta(layer_full)
+    if dl >= n:                                # all-direct (small n)
+        return dp, Z, dp[..., -1] > 0.5
+
+    for k in range(max(dl + 1, 2), n):         # middle layers
+        conv = (conv_masked(Z, k, n, dtype) if scan_middle
+                else conv_fixed(Z, k, tfm.ranked_conv))
+        h = tfm.mobius(conv)
+        layer_full = torch.where(pc == k, (h > 0.5).to(dtype) * gate, zero)
+        dp = dp + layer_full
+        Z[k] = tfm.zeta(layer_full)
+    acc = (conv_masked(Z, n, n, dtype) if scan_middle
+           else conv_fixed(Z, n, tfm.ranked_conv))
+
+    if final_shortcut:
+        count_v = moebius_at_v(acc, pc, n)
+        feas = (count_v > 0.5) & (gate[..., -1] > zero)
+        return dp, Z, feas
+    h = tfm.mobius(acc)
+    layer_full = torch.where(pc == n, (h > 0.5).to(dtype) * gate, zero)
+    dp = dp + layer_full
+    return dp, Z, dp[..., -1] > 0.5
+
+
+# ------------------------------------------------------ probe strategies
+def probe_pivots(lo, hi, G: int):
+    """(G, B) interior pivots splitting [lo, hi] into G+1 parts:
+    p_g = lo + (hi-lo)(g+1)/(G+1).  G = 1 is the binary-search pivot
+    (lo+hi)//2."""
+    g = torch.arange(1, G + 1, dtype=lo.dtype, device=lo.device)
+    return lo[None, :] + ((hi - lo)[None, :] * g[:, None]) // (G + 1)
+
+
+def bracket_update(lo, hi, piv, ok, active):
+    """Monotone (G+1)-ary bracket update: ``ok`` along the probe axis is
+    [F..F, T..T]; the bracket collapses onto [largest infeasible + 1,
+    smallest feasible]."""
+    G = piv.shape[0]
+    ntrue = ok.to(torch.int64).sum(dim=0)                  # (B,)
+    any_ok = ntrue > 0
+    any_bad = ntrue < G
+    first_ok = torch.clamp(G - ntrue, 0, G - 1)
+    last_bad = torch.clamp(G - ntrue - 1, 0, G - 1)
+    piv_ok = torch.gather(piv, 0, first_ok[None, :])[0]
+    piv_bad = torch.gather(piv, 0, last_bad[None, :])[0]
+    hi = torch.where(active & any_ok, piv_ok, hi)
+    lo = torch.where(active & any_bad, piv_bad + 1, lo)
+    return lo, hi
+
+
+# ------------------------------------------- on-device tree extraction
+def extract_scan(dp, n: int):
+    """Alg. 2 as a masked scan over tree slots, on the device, for a
+    feasibility table ``dp`` (B, 2^n) (error 0 iff both split sides are
+    feasible).
+
+    Slot r holds a set mask; an internal slot finds its witness split by
+    one dense pass over all candidate submasks and writes its two
+    children at the write head.  Witness rule, as in the host
+    extractor: the *largest* T of minimal error.  Returns
+    ``(nodes, lidx)``, (B, 2n-1) int32: slot masks and left-child slot
+    indices (0 for leaves), for ``jointree.tree_from_split_arrays``.
+    """
+    B, size = dp.shape
+    dev = dp.device
+    M = 2 * n - 1
+    pc = popcounts_on(n, dev).to(torch.int64)
+    T = torch.arange(size, dtype=torch.int64, device=dev)[None, :]
+    ar = torch.arange(B, device=dev)
+    feas = dp > 0.5
+    inf = torch.tensor(float("inf"), dtype=torch.float64, device=dev)
+    nodes = torch.zeros((B, M), dtype=torch.int64, device=dev)
+    nodes[:, 0] = size - 1
+    lidx = torch.zeros((B, M), dtype=torch.int64, device=dev)
+    w = torch.ones(B, dtype=torch.int64, device=dev)
+    for r in range(M):
+        S = nodes[:, r]                                    # (B,)
+        internal = pc[S] >= 2
+        Sc = S[:, None]
+        valid = ((T & ~Sc) == 0) & (T != 0) & (T != Sc)
+        dpC = torch.gather(feas, 1, Sc & ~T)
+        err = 1.0 - (feas & dpC).to(torch.float64)
+        err = torch.where(valid, err, inf)
+        # largest T among the minima: argmin over the reversed axis
+        twit = size - 1 - torch.argmin(err.flip(1), dim=1)
+        wc = torch.clamp(w, max=M - 2)     # leaf slots don't advance w
+        left = torch.where(internal, twit, nodes[ar, wc])
+        right = torch.where(internal, S & ~twit, nodes[ar, wc + 1])
+        nodes[ar, wc] = left
+        nodes[ar, wc + 1] = right
+        lidx[:, r] = torch.where(internal, wc, 0)
+        w = w + 2 * internal.to(torch.int64)
+    return nodes.to(torch.int32), lidx.to(torch.int32)
+
+
+# --------------------------------------------- whole-solve program
+def _search_state(B: int, n: int, tfm: Transforms, G: int, device):
+    """Initial ranked-zeta buffer of the lockstep search: zeros with the
+    singleton transform in slot 1; a leading probe axis for G > 1."""
+    size = 1 << n
+    pc = popcounts_on(n, device)
+    batch = (B,) if G == 1 else (G, B)
+    singles = (pc == 1).to(tfm.dtype).expand(batch + (size,)).contiguous()
+    Z0 = torch.zeros((n + 1,) + batch + (size,), dtype=tfm.dtype,
+                     device=device)
+    Z0[1] = tfm.zeta(singles)
+    return Z0
+
+
+def _gate_builder(cards, pc, dtype):
+    def gate_of(gamma):
+        """gate(S) = [c(S) <= gamma] for |S| >= 2; singletons/empty pass.
+        ``gamma`` (B,) or (G, B) — broadcasts to (..., B, 2^n)."""
+        g = (cards <= gamma[..., None]).to(dtype)
+        return torch.where(pc >= 2, g, torch.ones((), dtype=dtype,
+                                                  device=cards.device))
+    return gate_of
+
+
+def _fused_search(cards, cand, lo0, hi0, n, direct_layers, tfm, G,
+                  gate_of, Z0):
+    """The whole-solve lockstep (G+1)-ary search: each round builds its G
+    gates and runs the layered DP on the carried buffer ``Z0`` (updated
+    in place).  Returns ``(hi, Z, rounds, syncs)`` with cand[hi]
+    feasible; ``syncs`` counts the host reads of the loop condition."""
+    dl = min(direct_layers, n - 1)
+    lo, hi, Z = lo0, hi0, Z0
+    rounds = syncs = 0
+    while True:
+        active = lo < hi
+        syncs += 1
+        if not bool(active.any()):
+            break
+        if G == 1:
+            mid = torch.where(active, (lo + hi) // 2, hi)
+            gamma = torch.gather(cand, 1, mid[:, None])[:, 0]
+            _, Z, ok = feasibility_layers(gate_of(gamma), n, dl, tfm, True,
+                                          Z=Z, scan_middle=True)
+            hi = torch.where(active & ok, mid, hi)
+            lo = torch.where(active & ~ok, mid + 1, lo)
+        else:
+            piv = probe_pivots(lo, hi, G)                  # (G, B)
+            piv = torch.where(active[None, :], piv, hi[None, :])
+            gamma = torch.gather(cand, 1, piv.T).T
+            _, Z, ok = feasibility_layers(gate_of(gamma), n, dl, tfm, True,
+                                          Z=Z, scan_middle=True)
+            lo, hi = bracket_update(lo, hi, piv, ok, active)
+        rounds += 1
+    return hi, Z, rounds, syncs
+
+
+def build_max_program(n: int, direct_layers: int, tier: str,
+                      extract: bool, gamma_batch: int = 1):
+    """The whole-solve DPconv[max] program:
+    ``(cards, cand, lo0, hi0) -> (opt[, dp, nodes, lidx], rounds, syncs)``.
+
+    cards (B, 2^n) f64, cand (B, C) f64, lo0/hi0 (B,) int64 on one
+    device.  Search, gate construction, layered DP, the extraction table
+    and the Alg. 2 split scan all run on that device; the host reads the
+    loop condition once per round.  The program keeps the initial
+    ranked-zeta buffer of its first call (a static table of its shape)
+    and starts every later call from a copy.
+    """
+    tfm = transforms(tier)
+    dl = min(direct_layers, n - 1)
+    G = gamma_batch
+    state: dict = {}
+
+    def fn(cards, cand, lo0, hi0):
+        dev = cards.device
+        pc = popcounts_on(n, dev)
+        if "Z0" not in state:
+            state["Z0"] = _search_state(cards.shape[0], n, tfm, G, dev)
+        gate_of = _gate_builder(cards, pc, tfm.dtype)
+        hi, Z, rounds, syncs = _fused_search(
+            cards, cand, lo0, hi0, n, direct_layers, tfm, G, gate_of,
+            state["Z0"].clone())
+        opt = torch.gather(cand, 1, hi[:, None])[:, 0]
+        if not extract:
+            return opt, rounds, syncs
+        # extraction pass: full final layer at the optimum's gate.  For
+        # G > 1 the probe axis is dropped — slice 0 keeps the singleton
+        # transform in slot 1, and every slot >= 2 is rewritten before
+        # the recursion reads it.
+        Zx = Z if G == 1 else Z[:, 0].contiguous()
+        dp, _, _ = feasibility_layers(gate_of(opt), n, dl, tfm, False,
+                                      Z=Zx, scan_middle=True)
+        dpf = dp.to(torch.float64)
+        nodes, lidx = extract_scan(dpf, n)
+        return opt, dpf, nodes, lidx, rounds, syncs
+
+    return fn

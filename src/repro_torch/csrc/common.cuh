@@ -1,0 +1,32 @@
+// Shared helpers of the port's CUDA kernels.
+//
+// Every kernel takes 32-bit lanes in two types.  int32 goes through
+// uint32_t: signed overflow is undefined in C++, unsigned arithmetic
+// wraps, and the bits are those of two's-complement int32 — what XLA and
+// PyTorch give on int32.  float32 uses the _rn intrinsics, which the
+// compiler never contracts into an FMA, so each add and multiply rounds
+// exactly as PyTorch's separate elementwise ops do.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace repro {
+
+enum Dtype : int { kInt32 = 0, kFloat32 = 1 };
+
+struct U32Arith {
+  using T = uint32_t;
+  __device__ __forceinline__ static T add(T a, T b) { return a + b; }
+  __device__ __forceinline__ static T sub(T a, T b) { return a - b; }
+  __device__ __forceinline__ static T mul(T a, T b) { return a * b; }
+};
+
+struct F32Arith {
+  using T = float;
+  __device__ __forceinline__ static T add(T a, T b) { return __fadd_rn(a, b); }
+  __device__ __forceinline__ static T sub(T a, T b) { return __fsub_rn(a, b); }
+  __device__ __forceinline__ static T mul(T a, T b) { return __fmul_rn(a, b); }
+};
+
+}  // namespace repro

@@ -1,0 +1,49 @@
+"""Plain PyTorch versions of the kernels (counterpart of
+``repro.kernels.ref``).
+
+They define what the CUDA kernels must reproduce bit for bit on int32,
+and on float32 values that are integers below 2^24:
+
+  zeta_ref        — (ζf)(S) = Σ_{T⊆S} f(T) over the last axis
+  mobius_ref      — inverse of zeta_ref
+  zeta_stages_ref — a range of butterfly stages (one kernel launch)
+  ranked_conv_ref — layer-k ranked convolution of a ranked zeta table
+                    (paper Eq. 11 with the Sec. 5.2 symmetry halving):
+                    acc = Σ_{d=1}^{k-1} Z[d] * Z[k-d]
+
+The kernel wrappers run these on CPU tensors; ``chip_smoke.py`` runs them
+on the card to check the kernels.  int32 arithmetic wraps (two's
+complement), as XLA's does.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.zeta import butterfly
+
+
+def zeta_ref(f: torch.Tensor) -> torch.Tensor:
+    return butterfly(f, 1)
+
+
+def mobius_ref(f: torch.Tensor) -> torch.Tensor:
+    return butterfly(f, -1)
+
+
+def zeta_stages_ref(f: torch.Tensor, sign: int, lo: int,
+                    hi: int) -> torch.Tensor:
+    """Butterfly stages ``lo..hi-1`` only: the plain version of one
+    ``zeta_local`` launch (``lo = 0``, ``hi`` = tile bits) or of one
+    ``zeta_pair`` launch (``hi = lo + 1``)."""
+    return butterfly(f, sign, range(lo, hi))
+
+
+def ranked_conv_ref(Z: torch.Tensor, k: int) -> torch.Tensor:
+    """Z: (n+1, ..., 2^n) ranked zeta table.  Returns (..., 2^n)."""
+    acc = torch.zeros_like(Z[0])
+    for d in range(1, (k - 1) // 2 + 1):
+        acc = acc + Z[d] * Z[k - d]
+    acc = acc * 2
+    if k % 2 == 0:
+        acc = acc + Z[k // 2] * Z[k // 2]
+    return acc

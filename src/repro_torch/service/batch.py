@@ -1,0 +1,182 @@
+"""Batched plan solving, DPconv[max] lane (counterpart of
+``repro.service.batch``).
+
+Same-``n`` queries stack to (B, 2^n) and every lattice sweep broadcasts
+over the batch.  The solver groups a mixed micro-batch by ``(n, cost)``,
+splits each group into descending power-of-two chunks (11 -> [8, 2, 1]
+with cap 16), solves each chunk, and restores request order.
+
+Tiers (``BatchPolicy.backend``): ``"auto"`` sends
+``kernel_min_n <= n <= kernel_max_n`` (12..15) to the int32 kernel tier
+(``"cuda"``: the hand-written zeta/Moebius and ranked-convolution
+kernels) when the solver runs on a CUDA device, and everything else to
+the f64 tier.  ``"cuda"`` forces the kernel tier up to ``kernel_max_n``
+(on a CPU device its plain versions run); ``"f64"`` never uses it.
+Engines (``BatchPolicy.engine``): ``"fused"`` runs each chunk's whole
+solve on the device (``core.engine``); ``"host"`` is the per-round host
+loop, whose kernel tier also takes the ranked-convolution kernel
+(``kernel_dp_fn``).
+
+Only ``cost="max"`` is ported; other costs and warm-start seeds raise
+``NotImplementedError``.  Results are bit-identical in cost and tree to
+single-query ``core.dpconv.optimize`` and to ``repro``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import torch
+
+from repro_torch.core.dpconv import optimize, optimize_batch
+from repro_torch.core.engine import host_cards
+from repro_torch.core.layered import layered_feasibility_dp
+from repro_torch.device import resolve_device
+from repro_torch.kernels.ops import (mobius_batch_op, ranked_conv_op,
+                                     zeta_batch_op)
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchPolicy:
+    max_batch: int = 16
+    kernel_min_n: int = 12      # kernel tier lower bound
+    kernel_max_n: int = 15      # exactness bound: 2^{2n} < 2^31
+    backend: str = "auto"       # "auto" | "f64" | "cuda"
+    engine: str = "fused"       # "fused" | "host"
+    gamma_batch: int = 1        # fused probe width: 1 = binary search
+
+    def __post_init__(self):
+        if self.engine not in ("fused", "host"):
+            raise ValueError(f"unknown engine {self.engine!r}")
+        if self.backend not in ("auto", "f64", "cuda"):
+            raise ValueError(f"unknown backend {self.backend!r}")
+        if self.gamma_batch < 1:
+            raise ValueError("gamma_batch must be >= 1")
+
+
+def _pow2_chunks(b: int, cap: int):
+    """Decompose b into descending power-of-two chunk sizes <= cap (a
+    non-power-of-two cap is clamped down)."""
+    cap = 1 << (cap.bit_length() - 1)
+    out = []
+    while b:
+        c = min(1 << (b.bit_length() - 1), cap)
+        out.append(c)
+        b -= c
+    return out
+
+
+def kernel_dp_fn(n: int, direct_layers: int = 4):
+    """Host-loop feasibility pass on the kernel tier (counterpart of
+    ``repro.service.batch.pallas_dp_fn``): the gate is cast to int32 and
+    the layered DP runs zeta/Moebius and the middle-layer ranked
+    convolutions through ``kernels.ops``."""
+    def dp_fn(gate: torch.Tensor, final_layer_shortcut: bool):
+        dp = layered_feasibility_dp(
+            gate.to(torch.int32), n, direct_layers, final_layer_shortcut,
+            zeta_fn=zeta_batch_op, mobius_fn=mobius_batch_op,
+            ranked_conv_fn=ranked_conv_op)
+        return dp.to(torch.float64)
+    return dp_fn
+
+
+def _unpack(item):
+    """items are (q, card[, cost[, tag[, seed]]]); cost defaults to
+    "max" and ``tag`` is an attribution label kept in ``last_timings``."""
+    q, card = item[0], item[1]
+    cost = item[2] if len(item) > 2 else "max"
+    tag = item[3] if len(item) > 3 else ""
+    if len(item) > 4 and item[4] is not None:
+        raise NotImplementedError("warm-start seeds are not ported yet")
+    if cost != "max":
+        raise NotImplementedError(f"the {cost!r} lane is not ported yet")
+    return q, card, cost, tag
+
+
+class BatchedSolver:
+    """Groups micro-batch items by ``(n, cost)`` and solves each chunk on
+    ``device`` (CUDA unless given)."""
+
+    def __init__(self, policy: "BatchPolicy | None" = None, device=None):
+        self.policy = policy or BatchPolicy()
+        self.device = resolve_device(device)
+        self.batches_run = 0
+        self.queries_batched = 0
+        # (n, queries, seconds, engine, cost, tag_counts) per chunk of the
+        # last solve() call
+        self.last_timings: list = []
+
+    def use_kernels(self, n: int) -> bool:
+        p = self.policy
+        if p.backend == "cuda":
+            # even when forced, never exceed the int32 exactness bound
+            return n <= p.kernel_max_n
+        if p.backend == "auto":
+            return (self.device.type == "cuda"
+                    and p.kernel_min_n <= n <= p.kernel_max_n)
+        return False
+
+    def _dp_fn(self, n: int):
+        return kernel_dp_fn(n) if self.use_kernels(n) else None
+
+    def _solve_chunk(self, qs, cards, n, extract_tree):
+        engine = self.policy.engine
+        tier = "cuda" if self.use_kernels(n) else "f64"
+        dev = self.device
+        if len(qs) == 1:
+            kw = {"engine": engine, "device": dev}
+            if engine == "fused":
+                kw["gamma_batch"] = self.policy.gamma_batch
+                kw["backend"] = tier
+            res = optimize(qs[0], cards[0], cost="max",
+                           extract_tree=extract_tree, **kw)
+            res.meta["batched"] = False
+            res.meta["chunk"] = 1
+            # a single host solve runs the f64 host loop, as in repro
+            res.meta["backend"] = tier if engine == "fused" else "f64"
+            return [res]
+        if engine == "fused":
+            results = optimize_batch(qs, cards, cost="max",
+                                     extract_tree=extract_tree,
+                                     engine="fused", backend=tier,
+                                     gamma_batch=self.policy.gamma_batch,
+                                     device=dev)
+        else:
+            results = optimize_batch(qs, cards, cost="max",
+                                     extract_tree=extract_tree,
+                                     engine="host", dp_fn=self._dp_fn(n),
+                                     device=dev)
+        self.batches_run += 1
+        self.queries_batched += len(qs)
+        for res in results:
+            res.meta["backend"] = tier
+            res.meta["chunk"] = len(qs)
+        return results
+
+    def solve(self, items: list, extract_tree: bool = True) -> list:
+        """``items``: list of (q, card[, cost[, tag]]) tuples, cost "max".
+        Returns PlanResults aligned with the input order."""
+        groups: dict = {}
+        for idx, item in enumerate(items):
+            q, card, cost, tag = _unpack(item)
+            groups.setdefault((q.n, cost), []).append((idx, q, card, tag))
+        out: list = [None] * len(items)
+        self.last_timings = []
+        for (n, cost), group in sorted(groups.items()):
+            lo = 0
+            for chunk in _pow2_chunks(len(group), self.policy.max_batch):
+                part = group[lo:lo + chunk]
+                lo += chunk
+                qs = [g[1] for g in part]
+                cards = [host_cards(g[2]) for g in part]
+                tags: dict = {}
+                for g in part:
+                    tags[g[3]] = tags.get(g[3], 0) + 1
+                t0 = time.perf_counter()  # timing: measured-duration
+                results = self._solve_chunk(qs, cards, n, extract_tree)
+                for g, res in zip(part, results):
+                    out[g[0]] = res
+                dt = time.perf_counter() - t0  # timing: measured-duration
+                eng = results[0].meta.get("engine", self.policy.engine)
+                self.last_timings.append((n, chunk, dt, eng, cost, tags))
+        return out

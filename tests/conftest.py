@@ -128,6 +128,10 @@ def pytest_configure(config):
         "markers",
         "hypothesis_fallback: property test running on the deterministic "
         "seeded shim (hypothesis not installed)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (a hand-written kernel of repro_torch); "
+        "skips without one")
 
 
 def pytest_collection_modifyitems(config, items):
