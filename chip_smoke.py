@@ -7,22 +7,28 @@ Phases (any failed check exits non-zero; nothing is caught):
 
 1. card      — name, count, and ``nvidia-smi`` name and power limit;
 2. build     — ``nvcc`` builds every kernel of ``src/repro_torch/csrc``;
-3. zeta      — each zeta/Moebius kernel launch against its plain
-               PyTorch version on the card, bitwise (int32 and f32);
+3. zeta      — every launch of a transform's plan (``zeta_cluster``
+               for the low min(n, 15) bits, ``zeta_pair`` per higher
+               bit) against its plain PyTorch version on the card,
+               bitwise, n = 0..17, int32 and f32, fresh and in place;
 4. conv      — the ranked-convolution kernel against its plain version;
 5. fused     — the DPconv[max] batch lane (``BatchedSolver``, default
                policy: fused engine, int32 kernel tier for n = 12..15) on
                16 paper Sec. 9 clique(15) queries plus chain/star/cycle
                at n = 12..15 and one clique(12); optima and trees equal
                the f64 tier's, the clique(12) optimum equals the O(3^n)
-               oracle;
+               oracle; one ``zeta_cluster`` launch per transform, no
+               ``zeta_pair``, and the rounds and passes of the reference;
 6. host      — the same lane on the host engine (n = 13, B = 4), where
                the ranked-convolution kernel runs; optima equal the f64
                tier's;
 7. large     — 4 clique(18) queries, above the int32 envelope: ``auto``
                takes the f64 tier and launches no kernel;
-8. times     — each kernel at the path's shapes beside its bound and its
-               plain version, launches per solve, solved queries per
+8. times     — each kernel at the path's shapes: device time per launch
+               (torch.profiler), the host-launched call (CUDA events
+               around 50 calls from Python), the host's cost per launch,
+               its bound and its plain version; one whole transform warm
+               and with L2 cold; launches per solve, solved queries per
                second.
 
 Launch counters are set to 0 just before each main-path phase (5, 6) and
@@ -48,7 +54,10 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores;
 #                             32-bit integer adds and multiplies are
 #                             counted against the same rate
-TILE_BITS = 12
+ZETA_KERNELS = ("zeta_cluster_kernel", "zeta_pair_kernel")
+# phase 5's workload searches 23 rounds and runs 31 feasibility passes
+# (23 rounds + 8 extraction passes), as the reference does
+LANE_ROUNDS, LANE_PASSES = 23, 31
 
 
 def fail(msg: str) -> None:
@@ -62,7 +71,9 @@ def check(cond: bool, msg: str) -> None:
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean milliseconds per call, between CUDA events after warm-up."""
+    """Mean milliseconds per call, between CUDA events around ``iters``
+    calls issued back to back from Python after warm-up: a host-launched
+    call, which includes the host's launch cost when it is the larger."""
     import torch
     for _ in range(warmup):
         fn()
@@ -75,6 +86,58 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Host microseconds per call of ``fn``, without a sync: what the
+    Python wrapper and the launch cost the host."""
+    import torch
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def _device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(evt, attr, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def device_ms(fn, names, iters: int = 200, between=None) -> tuple:
+    """Device milliseconds per call of ``fn`` and kernel launches per
+    call: torch.profiler's self device time of the kernels whose name
+    holds one of ``names``, summed over ``iters`` calls.  ``between``
+    runs before each call (an L2 flush); its kernels are not counted."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            if between is not None:
+                between()
+            fn()
+        torch.cuda.synchronize()
+    us = launched = 0
+    for e in prof.key_averages():
+        if (getattr(e, "device_type", None) == DeviceType.CUDA
+                and any(nm in e.key for nm in names)):
+            us += _device_us(e)
+            launched += e.count
+    check(launched > 0 and us > 0,
+          f"torch.profiler saw no device time of {names}")
+    return us * 1e-3 / iters, launched / iters
 
 
 def bound(nbytes: float, nops: float) -> tuple:
@@ -94,7 +157,8 @@ def main() -> int:
         from repro_torch.core.dpconv_max import dpconv_max_ref
         from repro_torch.kernels import build, ops, ref
         from repro_torch.kernels.ranked_conv import ranked_conv_cuda
-        from repro_torch.kernels.zeta_cuda import launch_local, launch_pair
+        from repro_torch.kernels.zeta_cuda import (launch_cluster,
+                                                   launch_pair, launch_plan)
         from repro_torch.service.batch import BatchedSolver, BatchPolicy
     except ImportError as e:
         fail(f"the port is not importable from {ROOT / 'src'}: {e}")
@@ -136,39 +200,56 @@ def main() -> int:
         return bool(torch.equal(got, want))
 
     # ------------------------------------------------------------ 3. zeta
-    shapes = [(16, 1 << 15), (16, 16, 1 << 15), (1 << 12,), (3, 1 << 5)]
+    # Every launch of the plan against its plain version, n = 0..17:
+    # full-range int32, integer f32 and random f32 (bits in increasing
+    # order, each add rounded alone, so all three are bitwise); the whole
+    # transform into a fresh tensor and in place; mobius(zeta(x)) == x on
+    # the exact inputs.
+    shapes = [(1 << n,) for n in range(18)]
+    shapes += [(16, 1 << n) for n in range(18)]
+    shapes += [(2, 16, 1 << n) for n in range(18)] + [(16, 16, 1 << 15)]
     for shape in shapes:
         n = shape[-1].bit_length() - 1
-        x = on_card(rng.integers(-2**31, 2**31, shape, dtype=np.int64)
-                    .astype(np.int32))
-        for sign in (1, -1):
-            b = min(n, TILE_BITS)
-            out = torch.empty_like(x)
-            launch_local(x, out, b, sign)
-            ok = record("zeta_local", out, ref.zeta_stages_ref(x, sign, 0, b))
-            check(ok, f"zeta_local int32 {shape} sign {sign}")
-            for j in range(b, n):
+        plan = launch_plan(n)
+        inputs = [
+            rng.integers(-2**31, 2**31, shape, dtype=np.int64)
+            .astype(np.int32),
+            rng.integers(-8, 9, shape).astype(np.float32),
+            rng.random(shape, dtype=np.float32)]
+        for i, a in enumerate(inputs):
+            x = on_card(a)
+            for sign in (1, -1):
+                low = plan[0][2]
+                out = torch.empty_like(x)
+                launch_cluster(x, out, low, sign)
+                ok = record("zeta_cluster", out,
+                            ref.zeta_stages_ref(x, sign, 0, low))
+                check(ok, f"zeta_cluster {x.dtype} {shape} sign {sign}")
                 y = x.clone()
-                launch_pair(y, j, sign)
-                ok = record("zeta_pair", y,
-                            ref.zeta_stages_ref(x, sign, j, j + 1))
-                check(ok, f"zeta_pair int32 {shape} bit {j} sign {sign}")
-            full = ops.zeta_op(x, inverse=sign < 0)
-            want = ref.mobius_ref(x) if sign < 0 else ref.zeta_ref(x)
-            check(torch.equal(full, want), f"zeta_op int32 {shape} {sign}")
-        check(torch.equal(ops.mobius_op(ops.zeta_op(x)), x),
-              f"mobius(zeta(x)) != x on {shape}")
-        # f32 on integer values below 2^24: exact, so bitwise
-        xf = on_card(rng.integers(-8, 9, shape).astype(np.float32))
-        for sign in (1, -1):
-            got = ops.zeta_op(xf, inverse=sign < 0)
-            want = ref.mobius_ref(xf) if sign < 0 else ref.zeta_ref(xf)
-            check(torch.equal(got, want), f"zeta_op f32 {shape} {sign}")
-        check(torch.equal(ops.mobius_op(ops.zeta_op(xf)), xf),
-              f"f32 mobius(zeta(x)) != x on {shape}")
+                launch_cluster(y, y, low, sign)
+                check(torch.equal(y, out),
+                      f"zeta_cluster in place {x.dtype} {shape} {sign}")
+                for _, j, _ in plan[1:]:
+                    y = x.clone()
+                    launch_pair(y, j, sign)
+                    ok = record("zeta_pair", y,
+                                ref.zeta_stages_ref(x, sign, j, j + 1))
+                    check(ok, f"zeta_pair {x.dtype} {shape} bit {j} {sign}")
+                want = ref.mobius_ref(x) if sign < 0 else ref.zeta_ref(x)
+                check(torch.equal(ops.zeta_op(x, inverse=sign < 0), want),
+                      f"zeta_op {x.dtype} {shape} sign {sign}")
+                y = x.clone()
+                ops.zeta_op(y, inverse=sign < 0, out=y)
+                check(torch.equal(y, want),
+                      f"zeta_op in place {x.dtype} {shape} sign {sign}")
+            if i < 2:
+                check(torch.equal(ops.mobius_op(ops.zeta_op(x)), x),
+                      f"mobius(zeta(x)) != x on {x.dtype} {shape}")
     torch.cuda.synchronize()
-    print(f"zeta: kernels == plain versions, bitwise, on {shapes}, both "
-          f"signs, int32 and f32; mobius(zeta(x)) == x", flush=True)
+    print(f"zeta: every launch == its plain version, bitwise, n = 0..17 on "
+          f"(2^n,), (16, 2^n), (2, 16, 2^n) and (16, 16, 2^15), both "
+          f"signs, int32 full range, integer and random f32, fresh and in "
+          f"place; mobius(zeta(x)) == x", flush=True)
 
     # ------------------------------------------------------------ 4. conv
     Zshape = (16, 16, 1 << 15)
@@ -198,6 +279,16 @@ def main() -> int:
     lane = BatchedSolver()                      # default policy, cuda
     lane.solve(items)                           # builds the programs
     torch.cuda.synchronize()
+    # transforms counted apart from the kernel counters: around the
+    # wrapper that runs a transform's launch plan
+    transforms5 = [0]
+    zeta_cuda = ops.zeta_cuda
+
+    def counted(*args, **kw):
+        transforms5[0] += 1
+        return zeta_cuda(*args, **kw)
+
+    ops.zeta_cuda = counted
     engine.reset_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -205,6 +296,8 @@ def main() -> int:
     torch.cuda.synchronize()
     t_fused = time.perf_counter() - t0
     counts5 = ops.launch_counts()
+    ops.zeta_cuda = zeta_cuda
+    passes5 = sum(r.meta["passes"] / r.meta["chunk"] for r in got)
     chunks5 = len(lane.last_timings)
     rounds5 = engine.stats().rounds
     check(all(r.meta["backend"] == "cuda" for r in got),
@@ -219,11 +312,17 @@ def main() -> int:
     oracle = dpconv_max_ref(items[-1][1], 12)
     check(got[-1].cost == oracle,
           f"n=12: {got[-1].cost!r} != oracle {oracle!r}")
-    check(counts5["zeta_local"] > 0 and counts5["zeta_pair"] > 0,
-          f"the fused lane launched no zeta kernel: {counts5}")
+    check(counts5["zeta_cluster"] == transforms5[0] > 0
+          and counts5["zeta_pair"] == 0,
+          f"the fused lane made {counts5} launches for {transforms5[0]} "
+          f"transforms; one zeta_cluster launch per transform expected")
+    check((rounds5, passes5) == (LANE_ROUNDS, LANE_PASSES),
+          f"{rounds5} rounds and {passes5} passes, not {LANE_ROUNDS} and "
+          f"{LANE_PASSES}")
     qps5 = len(items) / t_fused
     print(f"fused: {len(items)} queries in {chunks5} chunks, {rounds5} "
-          f"search rounds, {t_fused:.4f} s, {qps5:.2f} queries/s, launches "
+          f"search rounds, {passes5:g} passes, {t_fused:.4f} s, "
+          f"{qps5:.2f} queries/s, {transforms5[0]} transforms, launches "
           f"{counts5}; optima and trees == f64 tier, n=12 clique == oracle "
           f"{oracle!r} {card}", flush=True)
 
@@ -245,8 +344,10 @@ def main() -> int:
         check(r.cost.hex() == w.cost.hex(),
               f"host lane {r.cost!r} != f64 tier {w.cost!r}")
         check(str(r.tree) == str(w.tree), "host lane: trees differ")
-    check(all(v > 0 for v in counts6.values()),
-          f"the host lane did not launch every kernel: {counts6}")
+    check(counts6["zeta_cluster"] > 0 and counts6["ranked_conv"] > 0
+          and counts6["zeta_pair"] == 0,
+          f"the host lane's launches {counts6}: zeta_cluster and "
+          f"ranked_conv expected, no zeta_pair at n = 13")
     print(f"host: 4 queries at n=13 in {t_host:.4f} s, launches "
           f"{counts6}; optima and trees == f64 tier {card}", flush=True)
 
@@ -270,47 +371,78 @@ def main() -> int:
           flush=True)
 
     # ----------------------------------------------------------- 8. times
+    # Device time per launch from torch.profiler (self device time of the
+    # kernel, by name); "host-launched call" = CUDA events around 50 calls
+    # issued back to back from Python; host cost = perf_counter per
+    # wrapper call, no sync, over 1000 calls.
     x = on_card(rng.integers(0, 2, (16, 1 << 15)).astype(np.int32))
     total = x.numel()
     out = torch.empty_like(x)
     rows = []
 
-    def row(kernel, source, replaces, ms, plain_ms, nbytes, nops, launches):
+    def row(kernel, names, source, replaces, launch, plain, nbytes, nops,
+            launches, shape):
+        dev_ms, per_call = device_ms(launch, names)
+        call_ms = time_ms(launch)
+        host = host_us(launch)
+        plain_ms = time_ms(plain)
         b_ms, b_by = bound(nbytes, nops)
         rows.append({"name": kernel, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches,
-                     "max_abs_err": err[kernel], "ms": ms,
+                     "max_abs_err": err[kernel], "ms": dev_ms,
                      "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": None})
-        print(f"time {kernel}: {ms:.5f} ms, plain {plain_ms:.5f} ms, "
-              f"bound {b_ms:.5f} ms ({b_by}) {card}", flush=True)
+                     "bound_by": b_by, "library_ms": None,
+                     "ms_method": "torch.profiler self device time",
+                     "host_call_ms": call_ms, "host_us_per_launch": host,
+                     "shape": shape})
+        print(f"time {kernel} {shape}: device {dev_ms:.5f} ms per launch "
+              f"(torch.profiler, {per_call:g} kernel(s) per call), "
+              f"host-launched call {call_ms:.5f} ms, host cost "
+              f"{host:.2f} us per launch, plain {plain_ms:.5f} ms, bound "
+              f"{b_ms:.5f} ms ({b_by}) {card}", flush=True)
 
     launches = {k: counts5[k] + counts6[k] for k in build.KERNELS}
-    row("zeta_local", "src/repro_torch/csrc/zeta.cu",
+    row("zeta_cluster", ("zeta_cluster_kernel",),
+        "src/repro_torch/csrc/zeta.cu",
         "src/repro/kernels/zeta_pallas.py:53",
-        time_ms(lambda: launch_local(x, out, TILE_BITS, 1)),
-        time_ms(lambda: ref.zeta_stages_ref(x, 1, 0, TILE_BITS)),
-        8 * total, total // 2 * TILE_BITS, launches["zeta_local"])
-    row("zeta_pair", "src/repro_torch/csrc/zeta.cu",
-        "src/repro/kernels/zeta_pallas.py:103",
-        time_ms(lambda: launch_pair(out, 13, 1)),
-        time_ms(lambda: ref.zeta_stages_ref(x, 1, 13, 14)),
-        4 * total + 4 * total // 2, total // 2, launches["zeta_pair"])
+        lambda: launch_cluster(x, out, 15, 1),
+        lambda: ref.zeta_ref(x),
+        8 * total, total // 2 * 15, launches["zeta_cluster"],
+        "(16, 2^15) int32, 15 bits")
+    # the pair kernel serves bits >= 15 only: bit 15 of an (8, 2^16)
+    # table, as many elements as the row above
+    xp = on_card(rng.integers(0, 2, (8, 1 << 16)).astype(np.int32))
+    row("zeta_pair", ("zeta_pair_kernel",), "src/repro_torch/csrc/zeta.cu",
+        "src/repro/kernels/zeta_pallas.py:101",
+        lambda: launch_pair(xp, 15, 1),
+        lambda: ref.zeta_stages_ref(xp, 1, 15, 16),
+        4 * total + 4 * total // 2, total // 2, launches["zeta_pair"],
+        "(8, 2^16) int32, bit 15")
     k = 8
     rest = Z[0].numel()
-    row("ranked_conv", "src/repro_torch/csrc/ranked_conv.cu",
+    row("ranked_conv", ("ranked_conv",), "src/repro_torch/csrc/ranked_conv.cu",
         "src/repro/kernels/ranked_conv.py:31",
-        time_ms(lambda: ranked_conv_cuda(Z, k)),
-        time_ms(lambda: ref.ranked_conv_ref(Z, k)),
-        4 * rest * (k - 1) + 4 * rest, rest * k, launches["ranked_conv"])
+        lambda: ranked_conv_cuda(Z, k),
+        lambda: ref.ranked_conv_ref(Z, k),
+        4 * rest * (k - 1) + 4 * rest, rest * k, launches["ranked_conv"],
+        "(16, 16, 2^15) int32, k = 8")
+    # one whole transform, warm in L2 and after a 64 MB write (L2 cold)
+    scratch = torch.empty(16 << 20, dtype=torch.int32, device=dev)
     for shape in [(16, 1 << 15), (16, 16, 1 << 15)]:
         xt = on_card(rng.integers(0, 2, shape).astype(np.int32))
-        ms = time_ms(lambda: ops.zeta_op(xt))
+        ot = torch.empty_like(xt)
+        fn = lambda: ops.zeta_op(xt, out=ot)    # noqa: E731
+        warm, per_call = device_ms(fn, ZETA_KERNELS)
+        cold, _ = device_ms(fn, ZETA_KERNELS, between=lambda: scratch.fill_(1))
+        call_ms = time_ms(fn)
         plain = time_ms(lambda: ref.zeta_ref(xt))
         b_ms, _ = bound(8 * xt.numel(), xt.numel() // 2 * 15)
-        print(f"time zeta transform {shape}: {ms:.5f} ms (1 local + 3 pair "
-              f"launches), plain {plain:.5f} ms, bound {b_ms:.5f} ms "
-              f"{card}", flush=True)
+        print(f"time zeta transform {shape}: device {warm:.5f} ms warm, "
+              f"{cold:.5f} ms L2 cold ({per_call:g} launches per "
+              f"transform, torch.profiler), host-launched call "
+              f"{call_ms:.5f} ms, plain {plain:.5f} ms, bound {b_ms:.5f} ms "
+              f"({100 * b_ms / cold:.1f}% of it cold) {card}", flush=True)
+    del scratch
     print(f"launches per solve: fused lane "
           f"{ {k: v / chunks5 for k, v in counts5.items()} } over "
           f"{chunks5} chunk solves; host lane {counts6} over 1 solve",

@@ -1,0 +1,101 @@
+#!/usr/bin/env python3
+"""Time one zeta transform of the port on one card, for any tree of it.
+
+    python3 scripts/bench_zeta.py [--src DIR/src] [--label NAME] [--out F]
+
+Imports ``repro_torch`` from ``--src`` (default: this checkout's
+``src``), so an unpacked older commit and this one can be timed in one
+call, in turns.  For int32 tables of (16, 2^15) and (16, 16, 2^15) —
+the lane's shapes — it prints, per transform through
+``kernels.ops.zeta_op``:
+
+* device time, warm and with L2 cold (a 64 MB write before each call):
+  torch.profiler's self device time of the port's zeta kernels, and the
+  launches per transform;
+* a copy of the same table (``Tensor.copy_``, a device-to-device
+  memcpy), warm and cold: what one pass over the table costs on this
+  card;
+* the host-launched call: CUDA events around 50 calls from Python;
+* the host's cost per call: perf_counter over 1000 calls, no sync;
+* the bound: 8 bytes per element over 3.35 TB/s.
+
+Uses the timing helpers of ``chip_smoke.py``.  Needs a card; imports
+nothing of JAX or ``repro``.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--label", default="this tree")
+    ap.add_argument("--out", help="append the numbers to this JSON-lines "
+                                  "file")
+    args = ap.parse_args()
+    smoke = _smoke()
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("FAIL: needs a CUDA card")
+        return 1
+    from repro_torch.kernels import build, ops
+    check = Path(build.__file__).resolve()
+    if not check.is_relative_to(Path(args.src).resolve()):
+        print(f"FAIL: imported {check}, not from {args.src}")
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(13)
+    scratch = torch.empty(16 << 20, dtype=torch.int32, device=dev)
+    flush = lambda: scratch.fill_(1)               # noqa: E731
+    own = ("zeta_local_kernel", "zeta_pair_kernel", "zeta_cluster_kernel")
+    copy = ("Memcpy DtoD",)
+    lines = []
+    for shape in [(16, 1 << 15), (16, 16, 1 << 15)]:
+        x = torch.from_numpy(rng.integers(0, 2, shape).astype(np.int32)
+                             ).to(dev)
+        y = torch.empty_like(x)
+        fn = lambda: ops.zeta_op(x)                # noqa: E731
+        warm, per = smoke.device_ms(fn, own)
+        cold, _ = smoke.device_ms(fn, own, between=flush)
+        cp = lambda: y.copy_(x)                    # noqa: E731
+        cp_warm, _ = smoke.device_ms(cp, copy)
+        cp_cold, _ = smoke.device_ms(cp, copy, between=flush)
+        rec = {"label": args.label, "card": smi, "shape": list(shape),
+               "device_ms_warm": warm, "device_ms_cold": cold,
+               "launches_per_transform": per,
+               "copy_ms_warm": cp_warm, "copy_ms_cold": cp_cold,
+               "host_call_ms": smoke.time_ms(fn),
+               "host_us_per_call": smoke.host_us(fn),
+               "bound_ms": smoke.bound(8 * x.numel(), x.numel() // 2 * 15)[0]}
+        lines.append(rec)
+        print(json.dumps(rec), flush=True)
+    if args.out:
+        with open(args.out, "a") as f:
+            for rec in lines:
+                f.write(json.dumps(rec) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -22,8 +22,9 @@ Differences from the reference, none of which changes a result:
 * JAX's ``lax.fori_loop``/``while_loop`` are Python loops over device
   tensors.  The search loop reads ``any(lo < hi)`` on the host once per
   round (one sync per round); the reference runs the loop on device.
-* Buffers are updated in place (the ranked-zeta buffer ``Z`` above all);
-  JAX rebuilds them functionally.
+* Buffers are updated in place (the ranked-zeta buffer ``Z`` above all:
+  each zeta transform writes straight into its slot); JAX rebuilds them
+  functionally.
 * Bracket indices (``lo``, ``hi``, pivots) are int64 tensors (PyTorch
   gathers take int64); the reference keeps int32.  Values are equal.
 * The scan-form convolution sums int32 products in int32; the reference
@@ -46,9 +47,11 @@ from repro_torch.core.bitset import layer_indices, popcounts, submask_table
 # ------------------------------------------------------------- transforms
 @dataclasses.dataclass(frozen=True)
 class Transforms:
-    """The transform backend of a lattice program: zeta/Moebius pair, the
-    DP dtype they are exact in, and (optionally) a fused ranked-conv
-    kernel for the unrolled static-``k`` path."""
+    """The transform backend of a lattice program: zeta/Moebius pair
+    (``f -> table``; ``out=`` writes the table into a given contiguous
+    tensor, such as a slot of the ranked buffer), the DP dtype they are
+    exact in, and (optionally) a fused ranked-conv kernel for the
+    unrolled static-``k`` path."""
     name: str
     zeta: callable
     mobius: callable
@@ -194,24 +197,24 @@ def feasibility_layers(gate, n: int, direct_layers: int = 4,
     if Z is None:
         Z = torch.zeros((n + 1,) + batch + (size,), dtype=dtype,
                         device=dev)
-        Z[1] = tfm.zeta(singles)
+        tfm.zeta(singles, out=Z[1])
 
     dl = min(direct_layers, n - 1) if scan_middle else min(direct_layers, n)
     for k in range(2, dl + 1):                 # direct small layers
         layer_full = direct_layer_full(dp, gate, n, k, pc, dtype)
         dp = dp + layer_full
         if k < n:
-            Z[k] = tfm.zeta(layer_full)
+            tfm.zeta(layer_full, out=Z[k])
     if dl >= n:                                # all-direct (small n)
         return dp, Z, dp[..., -1] > 0.5
 
     for k in range(max(dl + 1, 2), n):         # middle layers
         conv = (conv_masked(Z, k, n, dtype) if scan_middle
                 else conv_fixed(Z, k, tfm.ranked_conv))
-        h = tfm.mobius(conv)
+        h = tfm.mobius(conv, out=conv)         # conv is a fresh table
         layer_full = torch.where(pc == k, (h > 0.5).to(dtype) * gate, zero)
         dp = dp + layer_full
-        Z[k] = tfm.zeta(layer_full)
+        tfm.zeta(layer_full, out=Z[k])
     acc = (conv_masked(Z, n, n, dtype) if scan_middle
            else conv_fixed(Z, n, tfm.ranked_conv))
 
@@ -219,7 +222,7 @@ def feasibility_layers(gate, n: int, direct_layers: int = 4,
         count_v = moebius_at_v(acc, pc, n)
         feas = (count_v > 0.5) & (gate[..., -1] > zero)
         return dp, Z, feas
-    h = tfm.mobius(acc)
+    h = tfm.mobius(acc, out=acc)
     layer_full = torch.where(pc == n, (h > 0.5).to(dtype) * gate, zero)
     dp = dp + layer_full
     return dp, Z, dp[..., -1] > 0.5
@@ -306,7 +309,7 @@ def _search_state(B: int, n: int, tfm: Transforms, G: int, device):
     singles = (pc == 1).to(tfm.dtype).expand(batch + (size,)).contiguous()
     Z0 = torch.zeros((n + 1,) + batch + (size,), dtype=tfm.dtype,
                      device=device)
-    Z0[1] = tfm.zeta(singles)
+    tfm.zeta(singles, out=Z0[1])
     return Z0
 
 

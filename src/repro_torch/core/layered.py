@@ -32,7 +32,7 @@ def layered_feasibility_dp(
 
     ``zeta_fn``/``mobius_fn`` select the transform backend (default: the
     f64 butterflies; ``kernels.ops.zeta_batch_op``/``mobius_batch_op`` for
-    the kernel tier) and ``ranked_conv_fn`` optionally routes the
+    the kernel tier; both take ``out=``) and ``ranked_conv_fn`` optionally routes the
     middle-layer convolutions to ``kernels.ops.ranked_conv_op``.
     """
     tfm = lattice.Transforms("host", zeta_fn, mobius_fn, gate.dtype,

@@ -22,15 +22,21 @@ def lattice_bits(size: int) -> int:
     return n
 
 
-def butterfly(f: torch.Tensor, sign: int,
-              stages: "range | None" = None) -> torch.Tensor:
-    """Zeta (``sign`` = +1) or Moebius (-1) over the last axis, into a
-    fresh tensor.  Integer dtypes wrap like two's-complement hardware.
-    ``stages`` limits the pass to those bits (default: all n)."""
+def butterfly(f: torch.Tensor, sign: int, stages: "range | None" = None,
+              out: "torch.Tensor | None" = None) -> torch.Tensor:
+    """Zeta (``sign`` = +1) or Moebius (-1) over the last axis, into
+    ``out`` (contiguous, same shape; may be ``f``) or a fresh tensor.
+    Integer dtypes wrap like two's-complement hardware.  ``stages``
+    limits the pass to those bits (default: all n)."""
     size = f.shape[-1]
     n = lattice_bits(size)
     batch = tuple(f.shape[:-1])
-    f = f.clone(memory_format=torch.contiguous_format)
+    if out is None:
+        f = f.clone(memory_format=torch.contiguous_format)
+    else:
+        if out.shape != f.shape or not out.is_contiguous():
+            raise ValueError("out must be contiguous, of the input's shape")
+        f = out.copy_(f)
     for j in (range(n) if stages is None else stages):
         g = f.view(batch + (size // (2 << j), 2, 1 << j))
         if sign > 0:
@@ -40,11 +46,13 @@ def butterfly(f: torch.Tensor, sign: int,
     return f
 
 
-def zeta(f: torch.Tensor) -> torch.Tensor:
+def zeta(f: torch.Tensor, out: "torch.Tensor | None" = None
+         ) -> torch.Tensor:
     """(ζf)(S) = Σ_{T ⊆ S} f(T), on the last axis."""
-    return butterfly(f, 1)
+    return butterfly(f, 1, out=out)
 
 
-def mobius(f: torch.Tensor) -> torch.Tensor:
+def mobius(f: torch.Tensor, out: "torch.Tensor | None" = None
+           ) -> torch.Tensor:
     """(μf)(S) = Σ_{T ⊆ S} (-1)^{|S\\T|} f(T); inverse of ``zeta``."""
-    return butterfly(f, -1)
+    return butterfly(f, -1, out=out)

@@ -15,6 +15,14 @@ namespace repro {
 
 enum Dtype : int { kInt32 = 0, kFloat32 = 1 };
 
+// Make `device` current unless it already is (the common case: one card).
+inline cudaError_t use_device(int device) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess || current == device) return err;
+  return cudaSetDevice(device);
+}
+
 struct U32Arith {
   using T = uint32_t;
   __device__ __forceinline__ static T add(T a, T b) { return a + b; }

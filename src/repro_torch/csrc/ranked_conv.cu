@@ -107,7 +107,7 @@ extern "C" int repro_ranked_conv(const void* Z, void* out, long long rest,
                                  int nranks, int k, int dtype, int device,
                                  void* stream) {
   if (rest <= 0 || k < 1 || k >= nranks) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = repro::use_device(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kInt32)

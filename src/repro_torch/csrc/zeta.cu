@@ -1,9 +1,9 @@
 // Subset-lattice zeta (sign +1) and Moebius (sign -1) transform over the
 // last axis of a (..., 2^n) table of int32 or float32, for Hopper.
 //
-// Replaces repro/kernels/zeta_pallas.py: _local_kernel (pallas_call at
-// :85, launched by _local_pass) and _pair_kernel (pallas_call at :122,
-// launched by _pair_pass), and the zeta_pallas host contract.
+// Replaces repro/kernels/zeta_pallas.py: _local_kernel (:53, pallas_call
+// at :85, launched by _local_pass) and _pair_kernel (:101, pallas_call at
+// :122, launched by _pair_pass), and the zeta_pallas host contract.
 //
 // What it computes: Yates' butterfly.  For every bit j < n and every
 // index i with bit j set, x[i] += sign * x[i ^ (1 << j)], bits in
@@ -11,27 +11,48 @@
 // partner never crosses a 2^n element, because tiles are 2^b-aligned with
 // b <= n and partners differ only in bits below n.
 //
-// Design.  The transform is bound by memory on this card: 2^n n / 2 adds
-// on 8 bytes per element moved (read once, written once).  So
-//   * zeta_local_kernel does the low b = min(n, 12) bits in shared
-//     memory: one block loads a 2^b tile (16 KB), runs b stages with a
-//     __syncthreads() between them, and writes the tile once.  One
-//     launch replaces the TPU's 256-lane subset-matrix product plus its
-//     sublane butterflies;
-//   * zeta_pair_kernel does one bit j >= b per launch, in place: within
-//     one stage no element that is read is also written (readers have
-//     bit j clear, writers bit j set), so the in-place pass is bitwise
-//     the same as the TPU's read-twice / write-once pair pass.
-// At n = 15 a transform is one local launch and three pair launches.
-// f32 runs the same butterflies in f32 (no tensor cores, no TF32): exact
-// for integer values below 2^24.  The TPU kernel's n < 11 fallback to the
-// reference is gone: any n >= 0 launches.
+// Bound.  2^n n / 2 adds on 8 bytes per element of device memory (read
+// once, written once): at 3.35 TB/s and well under one add per byte the
+// transform is bound by bytes, 2.4 ns per 1024 elements.  It only gets
+// there with one pass over the table and enough bytes in flight.
+//
+// Design.  zeta_cluster_kernel does the low b = min(n, 15) bits in ONE
+// launch, reading and writing every element of device memory once:
+//   * a block owns a 4096-element tile (16 KB of shared memory) and does
+//     its low min(b, 12) bits in registers, 5 bits at a time: 16-byte
+//     loads put bits 0-1 in registers, then two passes through shared
+//     memory (a __syncthreads each) put bits 2-6 and then bits 7-11 in
+//     registers.  A swizzle (bits 2-4 XOR bits 7-9) keeps every access
+//     free of bank conflicts;
+//   * for b > 12 a row of 2^b elements is one thread block cluster of
+//     2^(b-12) blocks (at most 8, the portable size).  Each block stores
+//     column slice s of its tile into block s's receive buffer (16 KB
+//     more) through distributed shared memory; after one release/acquire cluster
+//     barrier block r holds slice r of every tile of the row, runs bits
+//     12..b-1 in registers and writes the slice straight to device
+//     memory.  The barrier that guards the first remote store is arrived
+//     at before the loads, so its wait costs nothing;
+//   * for n < 12 one block takes 4096 / 2^n whole rows.
+// Every block loads its whole tile before its first barrier (the
+// cluster barrier, or its own __syncthreads when n <= 12) and stores
+// only after it, so `out` may be `in` (an in-place transform).  Bits are applied in increasing
+// order, each add rounded alone, as the plain version applies them:
+// f32 results are bitwise those of the plain version.  zeta_pair_kernel
+// does one more bit per launch, in place, for the bits >= 15 of n > 15
+// tables (no caller of the int32 tier has one).
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxTileBits = 12;  // 4096 x 4 B = 16 KB of shared memory
-constexpr int kLocalThreads = 512;
+constexpr int kTileBits = 12;  // 4096 x 4 B = 16 KB of shared memory
+constexpr int kTile = 1 << kTileBits;
+constexpr int kThreads = 128;
+constexpr int kPerThread = kTile / kThreads;  // 32 registers of data
+constexpr int kMaxClusterBits = 3;            // 8 blocks: portable size
 constexpr int kPairThreads = 256;
 
 template <class A>
@@ -41,26 +62,175 @@ __device__ __forceinline__ typename A::T step(typename A::T own,
   return sign > 0 ? A::add(own, partner) : A::sub(own, partner);
 }
 
-template <class A>
-__global__ void zeta_local_kernel(const typename A::T* in,
-                                  typename A::T* out, int tile_bits,
-                                  int sign) {
-  using T = typename A::T;
-  __shared__ T buf[1 << kMaxTileBits];
-  const int tile = 1 << tile_bits;
-  const long long base = static_cast<long long>(blockIdx.x) << tile_bits;
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) buf[i] = in[base + i];
-  __syncthreads();
-  const int half = tile >> 1;
-  for (int j = 0; j < tile_bits; ++j) {
-    const int low = (1 << j) - 1;
-    for (int p = threadIdx.x; p < half; p += blockDim.x) {
-      const int i = ((p & ~low) << 1) | (1 << j) | (p & low);
-      buf[i] = step<A>(buf[i], buf[i ^ (1 << j)], sign);
+// One butterfly stage over register bit RB: v[r | RB] op= v[r].
+template <class A, int RB>
+__device__ __forceinline__ void reg_stage(typename A::T (&v)[kPerThread],
+                                          int sign) {
+#pragma unroll
+  for (int r = 0; r < kPerThread; ++r)
+    if (r & RB) v[r] = step<A>(v[r], v[r ^ RB], sign);
+}
+
+template <class T, class V>
+__device__ __forceinline__ void unpack(const V& w, T* d) {
+  d[0] = w.x;
+  d[1] = w.y;
+  d[2] = w.z;
+  d[3] = w.w;
+}
+
+template <class T, class V>
+__device__ __forceinline__ V pack(const T* d) {
+  V w;
+  w.x = d[0];
+  w.y = d[1];
+  w.z = d[2];
+  w.w = d[3];
+  return w;
+}
+
+// Four consecutive elements at idx; zeros past `total`.  kVec: 16-byte
+// access (pointer 16-byte aligned, total a multiple of 4).
+template <class T, class V, bool kVec>
+__device__ __forceinline__ void load4(const T* p, long long idx,
+                                      long long total, T* d) {
+  if (kVec) {
+    if (idx < total) {
+      unpack<T, V>(*reinterpret_cast<const V*>(p + idx), d);
+    } else {
+      d[0] = d[1] = d[2] = d[3] = 0;
     }
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) d[c] = idx + c < total ? p[idx + c] : 0;
+  }
+}
+
+template <class T, class V, bool kVec>
+__device__ __forceinline__ void store4(T* p, long long idx, long long total,
+                                       const T* d) {
+  if (kVec) {
+    if (idx < total) *reinterpret_cast<V*>(p + idx) = pack<T, V>(d);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (idx + c < total) p[idx + c] = d[c];
+  }
+}
+
+// Shared-memory word of tile element i: bits 2-4 XOR bits 7-9, so that
+// each of the kernel's three access patterns (16-byte writes of
+// consecutive groups, 32 lanes 4 words apart, 32 consecutive lanes)
+// meets 32 different banks.  Groups of 4 consecutive elements stay
+// together and 16-byte aligned.
+__device__ __forceinline__ int swz(int i) { return i ^ (((i >> 7) & 7) << 2); }
+
+// Low tile_bits (<= 12) bits of every 4096-element tile, then, for
+// kClusterBits > 0, bits 12..12+kClusterBits-1 across the cluster.
+template <class A, class V, int kClusterBits, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    zeta_cluster_kernel(const typename A::T* in, typename A::T* out,
+                        long long total, int tile_bits, int sign) {
+  using T = typename A::T;
+  __shared__ __align__(16) T buf[kTile];
+  const int t = threadIdx.x;
+  const long long base = static_cast<long long>(blockIdx.x) << kTileBits;
+  T v[kPerThread];
+  // Arrive now, wait before the first remote store: every block of the
+  // cluster has then started, and the wait overlaps the loads.
+  if constexpr (kClusterBits > 0)
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+
+  // Layout 1 (16-byte loads): v[4q + c] is element 512 q + 4 t + c, so
+  // register bits 0-1 are index bits 0-1.
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+    load4<T, V, kVec>(in, base + 512 * q + 4 * t, total, v + 4 * q);
+  if (tile_bits > 0) reg_stage<A, 1>(v, sign);
+  if (tile_bits > 1) reg_stage<A, 2>(v, sign);
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+    reinterpret_cast<V*>(buf)[swz(512 * q + 4 * t) >> 2] =
+        pack<T, V>(v + 4 * q);
+  __syncthreads();
+  // Layout 2: v[r] is element (t & 3) + 4 r + 128 (t >> 2): register
+  // bits are index bits 2-6.  Each thread rewrites the words it read.
+  const int lo = (t & 3) + 128 * (t >> 2);
+  if (tile_bits > 2) {
+#pragma unroll
+    for (int r = 0; r < kPerThread; ++r) v[r] = buf[swz(lo + 4 * r)];
+    reg_stage<A, 1>(v, sign);
+    if (tile_bits > 3) reg_stage<A, 2>(v, sign);
+    if (tile_bits > 4) reg_stage<A, 4>(v, sign);
+    if (tile_bits > 5) reg_stage<A, 8>(v, sign);
+    if (tile_bits > 6) reg_stage<A, 16>(v, sign);
+#pragma unroll
+    for (int r = 0; r < kPerThread; ++r) buf[swz(lo + 4 * r)] = v[r];
     __syncthreads();
   }
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) out[base + i] = buf[i];
+  // Layout 3: v[r] is element t + 128 r: register bits are index bits
+  // 7-11.  Again each thread rewrites only the words it read.
+#pragma unroll
+  for (int r = 0; r < kPerThread; ++r) v[r] = buf[swz(t + 128 * r)];
+  if (tile_bits > 7) reg_stage<A, 1>(v, sign);
+  if (tile_bits > 8) reg_stage<A, 2>(v, sign);
+  if (tile_bits > 9) reg_stage<A, 4>(v, sign);
+  if (tile_bits > 10) reg_stage<A, 8>(v, sign);
+  if (tile_bits > 11) reg_stage<A, 16>(v, sign);
+
+  if constexpr (kClusterBits == 0) {
+#pragma unroll
+    for (int r = 0; r < kPerThread; ++r) {
+      const long long idx = base + t + 128 * r;
+      if (idx < total) out[idx] = v[r];
+    }
+  } else {
+    constexpr int kC = 1 << kClusterBits;        // tiles per row
+    constexpr int kGroups = kPerThread / 4 / kC;  // 4-element columns
+    __shared__ __align__(16) T recv[kTile];   // slice `rank` of each tile
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = static_cast<int>(cluster.block_rank());
+#pragma unroll
+    for (int r = 0; r < kPerThread; ++r) buf[swz(t + 128 * r)] = v[r];
+    __syncthreads();
+    asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+    // Push: slice s of this tile goes to block s, as its part `rank`.
+#pragma unroll
+    for (int s = 0; s < kC; ++s) {
+      V* peer = reinterpret_cast<V*>(cluster.map_shared_rank(recv, s));
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+        const int p = 4 * (t + 128 * g);
+        peer[(rank * (kTile / kC) + p) >> 2] =
+            reinterpret_cast<const V*>(buf)[swz(s * (kTile / kC) + p) >> 2];
+      }
+    }
+    // Every push into recv is complete and visible after this barrier;
+    // no block touches another's shared memory later, so blocks may exit.
+    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+    const int slice = rank * (kTile / kC);
+    // v[4 (g kC + s) + c]: element slice + 4 (t + 128 g) + c of tile s,
+    // so register bits 2..2+kClusterBits-1 are index bits 12.. .
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g)
+#pragma unroll
+      for (int s = 0; s < kC; ++s)
+        unpack<T, V>(reinterpret_cast<const V*>(recv)[
+                         (s * (kTile / kC) + 4 * (t + 128 * g)) >> 2],
+                     v + 4 * (g * kC + s));
+    reg_stage<A, 4>(v, sign);
+    if constexpr (kClusterBits > 1) reg_stage<A, 8>(v, sign);
+    if constexpr (kClusterBits > 2) reg_stage<A, 16>(v, sign);
+    const long long row = base - (static_cast<long long>(rank) << kTileBits);
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g)
+#pragma unroll
+      for (int s = 0; s < kC; ++s)
+        store4<T, V, kVec>(out,
+                           row + (s << kTileBits) + slice + 4 * (t + 128 * g),
+                           total, v + 4 * (g * kC + s));
+  }
 }
 
 template <class A>
@@ -74,45 +244,87 @@ __global__ void zeta_pair_kernel(typename A::T* x, long long half, int bit,
   x[i] = step<A>(x[i], x[i ^ (1LL << bit)], sign);
 }
 
+template <class A, class V, int kClusterBits, bool kVec>
+cudaError_t launch_cluster(const void* in, void* out, long long total,
+                           int tile_bits, int sign, cudaStream_t s) {
+  using T = typename A::T;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>((total + kTile - 1) / kTile));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1u << kClusterBits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = kClusterBits > 0 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, zeta_cluster_kernel<A, V, kClusterBits, kVec>,
+                            static_cast<const T*>(in), static_cast<T*>(out),
+                            total, tile_bits, sign);
+}
+
+template <class A, class V, bool kVec>
+cudaError_t dispatch_cluster(const void* in, void* out, long long total,
+                             int bits, int sign, cudaStream_t s) {
+  const int tile_bits = bits < kTileBits ? bits : kTileBits;
+  switch (bits - tile_bits) {
+    case 0:
+      return launch_cluster<A, V, 0, kVec>(in, out, total, tile_bits, sign, s);
+    case 1:
+      return launch_cluster<A, V, 1, kVec>(in, out, total, tile_bits, sign, s);
+    case 2:
+      return launch_cluster<A, V, 2, kVec>(in, out, total, tile_bits, sign, s);
+    default:
+      return launch_cluster<A, V, 3, kVec>(in, out, total, tile_bits, sign, s);
+  }
+}
+
+template <class A, class V>
+cudaError_t dispatch_vec(const void* in, void* out, long long total,
+                         int bits, int sign, cudaStream_t s) {
+  const bool vec =
+      (total % 4) == 0 &&
+      ((reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(out)) &
+       15) == 0;
+  return vec ? dispatch_cluster<A, V, true>(in, out, total, bits, sign, s)
+             : dispatch_cluster<A, V, false>(in, out, total, bits, sign, s);
+}
+
 }  // namespace
 
-// Low tile_bits bits of every 2^tile_bits tile of `in` (total elements)
-// into `out`.  Returns a cudaError_t.
-extern "C" int repro_zeta_local(const void* in, void* out, long long total,
-                                int tile_bits, int sign, int dtype,
-                                int device, void* stream) {
-  if (tile_bits < 0 || tile_bits > kMaxTileBits || total <= 0 ||
-      (total & ((1LL << tile_bits) - 1)) != 0)
+// Low `bits` (<= 15) bits of every 2^bits row of `in` (total elements)
+// into `out`, in one launch; `out` may be `in`.  Returns a cudaError_t.
+extern "C" int repro_zeta_cluster(const void* in, void* out, long long total,
+                                  int bits, int sign, int dtype, int device,
+                                  void* stream) {
+  if (bits < 0 || bits > kTileBits + kMaxClusterBits || total <= 0 ||
+      (total & ((1LL << bits) - 1)) != 0 ||
+      (total + kTile - 1) / kTile > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = repro::use_device(device);
   if (err != cudaSuccess) return err;
-  const long long blocks = total >> tile_bits;
-  const int half = (1 << tile_bits) >> 1;
-  const int threads =
-      half < 32 ? 32 : (half > kLocalThreads ? kLocalThreads : half);
-  const dim3 grid(static_cast<unsigned>(blocks));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kInt32) {
-    zeta_local_kernel<repro::U32Arith><<<grid, threads, 0, s>>>(
-        static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out),
-        tile_bits, sign);
-  } else if (dtype == repro::kFloat32) {
-    zeta_local_kernel<repro::F32Arith><<<grid, threads, 0, s>>>(
-        static_cast<const float*>(in), static_cast<float*>(out), tile_bits,
-        sign);
-  } else {
+  if (dtype == repro::kInt32)
+    err = dispatch_vec<repro::U32Arith, uint4>(in, out, total, bits, sign, s);
+  else if (dtype == repro::kFloat32)
+    err = dispatch_vec<repro::F32Arith, float4>(in, out, total, bits, sign, s);
+  else
     return cudaErrorInvalidValue;
-  }
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// One butterfly stage over index bit `bit`, in place on `x`.
+// One butterfly stage over index bit `bit`, in place on `x`: within one
+// stage no element that is read is also written (readers have bit j
+// clear, writers bit j set).
 extern "C" int repro_zeta_pair(void* x, long long total, int bit, int sign,
                                int dtype, int device, void* stream) {
   if (bit < 0 || bit > 62 || total <= 0 ||
       (total & ((2LL << bit) - 1)) != 0)
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = repro::use_device(device);
   if (err != cudaSuccess) return err;
   const long long half = total >> 1;
   const long long blocks = (half + kPairThreads - 1) / kPairThreads;

@@ -11,6 +11,8 @@ at the first kernel launch of a process, never at import.
 Each C entry point takes raw pointers (``ctypes.c_void_p``), the device
 index and PyTorch's current stream, launches asynchronously and returns
 the ``cudaError_t`` of the launch; ``check`` raises on anything but 0.
+The library is loaded and its functions bound once; after that a launch
+takes no lock but the counter's.
 
 The launch counters live here too: a wrapper adds one to its kernel's
 count where it launches the kernel, and nowhere else.
@@ -26,13 +28,15 @@ import tempfile
 import threading
 from pathlib import Path
 
+import torch
+
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v"]
-KERNELS = ("zeta_local", "zeta_pair", "ranked_conv")
+KERNELS = ("zeta_cluster", "zeta_pair", "ranked_conv")
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -41,8 +45,8 @@ _LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 _VP, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
-    # in, out, total, tile_bits, sign, dtype, device, stream
-    "repro_zeta_local": [_VP, _VP, _LL, _I, _I, _I, _I, _VP],
+    # in, out, total, bits, sign, dtype, device, stream
+    "repro_zeta_cluster": [_VP, _VP, _LL, _I, _I, _I, _I, _VP],
     # x, total, bit, sign, dtype, device, stream
     "repro_zeta_pair": [_VP, _LL, _I, _I, _I, _I, _VP],
     # Z, out, rest, nranks, k, dtype, device, stream
@@ -50,12 +54,12 @@ _SIGNATURES = {
 }
 
 
-_DTYPE_CODES = {"torch.int32": 0, "torch.float32": 1}   # csrc/common.cuh
+_DTYPE_CODES = {torch.int32: 0, torch.float32: 1}   # csrc/common.cuh
 
 
 def dtype_code(t) -> int:
     """The kernels' dtype code of a tensor: int32 or float32 only."""
-    code = _DTYPE_CODES.get(str(t.dtype))
+    code = _DTYPE_CODES.get(t.dtype)
     if code is None:
         raise TypeError(f"the kernels take int32 or float32, not {t.dtype}")
     return code
@@ -150,8 +154,12 @@ def build_log() -> str:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
+    """The loaded kernel library (built and bound on first use; later
+    calls take no lock)."""
     global _LIB
+    lib = _LIB
+    if lib is not None:
+        return lib
     with _LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
@@ -163,6 +171,12 @@ def library() -> ctypes.CDLL:
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
             _LIB = lib
         return _LIB
+
+
+def current_stream(t) -> int:
+    """PyTorch's current stream on ``t``'s card, as a raw pointer (the
+    stream-object route costs microseconds per launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check(err: int, what: str) -> None:

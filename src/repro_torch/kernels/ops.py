@@ -33,30 +33,36 @@ def _route(x: torch.Tensor) -> str:
     raise ValueError(f"no kernel route for device {x.device}")
 
 
-def zeta_op(f: torch.Tensor, inverse: bool = False) -> torch.Tensor:
-    """Zeta (or Moebius) over the last axis; leading axes are batch."""
+def zeta_op(f: torch.Tensor, inverse: bool = False,
+            out: "torch.Tensor | None" = None) -> torch.Tensor:
+    """Zeta (or Moebius) over the last axis; leading axes are batch.
+    ``out`` (contiguous, same shape and dtype; may be ``f``) takes the
+    result instead of a new tensor."""
     if _route(f) == "cuda":
-        return zeta_cuda(f, inverse=inverse)
-    return mobius_ref(f) if inverse else zeta_ref(f)
+        return zeta_cuda(f, inverse=inverse, out=out)
+    return mobius_ref(f, out=out) if inverse else zeta_ref(f, out=out)
 
 
-def mobius_op(f: torch.Tensor) -> torch.Tensor:
-    return zeta_op(f, inverse=True)
+def mobius_op(f: torch.Tensor, out: "torch.Tensor | None" = None
+              ) -> torch.Tensor:
+    return zeta_op(f, inverse=True, out=out)
 
 
 # The batched solver stacks B same-n feasibility tables as (B, 2^n) (and
 # (G, B, 2^n), (n+1, B, 2^n)): the batch folds into the kernel's index,
 # so one launch sequence covers the whole stack.
-def zeta_batch_op(f: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+def zeta_batch_op(f: torch.Tensor, inverse: bool = False,
+                  out: "torch.Tensor | None" = None) -> torch.Tensor:
     """Batched zeta/Moebius over the last axis of a (..., 2^n) stack."""
     if f.ndim < 2:
         raise ValueError("zeta_batch_op expects a leading batch axis; "
                          "use zeta_op for flat tables")
-    return zeta_op(f, inverse=inverse)
+    return zeta_op(f, inverse=inverse, out=out)
 
 
-def mobius_batch_op(f: torch.Tensor) -> torch.Tensor:
-    return zeta_batch_op(f, inverse=True)
+def mobius_batch_op(f: torch.Tensor, out: "torch.Tensor | None" = None
+                    ) -> torch.Tensor:
+    return zeta_batch_op(f, inverse=True, out=out)
 
 
 def ranked_conv_op(Z: torch.Tensor, k: int) -> torch.Tensor:

@@ -31,10 +31,9 @@ def ranked_conv_cuda(Z: torch.Tensor, k: int) -> torch.Tensor:
     rest = out.numel()
     if rest == 0:
         return out
-    lib = build.library()
-    err = lib.repro_ranked_conv(
+    err = build.library().repro_ranked_conv(
         Z.data_ptr(), out.data_ptr(), rest, nranks, int(k), code,
-        Z.device.index, torch.cuda.current_stream(Z.device).cuda_stream)
+        Z.get_device(), build.current_stream(Z))
     build.check(err, "ranked_conv")
     build.count_launch("ranked_conv")
     return out

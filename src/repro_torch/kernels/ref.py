@@ -22,19 +22,21 @@ import torch
 from repro_torch.core.zeta import butterfly
 
 
-def zeta_ref(f: torch.Tensor) -> torch.Tensor:
-    return butterfly(f, 1)
+def zeta_ref(f: torch.Tensor, out: "torch.Tensor | None" = None
+             ) -> torch.Tensor:
+    return butterfly(f, 1, out=out)
 
 
-def mobius_ref(f: torch.Tensor) -> torch.Tensor:
-    return butterfly(f, -1)
+def mobius_ref(f: torch.Tensor, out: "torch.Tensor | None" = None
+               ) -> torch.Tensor:
+    return butterfly(f, -1, out=out)
 
 
 def zeta_stages_ref(f: torch.Tensor, sign: int, lo: int,
                     hi: int) -> torch.Tensor:
     """Butterfly stages ``lo..hi-1`` only: the plain version of one
-    ``zeta_local`` launch (``lo = 0``, ``hi`` = tile bits) or of one
-    ``zeta_pair`` launch (``hi = lo + 1``)."""
+    launch of ``zeta_cuda.launch_plan`` (``zeta_cluster``: ``lo = 0``,
+    ``hi = min(n, 15)``; ``zeta_pair``: ``hi = lo + 1``)."""
     return butterfly(f, sign, range(lo, hi))
 
 

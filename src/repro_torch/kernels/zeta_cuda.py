@@ -5,60 +5,87 @@ Replaces ``repro/kernels/zeta_pallas.py``: ``_local_kernel`` (launched by
 the ``zeta_pallas`` host contract (leading axes fold into the row axis,
 butterflies never cross a 2^n element).
 
-A transform over n bits is one ``zeta_local`` launch (the low
-b = min(n, 12) bits of every 2^b tile, in shared memory) and n - b
-``zeta_pair`` launches (one bit each, in place).  Both are bound by
-memory: the whole transform moves 8 bytes per element at best (read
-once, write once); the pair stages each read the table again.  Unlike
-the TPU kernel there is no fallback below n = 11: every n launches.
+A transform over n bits follows ``launch_plan(n)``: one ``zeta_cluster``
+launch takes the low min(n, 15) bits — a 4096-element tile per block,
+bits 12..14 across a thread block cluster of ``cluster_size(n)`` blocks
+through distributed shared memory — reading and writing every element
+once; each bit >= 15 is one more ``zeta_pair`` launch, in place.  The
+int32 tier ends at n = 15, so the main path makes one launch per
+transform.  The output may be the input (``out=f``), and may be a
+contiguous slice of a larger buffer (a ranked buffer's slot).  Every
+n >= 0 launches on a CUDA tensor.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.core.zeta import lattice_bits
 from repro_torch.kernels import build
 
-TILE_BITS = 12
+TILE_BITS = 12          # one block's tile: 4096 elements, 16 KB
+CLUSTER_BITS = 3        # at most 8 blocks per cluster (the portable size)
+LOW_BITS = TILE_BITS + CLUSTER_BITS   # bits one zeta_cluster launch takes
 
 
-def launch_local(x: torch.Tensor, out: torch.Tensor, tile_bits: int,
-                 sign: int) -> None:
-    """One ``zeta_local`` launch: low ``tile_bits`` bits of ``x`` into
-    ``out`` (same shape, contiguous, on the card)."""
-    lib = build.library()
-    err = lib.repro_zeta_local(
-        x.data_ptr(), out.data_ptr(), x.numel(), tile_bits, sign,
-        build.dtype_code(x), x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "zeta_local")
-    build.count_launch("zeta_local")
+@functools.lru_cache(maxsize=None)
+def launch_plan(n: int) -> tuple:
+    """The launches of an n-bit transform, in order: ``(kernel, lo, hi)``
+    applies bits ``lo..hi-1``."""
+    low = min(n, LOW_BITS)
+    return (("zeta_cluster", 0, low),) + tuple(
+        ("zeta_pair", j, j + 1) for j in range(low, n))
+
+
+def cluster_size(n: int) -> int:
+    """Blocks per cluster of the ``zeta_cluster`` launch at n bits."""
+    return 1 << max(min(n, LOW_BITS) - TILE_BITS, 0)
+
+
+def launch_cluster(x: torch.Tensor, out: torch.Tensor, bits: int,
+                   sign: int) -> None:
+    """One ``zeta_cluster`` launch: the low ``bits`` (<= 15) bits of every
+    2^bits row of ``x`` into ``out`` (same shape, contiguous, on the
+    card; ``out`` may be ``x``)."""
+    err = build.library().repro_zeta_cluster(
+        x.data_ptr(), out.data_ptr(), x.numel(), bits, sign,
+        build.dtype_code(x), x.get_device(), build.current_stream(x))
+    build.check(err, "zeta_cluster")
+    build.count_launch("zeta_cluster")
 
 
 def launch_pair(x: torch.Tensor, bit: int, sign: int) -> None:
     """One ``zeta_pair`` launch: butterfly stage ``bit``, in place."""
-    lib = build.library()
-    err = lib.repro_zeta_pair(
+    err = build.library().repro_zeta_pair(
         x.data_ptr(), x.numel(), bit, sign, build.dtype_code(x),
-        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+        x.get_device(), build.current_stream(x))
     build.check(err, "zeta_pair")
     build.count_launch("zeta_pair")
 
 
-def zeta_cuda(f: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+def zeta_cuda(f: torch.Tensor, inverse: bool = False,
+              out: "torch.Tensor | None" = None) -> torch.Tensor:
     """Zeta (or Moebius, ``inverse=True``) over the last axis of a CUDA
-    tensor of int32 or float32; returns a new tensor."""
+    tensor of int32 or float32, into ``out`` (contiguous, same shape and
+    dtype; may be ``f``) or a new tensor."""
     if f.device.type != "cuda":
         raise ValueError("zeta_cuda takes a CUDA tensor")
     build.dtype_code(f)
     n = lattice_bits(f.shape[-1])
     f = f.contiguous()
-    out = torch.empty_like(f)
+    if out is None:
+        out = torch.empty_like(f)
+    elif (out.shape != f.shape or out.dtype != f.dtype
+          or out.device != f.device or not out.is_contiguous()):
+        raise ValueError("out must be a contiguous tensor of the input's "
+                         "shape, dtype and device")
     if f.numel() == 0:
         return out
     sign = -1 if inverse else 1
-    b = min(n, TILE_BITS)
-    launch_local(f, out, b, sign)
-    for j in range(b, n):
-        launch_pair(out, j, sign)
+    for kernel, lo, hi in launch_plan(n):
+        if kernel == "zeta_cluster":
+            launch_cluster(f, out, hi, sign)
+        else:
+            launch_pair(out, lo, sign)
     return out

@@ -9,8 +9,10 @@ sum is exact.  On random floats the reference sums the low 8 bits with a
 zeta (positive terms) holds to rtol = 1e-6; Moebius cancels, so it holds
 to the sum's error bound, n * 2^-24 * Σ|f|, per table.
 
-The ``cuda`` cases hold each CUDA kernel against its plain version on the
-card; they skip without one.
+The launch plan of a transform (one ``zeta_cluster`` launch for the low
+15 bits, one ``zeta_pair`` per higher bit) is plain Python and is checked
+here.  The ``cuda`` cases hold each CUDA kernel against its plain version
+on the card; they skip without one.
 """
 import jax  # noqa: F401
 import jax.numpy as jnp
@@ -22,7 +24,8 @@ from repro.kernels.ranked_conv import ranked_conv_pallas
 from repro.kernels.ops import zeta_op as ref_zeta_op
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ranked_conv import ranked_conv_cuda
-from repro_torch.kernels.zeta_cuda import launch_local, launch_pair
+from repro_torch.kernels.zeta_cuda import (cluster_size, launch_cluster,
+                                           launch_pair, launch_plan)
 
 SHAPES = ["flat", "batch", "batch2"]
 
@@ -105,48 +108,135 @@ def test_ops_on_cpu_launch_no_kernel():
     x = torch.arange(3 << 12, dtype=torch.int32).reshape(3, 1 << 12)
     ops.mobius_batch_op(ops.zeta_batch_op(x))
     ops.ranked_conv_op(torch.ones((13, 1 << 12), dtype=torch.int32), 7)
-    assert ops.launch_counts() == {"zeta_local": 0, "zeta_pair": 0,
+    assert ops.launch_counts() == {"zeta_cluster": 0, "zeta_pair": 0,
                                    "ranked_conv": 0}
     with pytest.raises(ValueError):
         ops.zeta_batch_op(x[0])
 
 
 def test_stage_plain_versions_compose_to_the_transform():
-    """The per-launch plain versions (one local tile pass + one stage per
-    higher bit) compose to the whole transform: what the card checks
-    launch by launch is the function the reference computes."""
+    """The per-launch plain versions of the launch plan (one cluster
+    launch for the low 15 bits + one stage per higher bit) compose to the
+    whole transform: what the card checks launch by launch is the
+    function the reference computes."""
     rng = np.random.default_rng(5)
-    x = torch.from_numpy(rng.integers(-9, 10, (2, 1 << 14))
+    x = torch.from_numpy(rng.integers(-9, 10, (2, 1 << 17))
                          .astype(np.int32))
+    assert [k for k, _, _ in launch_plan(17)] == ["zeta_cluster",
+                                                  "zeta_pair", "zeta_pair"]
     for sign in (1, -1):
-        y = ref.zeta_stages_ref(x, sign, 0, 12)
-        for j in (12, 13):
-            y = ref.zeta_stages_ref(y, sign, j, j + 1)
+        y = x
+        for _, lo, hi in launch_plan(17):
+            y = ref.zeta_stages_ref(y, sign, lo, hi)
         full = ref.zeta_ref(x) if sign > 0 else ref.mobius_ref(x)
         assert torch.equal(y, full)
 
 
+@pytest.mark.parametrize("n", range(19))
+def test_launch_plan_covers_each_bit_once(n):
+    plan = launch_plan(n)
+    bits = [j for _, lo, hi in plan for j in range(lo, hi)]
+    assert bits == list(range(n))          # each bit once, increasing
+    assert plan[0] == ("zeta_cluster", 0, min(n, 15))
+    assert all(k == "zeta_pair" and hi == lo + 1 for k, lo, hi in plan[1:])
+
+
+def test_cluster_size():
+    assert [cluster_size(n) for n in range(19)] == (
+        [1] * 13 + [2, 4, 8, 8, 8, 8])
+    for n in range(19):
+        assert cluster_size(n) == 2 ** max(min(n, 15) - 12, 0)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("inverse", [False, True], ids=["zeta", "mobius"])
+@pytest.mark.parametrize("where", ["fresh", "other", "self"])
+def test_zeta_op_out_on_cpu(where, inverse, dtype):
+    """``out=`` on CPU tensors: a given tensor or the input itself takes
+    the plain version's result, bitwise."""
+    rng = np.random.default_rng(7)
+    if dtype == np.int32:
+        a = rng.integers(-2**31, 2**31, (3, 1 << 9), dtype=np.int64)
+    else:
+        a = rng.integers(-100, 101, (3, 1 << 9))
+    x = torch.from_numpy(a.astype(dtype))
+    want = ref.mobius_ref(x) if inverse else ref.zeta_ref(x)
+    keep = x.clone()
+    out = {"fresh": None, "other": torch.empty_like(x), "self": x}[where]
+    got = ops.zeta_batch_op(x, inverse=inverse, out=out)
+    assert torch.equal(got, want)
+    if out is not None:
+        assert got.data_ptr() == out.data_ptr()
+    if where != "self":
+        assert torch.equal(x, keep)          # the input is left alone
+    with pytest.raises(ValueError):
+        ops.zeta_op(x, out=torch.empty((3, 1 << 8), dtype=x.dtype))
+
+
 # ------------------------------------------------------ on the card only
+CARD_SHAPES = {"flat": lambda n: (1 << n,), "batch": lambda n: (16, 1 << n),
+               "batch2": lambda n: (2, 16, 1 << n)}
+
+
+def _card_inputs(shape, seed, device):
+    """Full-range int32, integer f32 and random f32, on the card."""
+    rng = np.random.default_rng(seed)
+    xi = rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)
+    xf = rng.integers(-8, 9, shape).astype(np.float32)
+    xr = rng.random(shape, dtype=np.float32)
+    return [torch.from_numpy(a).to(device) for a in (xi, xf, xr)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 5, 12, 15])
-def test_zeta_kernel_matches_plain_on_card(cuda_device, n):
-    rng = np.random.default_rng(n)
-    x = torch.from_numpy(rng.integers(-2**31, 2**31, (3, 1 << n),
-                                      dtype=np.int64).astype(np.int32))
-    x = x.to(cuda_device)
-    for sign in (1, -1):
-        b = min(n, 12)
-        out = torch.empty_like(x)
-        launch_local(x, out, b, sign)
-        assert torch.equal(out, ref.zeta_stages_ref(x, sign, 0, b))
-        for j in range(b, n):
+@pytest.mark.parametrize("kind", sorted(CARD_SHAPES))
+@pytest.mark.parametrize("n", [0, 3, 11, 12, 13, 15, 16, 17])
+def test_zeta_cluster_kernel_matches_plain_on_card(cuda_device, n, kind):
+    """Each launch of the plan against its plain version, the whole
+    transform (fresh output and in place), and mobius(zeta(x)) == x.
+    Bits run in increasing order with each add rounded alone, so random
+    f32 is bitwise too."""
+    inputs = _card_inputs(CARD_SHAPES[kind](n), 10 * n + len(kind),
+                          cuda_device)
+    for i, x in enumerate(inputs):
+        for sign in (1, -1):
+            plan = launch_plan(n)
+            out = torch.empty_like(x)
+            launch_cluster(x, out, plan[0][2], sign)
+            assert torch.equal(out,
+                               ref.zeta_stages_ref(x, sign, 0, plan[0][2]))
+            for _, lo, _ in plan[1:]:
+                y = x.clone()
+                launch_pair(y, lo, sign)
+                assert torch.equal(y, ref.zeta_stages_ref(x, sign, lo,
+                                                          lo + 1))
+            want = ref.zeta_ref(x) if sign > 0 else ref.mobius_ref(x)
+            assert torch.equal(ops.zeta_op(x, inverse=sign < 0), want)
             y = x.clone()
-            launch_pair(y, j, sign)
-            assert torch.equal(y, ref.zeta_stages_ref(x, sign, j, j + 1))
-        full = ops.zeta_op(x, inverse=sign < 0)
+            assert ops.zeta_op(y, inverse=sign < 0, out=y) is y
+            assert torch.equal(y, want)
+        if i < 2:               # exact inputs: int32, integer f32
+            assert torch.equal(ops.mobius_op(ops.zeta_op(x)), x)
         torch.cuda.synchronize()
-        assert torch.equal(full, ref.zeta_ref(x) if sign > 0
-                           else ref.mobius_ref(x))
+
+
+@pytest.mark.cuda
+def test_zeta_cluster_kernel_main_shape_on_card(cuda_device):
+    """The path's largest stack, (16, 16, 2^15): one launch, in place,
+    into a slot of a ranked buffer."""
+    ops.reset_launch_counts()
+    for x in _card_inputs((16, 16, 1 << 15), 15, cuda_device):
+        Z = torch.zeros((3,) + tuple(x.shape), dtype=x.dtype,
+                        device=cuda_device)
+        for sign in (1, -1):
+            want = ref.zeta_ref(x) if sign > 0 else ref.mobius_ref(x)
+            got = ops.zeta_batch_op(x, inverse=sign < 0, out=Z[1])
+            assert got.data_ptr() == Z[1].data_ptr()
+            assert torch.equal(Z[1], want)
+            assert torch.equal(Z[0], torch.zeros_like(x))
+            assert torch.equal(Z[2], torch.zeros_like(x))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["zeta_cluster"] == 6
+    assert ops.launch_counts()["zeta_pair"] == 0
 
 
 @pytest.mark.cuda

@@ -129,3 +129,24 @@ def test_transform_tiers():
     assert lattice.transforms("cuda").ranked_conv is not None
     with pytest.raises(ValueError):
         lattice.transforms("xla")          # the reference's names only
+
+
+@pytest.mark.parametrize("tier", ["f64", "cuda"])
+def test_transforms_write_into_the_ranked_slot(tier):
+    """``tfm.zeta(f, out=Z[k])`` fills slot k of the ranked buffer in
+    place, with the bits of a fresh transform, and leaves the other
+    slots alone: what ``feasibility_layers`` relies on."""
+    ref_name, dtype = TIERS[tier]
+    tfm = lattice.transforms(tier)
+    layer = torch.from_numpy(_gate(6, dtype, seed=11))
+    Z = torch.zeros((7,) + tuple(layer.shape), dtype=tfm.dtype)
+    got = tfm.zeta(layer, out=Z[3])
+    assert got.data_ptr() == Z[3].data_ptr()
+    assert torch.equal(Z[3], tfm.zeta(layer))
+    want = np.asarray(ref_lattice.transforms(ref_name).zeta(
+        jnp.asarray(layer.numpy())))
+    assert np.array_equal(Z[3].numpy(), want)
+    assert not Z[:3].any() and not Z[4:].any()
+    h = Z[3].clone()
+    tfm.mobius(h, out=h)                     # in place
+    assert torch.equal(h, layer)
