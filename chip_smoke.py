@@ -24,15 +24,28 @@ Phases (any failed check exits non-zero; nothing is caught):
                tier's;
 7. large     — 4 clique(18) queries, above the int32 envelope: ``auto``
                takes the f64 tier and launches no kernel;
-8. times     — each kernel at the path's shapes: device time per launch
-               (torch.profiler), the host-launched call (CUDA events
-               around 50 calls from Python), the host's cost per launch,
-               its bound and its plain version; one whole transform warm
-               and with L2 cold; launches per solve, solved queries per
-               second.
+8. cap       — the C_cap lane (default policy: fused engine, pass 1 on
+               the f64 tier as in the reference) on 16 clique(15) queries
+               as ``"cap"`` and chain/star/cycle(15) as ``"cap_conn"``;
+               caps, C_out values and trees equal the host pipeline's
+               (``ccap(engine="host")``); then ``fused_ccap`` on the
+               kernel tier over the 16 cliques equals the f64 tier, with
+               one ``zeta_cluster`` launch per transform, no ``zeta_pair``;
+9. out       — the C_out lane (fused DPccp, one program call per chunk)
+               on 16 clique(15) plus chain/star/cycle(15): optima, trees
+               and DP tables equal numpy DPsub (cliques) and the DPccp
+               enumerator (sparse graphs); one micro-batch at n = 13 with
+               all four lane costs comes back in request order;
+10. times    — each kernel at the path's shapes: device time per launch
+               (torch.profiler) warm and with L2 cold, the host-launched
+               call (CUDA events around 50 calls from Python), the host's
+               cost per launch, its bound and its plain version; one
+               whole transform warm and with L2 cold; launches per solve,
+               solved queries per second.
 
-Launch counters are set to 0 just before each main-path phase (5, 6) and
-read just after.  Data comes from fixed seeds through numpy.  The
+Phases 8 and 9 print wall time, solved queries per second, peak device
+memory and host syncs per solve.  Launch counters are set to 0 just
+before each main-path phase (5, 6, 8, 9) and read just after.  Data comes from fixed seeds through numpy.  The
 second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a card, and
 in a directory without the port.
@@ -153,7 +166,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a card")
     try:
-        from repro_torch.core import engine, querygraph as qg
+        from repro_torch.core import engine, jointree, querygraph as qg
+        from repro_torch.core.baselines import dpsub
+        from repro_torch.core.ccap import ccap
+        from repro_torch.core.dpccp import dpccp_with_tree
         from repro_torch.core.dpconv_max import dpconv_max_ref
         from repro_torch.kernels import build, ops, ref
         from repro_torch.kernels.ranked_conv import ranked_conv_cuda
@@ -370,19 +386,138 @@ def main() -> int:
           f"(first call of this bucket), {qps7:.3f} queries/s {card}",
           flush=True)
 
-    # ----------------------------------------------------------- 8. times
+    def lane_run(solver, lane_items):
+        """One timed ``solve`` after a warm-up call: results, wall
+        seconds, peak device bytes, host syncs per solve and launches."""
+        solver.solve(lane_items)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        engine.reset_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = solver.solve(lane_items)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        st = engine.stats()
+        return (res, dt, torch.cuda.max_memory_allocated(),
+                st.host_syncs / max(st.solves, 1), ops.launch_counts())
+
+    def same_plan(label, r, cout, tree, gamma=None):
+        check(float(r.cost).hex() == float(cout).hex(),
+              f"{label}: {r.cost!r} != host {cout!r}")
+        check(str(r.tree) == str(tree), f"{label}: trees differ")
+        if gamma is not None:
+            check(float(r.meta["gamma"]).hex() == float(gamma).hex(),
+                  f"{label}: cap {r.meta['gamma']!r} != host {gamma!r}")
+
+    sparse15 = []
+    for i, maker in enumerate((qg.chain, qg.star, qg.cycle)):
+        q = maker(15)
+        sparse15.append((q, qg.make_cardinalities(q, seed=300 + i)))
+    cliques15 = [qg.paper_clique_instance(15, seed) for seed in range(16)]
+
+    # ------------------------------------------------------------ 8. cap
+    cap_items = ([(q, c, "cap") for q, c in cliques15]
+                 + [(q, c, "cap_conn") for q, c in sparse15])
+    got8, t_cap, mem8, syncs8, counts8 = lane_run(BatchedSolver(), cap_items)
+    check(sum(counts8.values()) == 0,
+          f"the cap lane launched {counts8}: its pass 1 runs the f64 tier")
+    for (q, c, cost), r in zip(cap_items, got8):
+        check(r.meta["engine"] == "fused" and r.meta["backend"] == "f64",
+              f"cap lane meta {r.meta}")
+        h = ccap(q, c, engine="host", connected=cost == "cap_conn")
+        same_plan(f"{cost} n=15", r, h.cout, h.tree, h.gamma)
+    qps8 = len(cap_items) / t_cap
+    print(f"cap: {len(cap_items)} queries (16 cap, 3 cap_conn) at n=15 in "
+          f"{t_cap:.4f} s, {qps8:.3f} queries/s, peak device memory "
+          f"{mem8 / 2**20:.1f} MiB, {syncs8:g} host syncs per solve; caps, "
+          f"C_out values and trees == host pipeline {card}", flush=True)
+    # pass 1 on the kernel tier: one zeta_cluster launch per transform
+    cl_cards = np.stack([c for _, c in cliques15])
+    f64_cap = engine.fused_ccap(cl_cards, 15, backend="f64", device=dev)
+    transforms8 = [0]
+
+    def counted8(*args, **kw):
+        transforms8[0] += 1
+        return zeta_cuda(*args, **kw)
+
+    ops.zeta_cuda = counted8
+    ops.reset_launch_counts()
+    k_cap = engine.fused_ccap(cl_cards, 15, backend="cuda", device=dev)
+    torch.cuda.synchronize()
+    counts8k = ops.launch_counts()
+    ops.zeta_cuda = zeta_cuda
+    check([g.hex() for g in k_cap.gammas] == [g.hex() for g in f64_cap.gammas]
+          and [c.hex() for c in k_cap.couts]
+          == [c.hex() for c in f64_cap.couts]
+          and [str(t) for t in k_cap.trees] == [str(t) for t in f64_cap.trees]
+          and k_cap.rounds == f64_cap.rounds,
+          "fused_ccap: the kernel tier differs from the f64 tier")
+    check(counts8k["zeta_cluster"] == transforms8[0] > 0
+          and counts8k["zeta_pair"] == 0,
+          f"fused_ccap(backend='cuda') made {counts8k} launches for "
+          f"{transforms8[0]} transforms; one zeta_cluster each expected")
+    print(f"cap: fused_ccap kernel tier == f64 tier on the 16 cliques, "
+          f"{k_cap.rounds} rounds, {transforms8[0]} transforms, launches "
+          f"{counts8k}", flush=True)
+
+    # ------------------------------------------------------------ 9. out
+    out_items = [(q, c, "out") for q, c in cliques15 + sparse15]
+    got9, t_out, mem9, syncs9, counts9 = lane_run(BatchedSolver(), out_items)
+    check(sum(counts9.values()) == 0, f"the out lane launched {counts9}")
+    for i, ((q, c, _), r) in enumerate(zip(out_items, got9)):
+        check(r.meta["engine"] == "fused", f"out lane meta {r.meta}")
+        if i < len(cliques15):      # every subset of a clique is connected
+            dp = dpsub(c, 15, mode="out")
+            tree = jointree.extract_tree_out(dp, c, 15)
+        else:
+            dp, tree = dpccp_with_tree(q, c)
+        same_plan(f"out n=15 #{i}", r, dp[-1], tree)
+        check(r.meta["dp_table"].tobytes() == dp.tobytes(),
+              f"out n=15 #{i}: DP tables differ")
+    qps9 = len(out_items) / t_out
+    print(f"out: {len(out_items)} queries at n=15 in {t_out:.4f} s, "
+          f"{qps9:.3f} queries/s, peak device memory {mem9 / 2**20:.1f} "
+          f"MiB, {syncs9:g} host syncs per solve; optima, trees and DP "
+          f"tables == DPsub (cliques) and DPccp (sparse) {card}",
+          flush=True)
+    mixed = []
+    for i, cost in enumerate(["max", "cap", "out", "cap_conn"] * 3):
+        q = (qg.clique, qg.chain, qg.star, qg.cycle)[(i + i // 4) % 4](13)
+        mixed.append((q, qg.make_cardinalities(q, seed=400 + i,
+                                               base_range=(1e1, 1e3)),
+                      cost))
+    mixed_lane = BatchedSolver()
+    got_mixed = mixed_lane.solve(mixed)
+    chunks_mixed = len(mixed_lane.last_timings)
+    for it, r in zip(mixed, got_mixed):
+        (w,) = mixed_lane.solve([it])
+        check(float(r.cost).hex() == float(w.cost).hex()
+              and str(r.tree) == str(w.tree),
+              f"mixed micro-batch: {it[2]} result out of request order")
+    print(f"out: a mixed micro-batch of {len(mixed)} queries at n=13 "
+          f"(max, cap, out, cap_conn) came back in request order, "
+          f"{chunks_mixed} chunks", flush=True)
+
+    # ----------------------------------------------------------- 10. times
     # Device time per launch from torch.profiler (self device time of the
-    # kernel, by name); "host-launched call" = CUDA events around 50 calls
-    # issued back to back from Python; host cost = perf_counter per
-    # wrapper call, no sync, over 1000 calls.
+    # kernel, by name), warm and after a 64 MB write (L2 cold);
+    # "host-launched call" = CUDA events around 50 calls issued back to
+    # back from Python; host cost = perf_counter per wrapper call, no
+    # sync, over 1000 calls.
     x = on_card(rng.integers(0, 2, (16, 1 << 15)).astype(np.int32))
     total = x.numel()
     out = torch.empty_like(x)
     rows = []
+    scratch = torch.empty(16 << 20, dtype=torch.int32, device=dev)
+
+    def flush_l2():
+        scratch.fill_(1)
 
     def row(kernel, names, source, replaces, launch, plain, nbytes, nops,
             launches, shape):
         dev_ms, per_call = device_ms(launch, names)
+        cold_ms, _ = device_ms(launch, names, between=flush_l2)
         call_ms = time_ms(launch)
         host = host_us(launch)
         plain_ms = time_ms(plain)
@@ -393,15 +528,18 @@ def main() -> int:
                      "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": None,
                      "ms_method": "torch.profiler self device time",
+                     "ms_l2_cold": cold_ms,
                      "host_call_ms": call_ms, "host_us_per_launch": host,
                      "shape": shape})
         print(f"time {kernel} {shape}: device {dev_ms:.5f} ms per launch "
-              f"(torch.profiler, {per_call:g} kernel(s) per call), "
+              f"warm, {cold_ms:.5f} ms L2 cold (torch.profiler, "
+              f"{per_call:g} kernel(s) per call), "
               f"host-launched call {call_ms:.5f} ms, host cost "
               f"{host:.2f} us per launch, plain {plain_ms:.5f} ms, bound "
               f"{b_ms:.5f} ms ({b_by}) {card}", flush=True)
 
-    launches = {k: counts5[k] + counts6[k] for k in build.KERNELS}
+    launches = {k: counts5[k] + counts6[k] + counts8[k] + counts8k[k]
+                + counts9[k] for k in build.KERNELS}
     row("zeta_cluster", ("zeta_cluster_kernel",),
         "src/repro_torch/csrc/zeta.cu",
         "src/repro/kernels/zeta_pallas.py:53",
@@ -427,13 +565,12 @@ def main() -> int:
         4 * rest * (k - 1) + 4 * rest, rest * k, launches["ranked_conv"],
         "(16, 16, 2^15) int32, k = 8")
     # one whole transform, warm in L2 and after a 64 MB write (L2 cold)
-    scratch = torch.empty(16 << 20, dtype=torch.int32, device=dev)
     for shape in [(16, 1 << 15), (16, 16, 1 << 15)]:
         xt = on_card(rng.integers(0, 2, shape).astype(np.int32))
         ot = torch.empty_like(xt)
         fn = lambda: ops.zeta_op(xt, out=ot)    # noqa: E731
         warm, per_call = device_ms(fn, ZETA_KERNELS)
-        cold, _ = device_ms(fn, ZETA_KERNELS, between=lambda: scratch.fill_(1))
+        cold, _ = device_ms(fn, ZETA_KERNELS, between=flush_l2)
         call_ms = time_ms(fn)
         plain = time_ms(lambda: ref.zeta_ref(xt))
         b_ms, _ = bound(8 * xt.numel(), xt.numel() // 2 * 15)
@@ -448,7 +585,9 @@ def main() -> int:
           f"{chunks5} chunk solves; host lane {counts6} over 1 solve",
           flush=True)
     print(f"throughput: fused lane (phase 5) {qps5:.3f} queries/s, f64 "
-          f"tier n=18 (phase 7) {qps7:.4f} queries/s {card}", flush=True)
+          f"tier n=18 (phase 7) {qps7:.4f} queries/s, cap lane n=15 "
+          f"(phase 8) {qps8:.3f} queries/s, out lane n=15 (phase 9) "
+          f"{qps9:.3f} queries/s {card}", flush=True)
 
     loaded = [m for m in sys.modules
               if m.split(".")[0] == "jax" or m.startswith("repro.")

@@ -1,9 +1,20 @@
-"""DPconv façade of the port (counterpart of ``repro.core.dpconv``).
+"""DPconv façade of the port (counterpart of ``repro.core.dpconv``): Alg. 1
+of the paper, instantiated per cost function.
 
-    result = optimize(q, card, cost="max")      # DPconv[max], Alg. 3
+    result = optimize(q, card, cost="max")       # DPconv[max], Alg. 3
+    result = optimize(q, card, cost="out")       # exact C_out (small W!)
+    result = optimize(q, card, cost="out", method="approx", eps=0.25)
+    result = optimize(q, card, cost="cap")       # C_cap, Sec. 8
+    result = optimize(q, card, cost="smj", method="approx")
+    result = optimize(q, card, cost="out", method="dpsub")   # baseline
+    result = optimize(q, card, cost="out", method="dpccp")   # baseline
 
-Only ``cost="max"`` with ``method="dpconv"`` is ported; every other
-(cost, method) pair raises ``NotImplementedError``.
+Every (cost, method) pair of the reference runs, with the same routing.
+``device`` (CUDA unless given) reaches the paths that run tensor code;
+the numpy oracles (``dpsub``, the host ``dpccp`` enumerator) run on the
+host, as in the reference.  Warm-start seeds (``seed_opt``,
+``seed_vals``, ``seed_ok``) and ``shards > 1`` raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -11,10 +22,16 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.core import jointree
+from repro_torch.core import baselines, dpccp as dpccp_mod, jointree
+from repro_torch.core import engine as engine_mod
+from repro_torch.core.approx import approx_out
+from repro_torch.core.ccap import ccap, ccap_batch
 from repro_torch.core.dpconv_max import dpconv_max, dpconv_max_batch
+from repro_torch.core.dpconv_out import dpconv_out
 from repro_torch.core.engine import host_cards
 from repro_torch.core.querygraph import QueryGraph
+
+_SEEDS = ("seed_opt", "seed_vals", "seed_ok")
 
 
 @dataclasses.dataclass
@@ -24,39 +41,144 @@ class PlanResult:
     meta: dict
 
 
-def _ported(cost: str, method: str) -> None:
-    if (cost, method) != ("max", "dpconv"):
-        raise NotImplementedError(
-            f"(cost={cost!r}, method={method!r}) is not ported yet; "
-            "repro_torch plans cost='max' with method='dpconv'")
+def _ported(kw: dict) -> None:
+    """Raise for the arguments the port does not carry yet: warm-start
+    seeds and a solve mesh wider than one device.  Drops them otherwise,
+    so the routing below sees the reference's keywords."""
+    engine_mod.reject_unported(int(kw.pop("shards", 1) or 1),
+                               **{s: kw.pop(s, None) for s in _SEEDS})
+
+
+def _fusable_out(q: QueryGraph) -> bool:
+    return (q.n >= 2 and not q.hyperedges
+            and q.is_connected(q.full_mask))
 
 
 def optimize(q: QueryGraph, card, cost: str = "max",
              method: str = "dpconv", extract_tree: bool = True,
              **kw) -> PlanResult:
-    _ported(cost, method)
-    r = dpconv_max(q, card, extract_tree=extract_tree, **kw)
-    return PlanResult(r.optimum, r.tree,
-                      {"passes": r.feasibility_passes, "engine": r.engine,
-                       "dispatches": r.dispatches})
+    _ported(kw)
+    n = q.n
+    if cost == "max":
+        if method == "dpconv":
+            r = dpconv_max(q, card, extract_tree=extract_tree, **kw)
+            return PlanResult(r.optimum, r.tree,
+                              {"passes": r.feasibility_passes,
+                               "engine": r.engine,
+                               "dispatches": r.dispatches})
+        if method == "dpsub":
+            kw.pop("device", None)
+            card = host_cards(card)
+            dp = baselines.dpsub_max(card, n, **kw)
+            tree = jointree.extract_tree_max(dp, card, n) \
+                if extract_tree else None
+            return PlanResult(float(dp[-1]), tree, {})
+    if cost == "out":
+        if method == "dpconv":
+            out = dpconv_out(card, n, extract_tree=extract_tree,
+                             device=kw.get("device"))
+            tree = out[2] if extract_tree else None
+            return PlanResult(float(out[0]), tree, {})
+        if method == "approx":
+            val, dp = approx_out(card, n, cost="out", **kw)
+            return PlanResult(val, None, {"dp": dp})
+        if method == "dpsub":
+            kw.pop("device", None)
+            card = host_cards(card)
+            dp = baselines.dpsub_out(card, n, **kw)
+            tree = jointree.extract_tree_out(dp, card, n) \
+                if extract_tree else None
+            return PlanResult(float(dp[-1]), tree, {})
+        if method == "dpccp":
+            engine = kw.pop("engine", "host")
+            device = kw.pop("device", None)
+            card = host_cards(card)
+            if engine not in ("host", "fused"):
+                raise ValueError(f"unknown dpccp engine {engine!r}")
+            if engine == "fused" and not kw and _fusable_out(q):
+                fo = engine_mod.fused_out([q], card[None, :], n,
+                                          extract_tree=extract_tree,
+                                          device=device)
+                meta = {"engine": "fused", "dispatches": fo.dispatches}
+                if fo.dp is not None:
+                    meta["dp_table"] = np.asarray(fo.dp[0], np.float64)
+                return PlanResult(float(fo.couts[0]), fo.trees[0], meta)
+            # host enumeration: the parity reference, and the only route
+            # for hyperedge/disconnected graphs and prune_gamma variants
+            dp, nccp = dpccp_mod.dpccp(q, card, mode="out", **kw)
+            tree = jointree.extract_tree_out(dp, card, n) \
+                if extract_tree else None
+            meta = {"ccp": nccp, "engine": "host"}
+            if not kw:          # pruned/variant tables aren't the plain dp
+                meta["dp_table"] = np.asarray(dp, np.float64)
+            return PlanResult(float(dp[-1]), tree, meta)
+    if cost == "cap":
+        r = ccap(q, card, extract_tree=extract_tree, **kw)
+        return PlanResult(r.cout, r.tree,
+                          {"gamma": r.gamma, "engine": r.engine,
+                           "dispatches": r.dispatches,
+                           "passes": r.passes.get("pass1_fsc_passes"),
+                           **r.passes})
+    if cost == "smj":
+        if method == "approx":
+            val, dp = approx_out(card, n, cost="smj", **kw)
+            return PlanResult(val, None, {"dp": dp})
+        if method == "dpsub":
+            kw.pop("device", None)
+            dp = baselines.dpsub(host_cards(card), n, mode="smj", **kw)
+            return PlanResult(float(dp[-1]), None, {})
+    raise ValueError(f"unsupported (cost={cost}, method={method})")
 
 
 def optimize_batch(qs, cards, cost: str = "max", method: str = "dpconv",
                    extract_tree: bool = True, dp_fn=None,
                    **kw) -> "list[PlanResult]":
-    """Plan B queries at once.  Same-``n`` batches stack on a leading axis
-    (``dpconv_max_batch``) — bit-identical to B single ``optimize``
-    calls; mixed-``n`` batches loop per query."""
-    _ported(cost, method)
+    """Plan B queries at once, routed as in the reference.
+
+    Same-``n`` batches of ``(max, dpconv)`` stack on a leading axis
+    (``dpconv_max_batch``); ``(cap, dpconv)`` run the fused two-pass
+    C_cap program (``ccap_batch``) unless ``engine="host"``; ``(out,
+    dpccp, engine="fused")`` batches of connected simple-edge graphs run
+    the connectivity-masked C_out program (``engine.fused_out``).  All
+    are bit-identical to B single ``optimize`` calls.  Every other pair,
+    and mixed-``n`` batches, loop per query.
+    """
+    _ported(kw)
     qs = list(qs)
     cards = [host_cards(c) for c in cards]
-    if len(qs) > 1 and len({q.n for q in qs}) == 1:
+    same_n = len(qs) > 1 and len({q.n for q in qs}) == 1
+    if cost == "max" and method == "dpconv" and same_n:
         rs = dpconv_max_batch(np.stack(cards), qs[0].n,
                               extract_tree=extract_tree, dp_fn=dp_fn, **kw)
         return [PlanResult(r.optimum, r.tree,
                            {"passes": r.feasibility_passes,
                             "engine": r.engine,
                             "dispatches": r.dispatches,
+                            "batched": True}) for r in rs]
+    if (cost == "out" and method == "dpccp" and same_n and dp_fn is None
+            and set(kw) <= {"engine", "device"}
+            and kw.get("engine") == "fused"
+            and all(_fusable_out(q) for q in qs)):
+        fo = engine_mod.fused_out(qs, np.stack(cards), qs[0].n,
+                                  extract_tree=extract_tree,
+                                  device=kw.get("device"))
+        out = []
+        for b in range(len(qs)):
+            meta = {"engine": "fused", "dispatches": fo.dispatches,
+                    "batched": True}
+            if fo.dp is not None:
+                meta["dp_table"] = np.asarray(fo.dp[b], np.float64)
+            out.append(PlanResult(float(fo.couts[b]), fo.trees[b], meta))
+        return out
+    if (cost == "cap" and method == "dpconv" and same_n and dp_fn is None
+            and kw.get("engine", "auto") != "host"):
+        kw.pop("engine", None)
+        rs = ccap_batch(qs, np.stack(cards), qs[0].n,
+                        extract_tree=extract_tree, **kw)
+        return [PlanResult(r.cout, r.tree,
+                           {"gamma": r.gamma, "engine": r.engine,
+                            "dispatches": r.dispatches,
+                            "passes": r.passes.get("pass1_fsc_passes"),
                             "batched": True}) for r in rs]
     return [optimize(q, c, cost=cost, method=method,
                      extract_tree=extract_tree, **kw)

@@ -1,9 +1,10 @@
-"""Fused DPconv[max] engine of the port (counterpart of
-``repro.core.engine``, max part).
+"""Fused engine of the port (counterpart of ``repro.core.engine``):
+C_max, C_cap and connected C_out.
 
 It pads a batch of same-``n`` queries into power-of-two buckets, keeps one
-whole-solve program (``lattice.build_max_program``) per bucket with the
-program's static tables on the device, runs it, and counts what ran.
+whole-solve program (``lattice.build_max_program`` / ``build_cap_program``
+/ ``build_out_program``) per bucket and cost with the program's static
+tables on the device, runs it, and counts what ran.
 
 ``dispatches``: the reference compiles the whole solve into one XLA
 program (one ``lax.while_loop``) and counts one dispatch per batched
@@ -12,14 +13,17 @@ is many kernel launches; it still counts ONE dispatch per solve (one
 call of the program), and counts separately the host synchronizations
 the solve costs (``syncs``): one read of the loop condition per search
 round, one for the exit test, and one per result tensor copied back.
+The C_out program has no search loop: its syncs are its result copies.
 ``rounds`` and ``passes`` are the reference's exactly.  Capturing the loop in a
 CUDA graph is later work.
 
 Exactness: as in the reference — feasibility values are exact {0,1}
 counts (f64 to n = 26 on the ``f64`` tier, int32 to n = 15 on the
 ``cuda`` tier), the G = 1 probe sequence is the host loop's pivot
-sequence, and the extraction scan applies the host extractor's witness
-rule, so optima and trees are bit-identical to ``repro``.
+sequence, the (min,+) sweeps reproduce DPsub[out]'s and DPccp's f64
+operations, and the extraction scan applies the host extractors'
+witness rule, so optima, C_out values and trees are bit-identical to
+``repro``.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import torch
 
 from repro_torch.core import jointree, lattice
 from repro_torch.core.bitset import popcounts
+from repro_torch.core.dpccp import connectivity_masks
 from repro_torch.device import resolve_device
 from repro_torch.obs import metrics as obs_metrics
 
@@ -95,6 +100,30 @@ class FusedSolve:
     dp: "np.ndarray | None" = None  # (B, 2^n) extraction feasibility table
 
 
+@dataclasses.dataclass
+class FusedOutSolve:
+    """One fused batched connected-C_out solve (DPccp semantics): B optima
+    and trees from one program call."""
+    couts: np.ndarray              # (B,) optimal C_out, no cross products
+    trees: list                    # JoinTree | None per query
+    dispatches: int = 1
+    syncs: int = 0
+    dp: "np.ndarray | None" = None  # (B, 2^n) value table (+inf outside
+    #                                 the connected sets)
+
+
+@dataclasses.dataclass
+class FusedCapSolve:
+    """One fused batched C_cap solve: both passes and the extraction, one
+    program call."""
+    gammas: np.ndarray             # (B,) caps (= slack * optimal C_max)
+    couts: np.ndarray              # (B,) optimal C_out under the cap
+    trees: list                    # JoinTree | None per query
+    rounds: int                    # pass-1 search rounds (lockstep)
+    dispatches: int = 1
+    syncs: int = 0
+
+
 # ----------------------------------------------------------- program cache
 def _next_pow2(x: int) -> int:
     return 1 << max(x - 1, 0).bit_length()
@@ -130,27 +159,37 @@ def _pad_candidates(cards: np.ndarray, n: int):
         cand_pad[b, :len(c)] = c
         cand_pad[b, len(c):] = c[-1]
         hi0[b] = len(c) - 1
-    cards_pad = cards
-    if Bp != B:
-        cards_pad = np.concatenate(
-            [cards, np.repeat(cards[:1], Bp - B, axis=0)], axis=0)
-    return cards_pad, cand_pad, hi0, Bp, C
+    return _pad_rows(cards, Bp), cand_pad, hi0, Bp, C
 
 
 def get_program(n: int, B: int, C: int, tier: str, direct_layers: int,
-                extract: bool, gamma_batch: int, device: torch.device):
+                extract: bool, gamma_batch: int, device: torch.device,
+                cost: str = "max"):
     """The whole-solve program of one bucket, keyed by ``(n, B, C, tier,
-    direct_layers, extract, gamma_batch, device)``; it keeps its static
-    device tables across calls."""
-    key = (n, B, C, tier, direct_layers, bool(extract), gamma_batch,
+    direct_layers, extract, cost, gamma_batch, device)``; it keeps its
+    static device tables across calls.  ``cost`` is ``"max"``, ``"cap"``,
+    ``"cap_conn"`` (pass 2 under connected-split masks) or ``"out"``
+    (keyed with ``C = 0``, tier ``"f64"`` and G = 1: it searches
+    nothing)."""
+    key = (n, B, C, tier, direct_layers, bool(extract), cost, gamma_batch,
            str(device))
     fn = _PROGRAMS.get(key)
     if fn is not None:
         _STATS.inc("exec_cache_hits")
         return fn
+    if cost == "max":
+        fn = lattice.build_max_program(n, direct_layers, tier, extract,
+                                       gamma_batch)
+    elif cost in ("cap", "cap_conn"):
+        fn = lattice.build_cap_program(n, direct_layers, tier, extract,
+                                       gamma_batch,
+                                       connected=cost == "cap_conn")
+    elif cost == "out":
+        fn = lattice.build_out_program(n, extract)
+    else:
+        raise ValueError(f"unknown fused cost {cost!r}")
     _STATS.inc("exec_cache_misses")
-    fn = _PROGRAMS[key] = lattice.build_max_program(
-        n, direct_layers, tier, extract, gamma_batch)
+    _PROGRAMS[key] = fn
     return fn
 
 
@@ -161,6 +200,42 @@ def host_cards(cards) -> np.ndarray:
     if isinstance(cards, torch.Tensor):
         cards = cards.detach().to("cpu", torch.float64).numpy()
     return np.asarray(cards, np.float64)
+
+
+def _pad_rows(a: np.ndarray, Bp: int) -> np.ndarray:
+    """Pad a (B, ...) batch to Bp rows by repeating row 0."""
+    B = a.shape[0]
+    if Bp == B:
+        return a
+    return np.concatenate([a, np.repeat(a[:1], Bp - B, axis=0)], axis=0)
+
+
+def _connectivity(qs, B: int, what: str) -> np.ndarray:
+    """(B, 2^n) connected-subset masks of the query graphs; raises for a
+    hyperedge graph (``connectivity_masks``) or a disconnected one."""
+    if len(qs) != B:
+        raise ValueError(f"{len(qs)} query graphs for {B} tables")
+    conn = np.stack([connectivity_masks(q) for q in qs])
+    if not conn[:, -1].all():
+        raise ValueError(f"{what} requires connected query graphs (DPccp "
+                         "excludes cross products); route disconnected "
+                         "queries to the full-lattice pipelines")
+    return conn
+
+
+def reject_unported(shards: int, **seeds) -> None:
+    """Raise for what the port does not carry yet: a solve mesh wider
+    than one device, or any warm-start seed."""
+    if shards != 1:
+        raise NotImplementedError("shards > 1 is not ported yet")
+    if any(v is not None for v in seeds.values()):
+        raise NotImplementedError("warm-start seeds are not ported yet")
+
+
+def _host(out) -> tuple:
+    """Copy a program's result tensors to the host: ``(arrays, syncs)``,
+    one sync per copy."""
+    return [t.cpu().numpy() for t in out], len(out)
 
 
 def _trees_from_arrays(nodes: np.ndarray, lidx: np.ndarray,
@@ -182,10 +257,7 @@ def fused_dpconv_max(cards, n: int, direct_layers: int = 4,
     probes G thresholds per round ((G+1)-ary search).  Optima and trees
     are bit-identical to B host-loop ``dpconv_max`` calls.
     """
-    if shards != 1:
-        raise NotImplementedError("shards > 1 is not ported yet")
-    if seed_opt is not None:
-        raise NotImplementedError("warm-start seeds are not ported yet")
+    reject_unported(shards, seed_opt=seed_opt)
     dev = resolve_device(device)
     cards = host_cards(cards)
     if cards.ndim == 1:
@@ -205,8 +277,8 @@ def fused_dpconv_max(cards, n: int, direct_layers: int = 4,
              torch.as_tensor(hi0, device=dev))
     _STATS.inc("dispatches")
     *result, rounds, syncs = out
-    host = [t.cpu().numpy() for t in result]
-    syncs += len(host)                          # the result copies
+    host, copies = _host(result)
+    syncs += copies
     opt = host[0]
     trees: list = [None] * B
     dpn = None
@@ -224,3 +296,108 @@ def fused_dpconv_max(cards, n: int, direct_layers: int = 4,
                       rounds=rounds,
                       passes=rounds + (1 if extract_tree else 0),
                       dispatches=1, syncs=syncs, dp=dpn)
+
+
+def fused_out(qs: list, cards, n: int, extract_tree: bool = True,
+              shards: int = 1, seed_vals=None, seed_ok=None,
+              device=None) -> FusedOutSolve:
+    """Solve B same-``n`` connected C_out instances (DPccp semantics:
+    connected csg/cmp pairs only, no cross products) in one program call
+    on ``device`` (CUDA unless given).
+
+    ``qs`` are the B query graphs (each row may carry another topology:
+    the connected-subset masks are a program input), ``cards`` is
+    (B, 2^n).  Every graph must be connected and simple-edge, else
+    ``ValueError``.  Optima, DP tables and trees are bit-identical to B
+    ``dpccp_with_tree`` calls.
+    """
+    reject_unported(shards, seed_vals=seed_vals, seed_ok=seed_ok)
+    dev = resolve_device(device)
+    cards = host_cards(cards)
+    if cards.ndim == 1:
+        cards = cards[None, :]
+    B, size = cards.shape
+    if size != 1 << n or n < 2:
+        raise ValueError(f"cards of width {size} do not fit n={n} >= 2")
+    conn = _connectivity(qs, B, "fused_out")
+    Bp = _next_pow2(B)
+    fn = get_program(n, Bp, 0, "f64", 4, extract_tree, 1, dev, cost="out")
+    rec0 = jointree.recursive_extractions()
+    out = fn(torch.as_tensor(_pad_rows(cards, Bp), device=dev),
+             torch.as_tensor(_pad_rows(conn, Bp), device=dev))
+    _STATS.inc("dispatches")
+    host, syncs = _host(out)
+    trees: list = [None] * B
+    dpn = None
+    if extract_tree:
+        _, dpn, nodes, lidx = host
+        dpn = dpn[:B]
+        trees = _trees_from_arrays(nodes, lidx, B)
+    _STATS.inc("host_extractions",
+               jointree.recursive_extractions() - rec0)
+    _STATS.inc("host_syncs", syncs)
+    _STATS.inc("solves")
+    _STATS.inc("queries", B)
+    return FusedOutSolve(couts=np.asarray(host[0], np.float64)[:B],
+                         trees=trees, dispatches=1, syncs=syncs, dp=dpn)
+
+
+def fused_ccap(cards, n: int, gamma_slack: float = 1.0,
+               direct_layers: int = 4, extract_tree: bool = True,
+               backend: str = "f64", gamma_batch: int = 1,
+               qs: "list | None" = None, shards: int = 1, seed_opt=None,
+               device=None) -> FusedCapSolve:
+    """Solve B same-``n`` C_cap instances (Sec. 8) in one program call on
+    ``device`` (CUDA unless given): the pass-1 gamma search on the
+    ``backend`` tier (``"f64"`` or ``"cuda"``), the gamma-pruned (min,+)
+    C_out pass and the witness-tree extraction.
+
+    Caps, C_out values and trees are bit-identical to the host pipeline
+    (``dpconv_max`` + ``baselines.dpsub(mode="out", prune_gamma=gamma)``
+    + ``extract_tree_out``).  ``qs`` switches pass 2 onto the connected
+    (min,+) sweep — the no-cross-products cap, bit-identical to
+    ``dpconv_max`` + ``dpccp(prune_gamma=gamma)``; it requires connected
+    simple-edge graphs.  A cap the connected space cannot attain yields
+    ``cout = +inf``; the caller decides whether that is an error.
+    """
+    reject_unported(shards, seed_opt=seed_opt)
+    dev = resolve_device(device)
+    cards = host_cards(cards)
+    if cards.ndim == 1:
+        cards = cards[None, :]
+    B, size = cards.shape
+    if size != 1 << n or n < 2:
+        raise ValueError(f"cards of width {size} do not fit n={n} >= 2")
+    if gamma_batch < 1:
+        raise ValueError("gamma_batch must be >= 1")
+    cards_pad, cand_pad, hi0, Bp, C = _pad_candidates(cards, n)
+    extra = ()
+    cost = "cap"
+    if qs is not None:
+        conn = _connectivity(qs, B, "the connected C_cap pass")
+        extra = (torch.as_tensor(_pad_rows(conn, Bp), device=dev),)
+        cost = "cap_conn"
+    fn = get_program(n, Bp, C, backend, direct_layers, extract_tree,
+                     gamma_batch, dev, cost=cost)
+    rec0 = jointree.recursive_extractions()
+    out = fn(torch.as_tensor(cards_pad, device=dev),
+             torch.as_tensor(cand_pad, device=dev),
+             torch.zeros(Bp, dtype=torch.int64, device=dev),
+             torch.as_tensor(hi0, device=dev), float(gamma_slack), *extra)
+    _STATS.inc("dispatches")
+    *result, rounds, syncs = out
+    host, copies = _host(result)
+    syncs += copies
+    trees: list = [None] * B
+    if extract_tree:
+        trees = _trees_from_arrays(host[2], host[3], B)
+    _STATS.inc("host_extractions",
+               jointree.recursive_extractions() - rec0)
+    _STATS.inc("host_syncs", syncs)
+    _STATS.inc("solves")
+    _STATS.inc("queries", B)
+    _STATS.inc("rounds", rounds)
+    return FusedCapSolve(gammas=np.asarray(host[0], np.float64)[:B],
+                         couts=np.asarray(host[1], np.float64)[:B],
+                         trees=trees, rounds=rounds, dispatches=1,
+                         syncs=syncs)

@@ -1,10 +1,18 @@
-"""The lattice-program layer of the port, DPconv[max] part: the paper's
-layered feasibility DP (Alg. 1 instantiated for C_max) and the
-whole-solve search program built on it.  Counterpart of
-``repro.core.lattice``, with the same names and the same arithmetic, so
-results are bitwise those of the reference.
+"""The lattice-program layer of the port: the paper's layered DP (Alg. 1)
+instantiated per cost function, and the whole-solve programs built on
+it.  Counterpart of ``repro.core.lattice``, with the same names and the
+same arithmetic, so results are bitwise those of the reference.
 
-Transform tiers (``transforms``):
+Semirings: *feasibility* — {0,1} counting in (+,·), thresholded per
+layer (``feasibility_layers``, C_max); *value* — (min,+) over f64 under
+a gamma gate (``minplus_value_layers``, the C_cap pass 2); *connected
+value* — the same sweep under per-subset valid-split masks, DPccp's
+search space as bitset tensors (``minplus_connected_layers``, C_out).
+The (min,+) sweeps have no transform shortcut (that hardness is the
+paper's point): every layer gathers its split table directly, in f64 on
+either tier.
+
+Transform tiers (``transforms``), used by the feasibility recursion:
 
 ========= ============================================== ================
 port      what                                            in ``repro``
@@ -23,17 +31,16 @@ Differences from the reference, none of which changes a result:
   tensors.  The search loop reads ``any(lo < hi)`` on the host once per
   round (one sync per round); the reference runs the loop on device.
 * Buffers are updated in place (the ranked-zeta buffer ``Z`` above all:
-  each zeta transform writes straight into its slot); JAX rebuilds them
-  functionally.
+  each zeta transform writes straight into its slot; each (min,+) layer
+  writes its sets into ``dp``); JAX rebuilds them functionally.
 * Bracket indices (``lo``, ``hi``, pivots) are int64 tensors (PyTorch
   gathers take int64); the reference keeps int32.  Values are equal.
 * The scan-form convolution sums int32 products in int32; the reference
   promotes the sum to int64.  Counts at n <= 15 fit either way, and
   two's-complement intermediates are exact modulo 2^32.
 
-Held over to later slices: the (min,+) value layers (C_cap, C_out),
-warm-start seeds, and sharded sweeps (the entry points raise on
-``shards > 1``).
+Held over to later slices: warm-start seeds and sharded sweeps (the
+entry points raise on ``shards > 1``).
 """
 from __future__ import annotations
 
@@ -228,6 +235,74 @@ def feasibility_layers(gate, n: int, direct_layers: int = 4,
     return dp, Z, dp[..., -1] > 0.5
 
 
+# ------------------------------------------------- the (min,+) semiring
+def _minplus_init(card, n: int):
+    """dp of the (min,+) sweeps before layer 2: singletons cost 0, every
+    other set (the empty one included: it neutralizes the T = ∅ / T = S
+    rows of each split table) is +inf."""
+    pc = popcounts_on(n, card.device)
+    dp = torch.where(pc == 1, 0.0, float("inf")).to(torch.float64)
+    return dp.expand(card.shape).contiguous()
+
+
+def minplus_value_layers(card, gate_ok, n: int):
+    """DPsub[out]'s recursion as a dense layer program — the C_cap pass 2.
+
+    ``dp[S] = c(S) + min_T (dp[T] + dp[S\\T])`` for gated sets
+    (``gate_ok``: c(S) <= gamma), +inf otherwise; singletons cost 0.
+    Every layer gathers its (..., C(n,k), 2^k) split table, and its
+    tensors are freed before the next layer.  Bit-identical to
+    ``baselines.dpsub(mode="out", prune_gamma=gamma)``: min is
+    order-independent and the add association ``(dp[T] + dp[S\\T]) +
+    c(S)`` matches.
+
+    ``card`` (..., 2^n) f64; ``gate_ok`` boolean, same shape.
+    """
+    inf = float("inf")
+    dp = _minplus_init(card, n)
+    for k in range(2, n + 1):
+        sets, subs, comps = direct_layer_tables(n, k, card.device)
+        combo = dp[..., subs]                          # (..., m, 2^k)
+        combo += dp[..., comps]
+        val = combo.amin(dim=-1)
+        del combo
+        val += card[..., sets]
+        dp[..., sets] = val.masked_fill_(~gate_ok[..., sets], inf)
+    return dp
+
+
+def minplus_connected_layers(card, conn, n: int):
+    """DPccp's recursion as a dense layer program — the connectivity-
+    masked C_out sweep.
+
+    ``dp[S] = c(S) + min_{(T, S\\T) valid} (dp[T] + dp[S\\T])`` where a
+    split is valid iff both halves induce connected subgraphs (for a
+    connected S a crossing join edge is then implied), so the valid
+    splits are exactly DPccp's csg/cmp pairs.  Disconnected sets stay
+    +inf; singletons cost 0.  The valid-split masks of a layer are
+    gathers of ``conn`` by the same tables (``conn[subs] & conn[comps]``).
+    Bit-identical to ``dpccp.dpccp(q, card, mode="out")``: the same
+    multiset of pairs, an order-independent min, and the enumerator's
+    add association.
+
+    ``card`` (..., 2^n) f64; ``conn`` boolean, same shape (each batch row
+    may carry a different query graph).
+    """
+    inf = float("inf")
+    dp = _minplus_init(card, n)
+    for k in range(2, n + 1):
+        sets, subs, comps = direct_layer_tables(n, k, card.device)
+        split_ok = conn[..., subs]                     # (..., m, 2^k)
+        split_ok &= conn[..., comps]
+        combo = dp[..., subs]
+        combo += dp[..., comps]
+        val = combo.masked_fill_(~split_ok, inf).amin(dim=-1)
+        del combo, split_ok
+        val += card[..., sets]
+        dp[..., sets] = val.masked_fill_(~conn[..., sets], inf)
+    return dp
+
+
 # ------------------------------------------------------ probe strategies
 def probe_pivots(lo, hi, G: int):
     """(G, B) interior pivots splitting [lo, hi] into G+1 parts:
@@ -255,17 +330,19 @@ def bracket_update(lo, hi, piv, ok, active):
 
 
 # ------------------------------------------- on-device tree extraction
-def extract_scan(dp, n: int):
-    """Alg. 2 as a masked scan over tree slots, on the device, for a
-    feasibility table ``dp`` (B, 2^n) (error 0 iff both split sides are
-    feasible).
+def extract_scan(dp, n: int, card=None):
+    """Alg. 2 as a masked scan over tree slots, on the device.
 
     Slot r holds a set mask; an internal slot finds its witness split by
     one dense pass over all candidate submasks and writes its two
-    children at the write head.  Witness rule, as in the host
-    extractor: the *largest* T of minimal error.  Returns
-    ``(nodes, lidx)``, (B, 2n-1) int32: slot masks and left-child slot
-    indices (0 for leaves), for ``jointree.tree_from_split_arrays``.
+    children at the write head.  ``card=None`` reads ``dp`` (B, 2^n) as
+    a feasibility table (error 0 iff both split sides are feasible);
+    with ``card`` it reads ``dp`` as a C_out value table (error
+    ``|dp[T] + dp[S\\T] - (dp[S] - c(S))|``, the target taken once per
+    slot).  Witness rule, as in the host extractors: the *largest* T of
+    minimal error.  Returns ``(nodes, lidx)``, (B, 2n-1) int32: slot
+    masks and left-child slot indices (0 for leaves), for
+    ``jointree.tree_from_split_arrays``.
     """
     B, size = dp.shape
     dev = dp.device
@@ -273,7 +350,7 @@ def extract_scan(dp, n: int):
     pc = popcounts_on(n, dev).to(torch.int64)
     T = torch.arange(size, dtype=torch.int64, device=dev)[None, :]
     ar = torch.arange(B, device=dev)
-    feas = dp > 0.5
+    feas = dp > 0.5 if card is None else None
     inf = torch.tensor(float("inf"), dtype=torch.float64, device=dev)
     nodes = torch.zeros((B, M), dtype=torch.int64, device=dev)
     nodes[:, 0] = size - 1
@@ -284,8 +361,12 @@ def extract_scan(dp, n: int):
         internal = pc[S] >= 2
         Sc = S[:, None]
         valid = ((T & ~Sc) == 0) & (T != 0) & (T != Sc)
-        dpC = torch.gather(feas, 1, Sc & ~T)
-        err = 1.0 - (feas & dpC).to(torch.float64)
+        if card is None:
+            dpC = torch.gather(feas, 1, Sc & ~T)
+            err = 1.0 - (feas & dpC).to(torch.float64)
+        else:
+            target = torch.gather(dp, 1, Sc) - torch.gather(card, 1, Sc)
+            err = (dp + torch.gather(dp, 1, Sc & ~T) - target).abs()
         err = torch.where(valid, err, inf)
         # largest T among the minima: argmin over the reversed axis
         twit = size - 1 - torch.argmin(err.flip(1), dim=1)
@@ -355,6 +436,25 @@ def _fused_search(cards, cand, lo0, hi0, n, direct_layers, tfm, G,
     return hi, Z, rounds, syncs
 
 
+def _searcher(n: int, direct_layers: int, tfm: Transforms, G: int):
+    """The lockstep search of a whole-solve program: ``search(cards,
+    cand, lo0, hi0) -> (gate_of, hi, Z, rounds, syncs)``.  It keeps the
+    initial ranked-zeta buffer of its first call (a static table of its
+    shape) and starts every later call from a copy."""
+    state: dict = {}
+
+    def search(cards, cand, lo0, hi0):
+        dev = cards.device
+        if "Z0" not in state:
+            state["Z0"] = _search_state(cards.shape[0], n, tfm, G, dev)
+        gate_of = _gate_builder(cards, popcounts_on(n, dev), tfm.dtype)
+        return (gate_of,) + _fused_search(
+            cards, cand, lo0, hi0, n, direct_layers, tfm, G, gate_of,
+            state["Z0"].clone())
+
+    return search
+
+
 def build_max_program(n: int, direct_layers: int, tier: str,
                       extract: bool, gamma_batch: int = 1):
     """The whole-solve DPconv[max] program:
@@ -363,24 +463,15 @@ def build_max_program(n: int, direct_layers: int, tier: str,
     cards (B, 2^n) f64, cand (B, C) f64, lo0/hi0 (B,) int64 on one
     device.  Search, gate construction, layered DP, the extraction table
     and the Alg. 2 split scan all run on that device; the host reads the
-    loop condition once per round.  The program keeps the initial
-    ranked-zeta buffer of its first call (a static table of its shape)
-    and starts every later call from a copy.
+    loop condition once per round.
     """
     tfm = transforms(tier)
     dl = min(direct_layers, n - 1)
     G = gamma_batch
-    state: dict = {}
+    search = _searcher(n, direct_layers, tfm, G)
 
     def fn(cards, cand, lo0, hi0):
-        dev = cards.device
-        pc = popcounts_on(n, dev)
-        if "Z0" not in state:
-            state["Z0"] = _search_state(cards.shape[0], n, tfm, G, dev)
-        gate_of = _gate_builder(cards, pc, tfm.dtype)
-        hi, Z, rounds, syncs = _fused_search(
-            cards, cand, lo0, hi0, n, direct_layers, tfm, G, gate_of,
-            state["Z0"].clone())
+        gate_of, hi, Z, rounds, syncs = search(cards, cand, lo0, hi0)
         opt = torch.gather(cand, 1, hi[:, None])[:, 0]
         if not extract:
             return opt, rounds, syncs
@@ -394,5 +485,68 @@ def build_max_program(n: int, direct_layers: int, tier: str,
         dpf = dp.to(torch.float64)
         nodes, lidx = extract_scan(dpf, n)
         return opt, dpf, nodes, lidx, rounds, syncs
+
+    return fn
+
+
+def build_out_program(n: int, extract: bool):
+    """The whole-solve connected C_out program (DPccp semantics):
+    ``(cards, conn) -> (cout[, dp, nodes, lidx])``.
+
+    cards (B, 2^n) f64 and conn (B, 2^n) bool — the per-query
+    connected-subset masks (``dpccp.connectivity_masks``) — on one
+    device.  The (min,+) sweep runs under the valid-split masks derived
+    from ``conn`` and the value-mode extraction scan reads the same
+    table, so disconnected witnesses carry +inf error.  No search loop:
+    the program reads nothing back until its results.  Bit-identical
+    optima, DP tables and trees to ``dpccp_with_tree``.
+    """
+    def fn(cards, conn):
+        dpv = minplus_connected_layers(cards, conn, n)
+        cout = dpv[..., -1]
+        if not extract:
+            return (cout,)
+        nodes, lidx = extract_scan(dpv, n, card=cards)
+        return cout, dpv, nodes, lidx
+
+    return fn
+
+
+def build_cap_program(n: int, direct_layers: int, tier: str,
+                      extract: bool, gamma_batch: int = 1,
+                      connected: bool = False):
+    """The whole-solve C_cap program (paper Sec. 8, both passes):
+    ``(cards, cand, lo0, hi0, slack[, conn]) ->
+    (gamma, cout[, nodes, lidx], rounds, syncs)``.
+
+    Pass 1 is the lockstep feasibility search of DPconv[max] on
+    ``tier`` (gamma* = optimal C_max); pass 2 runs the (min,+) value
+    sweep under the gate ``c(S) <= slack · gamma*`` (singletons and ∅
+    pass); pass 3 extracts the C_out witness tree.  ``slack`` is the
+    Sec. 11 resource-aware knob.  ``connected=True`` is the
+    no-cross-products cap: pass 2 runs the connected sweep under ``gate
+    & conn``, bit-identical to ``dpconv_max`` + ``dpccp(prune_gamma=
+    gamma)``.  The cap stays the full-lattice C_max optimum, which a
+    cross-product-free plan may not attain: ``cout`` is then +inf, as in
+    the host pipeline.
+    """
+    tfm = transforms(tier)
+    search = _searcher(n, direct_layers, tfm, gamma_batch)
+
+    def fn(cards, cand, lo0, hi0, slack, conn=None):
+        _, hi, _, rounds, syncs = search(cards, cand, lo0, hi0)
+        pc = popcounts_on(n, cards.device)
+        gamma = torch.gather(cand, 1, hi[:, None])[:, 0]
+        gamma = gamma * slack
+        gate_ok = (cards <= gamma[:, None]) | (pc < 2)
+        if connected:
+            dpv = minplus_connected_layers(cards, gate_ok & conn, n)
+        else:
+            dpv = minplus_value_layers(cards, gate_ok, n)
+        cout = dpv[..., -1]
+        if not extract:
+            return gamma, cout, rounds, syncs
+        nodes, lidx = extract_scan(dpv, n, card=cards)
+        return gamma, cout, nodes, lidx, rounds, syncs
 
     return fn

@@ -1,25 +1,36 @@
-"""Batched plan solving, DPconv[max] lane (counterpart of
-``repro.service.batch``).
+"""Batched plan solving (counterpart of ``repro.service.batch``).
 
 Same-``n`` queries stack to (B, 2^n) and every lattice sweep broadcasts
 over the batch.  The solver groups a mixed micro-batch by ``(n, cost)``,
 splits each group into descending power-of-two chunks (11 -> [8, 2, 1]
 with cap 16), solves each chunk, and restores request order.
 
+The lane carries four costs, routed as in the reference: ``"max"``
+(DPconv[max]), ``"cap"`` (the two-pass C_cap program), ``"cap_conn"``
+(C_cap with the no-cross-products pass 2: solved as ``cost="cap"`` with
+``connected=True``, grouped under its own label) and ``"out"`` (C_out
+with DPccp semantics: the connectivity-masked program, one call per
+chunk; a chunk with a disconnected or hyperedge member falls back to
+per-query host enumeration).
+
 Tiers (``BatchPolicy.backend``): ``"auto"`` sends
 ``kernel_min_n <= n <= kernel_max_n`` (12..15) to the int32 kernel tier
 (``"cuda"``: the hand-written zeta/Moebius and ranked-convolution
 kernels) when the solver runs on a CUDA device, and everything else to
 the f64 tier.  ``"cuda"`` forces the kernel tier up to ``kernel_max_n``
-(on a CPU device its plain versions run); ``"f64"`` never uses it.
+(on a CPU device its plain versions run); ``"f64"`` never uses it.  As
+in the reference, only ``max`` chunks take the kernel tier: cap's pass 1
+runs on the f64 tier in this lane and the (min,+) sweeps are f64, so
+cap and out results report ``meta["backend"] == "f64"``.
 Engines (``BatchPolicy.engine``): ``"fused"`` runs each chunk's whole
 solve on the device (``core.engine``); ``"host"`` is the per-round host
-loop, whose kernel tier also takes the ranked-convolution kernel
-(``kernel_dp_fn``).
+loop for max (whose kernel tier also takes the ranked-convolution
+kernel, ``kernel_dp_fn``), the host pipeline for cap (B independent
+solves, ``chunk = 1``) and the host DPccp enumerator for out.
 
-Only ``cost="max"`` is ported; other costs and warm-start seeds raise
-``NotImplementedError``.  Results are bit-identical in cost and tree to
-single-query ``core.dpconv.optimize`` and to ``repro``.
+Warm-start seeds raise ``NotImplementedError``.  Results are
+bit-identical in cost and tree to single-query ``core.dpconv.optimize``
+and to ``repro``.
 """
 from __future__ import annotations
 
@@ -88,8 +99,6 @@ def _unpack(item):
     tag = item[3] if len(item) > 3 else ""
     if len(item) > 4 and item[4] is not None:
         raise NotImplementedError("warm-start seeds are not ported yet")
-    if cost != "max":
-        raise NotImplementedError(f"the {cost!r} lane is not ported yet")
     return q, card, cost, tag
 
 
@@ -119,28 +128,54 @@ class BatchedSolver:
     def _dp_fn(self, n: int):
         return kernel_dp_fn(n) if self.use_kernels(n) else None
 
-    def _solve_chunk(self, qs, cards, n, extract_tree):
+    def _solve_chunk(self, qs, cards, n, cost, extract_tree):
+        """One same-(n, cost) chunk through the routed engine tier."""
         engine = self.policy.engine
+        G = self.policy.gamma_batch
         tier = "cuda" if self.use_kernels(n) else "f64"
         dev = self.device
+        method = "dpccp" if cost == "out" else "dpconv"
+        solve_cost, conn_kw = (("cap", {"connected": True})
+                               if cost == "cap_conn" else (cost, {}))
         if len(qs) == 1:
             kw = {"engine": engine, "device": dev}
-            if engine == "fused":
-                kw["gamma_batch"] = self.policy.gamma_batch
-                kw["backend"] = tier
-            res = optimize(qs[0], cards[0], cost="max",
-                           extract_tree=extract_tree, **kw)
+            if engine == "fused" and cost != "out":
+                kw["gamma_batch"] = G   # out's (min,+) sweep never probes
+                if cost == "max":   # cap's pass 1 stays on the f64 tier
+                    kw["backend"] = tier
+            res = optimize(qs[0], cards[0], cost=solve_cost, method=method,
+                           extract_tree=extract_tree, **kw, **conn_kw)
             res.meta["batched"] = False
             res.meta["chunk"] = 1
-            # a single host solve runs the f64 host loop, as in repro
-            res.meta["backend"] = tier if engine == "fused" else "f64"
+            # a single host max solve runs the f64 host loop, as in repro
+            res.meta["backend"] = (tier if cost == "max" and engine == "fused"
+                                   else "f64")
             return [res]
-        if engine == "fused":
+        if cost == "out":
+            # one fused program call for the chunk; with engine="host", or
+            # when a disconnected/hyperedge member voids the DPccp search
+            # space, B host enumerations accounted as chunk-1 solves
+            results = optimize_batch(qs, cards, cost="out", method="dpccp",
+                                     extract_tree=extract_tree,
+                                     engine=engine, device=dev)
+            if not results[0].meta.get("batched"):
+                return self._independent(results)
+        elif solve_cost == "cap":
+            if engine != "fused":
+                # the host cap pipeline has no lockstep form: B
+                # independent solves sharing only the wall-clock window
+                return self._independent(
+                    [optimize(q, c, cost="cap", extract_tree=extract_tree,
+                              engine="host", device=dev, **conn_kw)
+                     for q, c in zip(qs, cards)])
+            results = optimize_batch(qs, cards, cost="cap",
+                                     extract_tree=extract_tree,
+                                     gamma_batch=G, device=dev, **conn_kw)
+        elif engine == "fused":
             results = optimize_batch(qs, cards, cost="max",
                                      extract_tree=extract_tree,
                                      engine="fused", backend=tier,
-                                     gamma_batch=self.policy.gamma_batch,
-                                     device=dev)
+                                     gamma_batch=G, device=dev)
         else:
             results = optimize_batch(qs, cards, cost="max",
                                      extract_tree=extract_tree,
@@ -149,13 +184,22 @@ class BatchedSolver:
         self.batches_run += 1
         self.queries_batched += len(qs)
         for res in results:
-            res.meta["backend"] = tier
+            res.meta["backend"] = tier if cost == "max" else "f64"
             res.meta["chunk"] = len(qs)
         return results
 
+    @staticmethod
+    def _independent(results):
+        for res in results:
+            res.meta["backend"] = "f64"
+            res.meta["batched"] = False
+            res.meta["chunk"] = 1
+        return results
+
     def solve(self, items: list, extract_tree: bool = True) -> list:
-        """``items``: list of (q, card[, cost[, tag]]) tuples, cost "max".
-        Returns PlanResults aligned with the input order."""
+        """``items``: list of (q, card[, cost[, tag]]) tuples; cost is
+        "max", "cap", "cap_conn" or "out".  Returns PlanResults aligned
+        with the input order."""
         groups: dict = {}
         for idx, item in enumerate(items):
             q, card, cost, tag = _unpack(item)
@@ -173,7 +217,8 @@ class BatchedSolver:
                 for g in part:
                     tags[g[3]] = tags.get(g[3], 0) + 1
                 t0 = time.perf_counter()  # timing: measured-duration
-                results = self._solve_chunk(qs, cards, n, extract_tree)
+                results = self._solve_chunk(qs, cards, n, cost,
+                                            extract_tree)
                 for g, res in zip(part, results):
                     out[g[0]] = res
                 dt = time.perf_counter() - t0  # timing: measured-duration

@@ -4,8 +4,9 @@ The same queries (numpy, fixed seeds) go through both packages' fused
 engine, host engine and ``BatchedSolver``; optima must be
 ``float.hex``-identical, trees ``str``-identical, and ``rounds`` and
 ``passes`` equal.  The int32 kernel tier (plain versions here) is held
-against the reference's Pallas tier in interpret mode, and every
-``"max"`` golden plan comes out of the port's batch lane unchanged.
+against the reference's Pallas tier in interpret mode, and every golden
+plan (``max``, ``cap`` and ``out``) comes out of the port's batch lane
+unchanged.
 """
 import functools
 import importlib.util
@@ -165,9 +166,13 @@ def _golden_instances():
     return {name: (q, card) for name, q, card, _ in mod.golden_instances()}
 
 
-def _golden_max_entries():
+def _golden_entries(cost: str):
     with open(FIXTURE) as f:
-        return [e for e in json.load(f)["entries"] if e["cost"] == "max"]
+        return [e for e in json.load(f)["entries"] if e["cost"] == cost]
+
+
+def _golden_max_entries():
+    return _golden_entries("max")
 
 
 @pytest.mark.parametrize("entry", _golden_max_entries(),
@@ -177,6 +182,21 @@ def test_golden_max_plan_from_port_batch_lane(entry):
     (res,) = BatchedSolver(device=CPU).solve([_port_query(q, card)])
     assert convert.plan_key(res.cost, res.tree) == \
         (entry["optimum_hex"], entry["tree"])
+
+
+@pytest.mark.parametrize(
+    "entry", _golden_entries("cap") + _golden_entries("out"),
+    ids=lambda e: f"{e['name']}/{e['cost']}")
+def test_golden_cap_and_out_plans_from_port_batch_lane(entry):
+    """A one-item chunk of the lane runs what ``test_golden_plans.py``'s
+    ``live_solve`` runs: ``ccap(q, card)`` (fused) for cap, and
+    ``optimize(cost="out", method="dpccp", engine="fused")`` for out."""
+    q, card = _golden_instances()[entry["name"]]
+    (res,) = BatchedSolver(device=CPU).solve(
+        [_port_query(q, card) + (entry["cost"],)])
+    assert convert.plan_key(res.cost, res.tree) == \
+        (entry["optimum_hex"], entry["tree"])
+    assert res.meta["engine"] == "fused" and res.meta["chunk"] == 1
 
 
 def test_golden_max_plans_as_one_micro_batch():
@@ -208,17 +228,33 @@ def test_convert_round_trip_and_oracle():
 
 
 def test_unported_paths_raise():
+    """What stays unported raises: warm-start seeds in every lane,
+    ``shards > 1`` and the host loop's ``gamma_batch > 1``."""
     qs, cards = _queries(5, 2, seed=1)
     items = [_port_query(q, c) for q, c in zip(qs, cards)]
+    q0, c0 = items[0]
     solver = BatchedSolver(device=CPU)
-    with pytest.raises(NotImplementedError):
-        solver.solve([items[0] + ("out",)])
-    with pytest.raises(NotImplementedError):
-        solver.solve([items[0] + ("max", "", {"opt": 1.0})])
-    with pytest.raises(NotImplementedError):
-        optimize(items[0][0], items[0][1], cost="cap")
+    for cost, seed in [("max", {"opt": 1.0}), ("cap", {"opt": 1.0}),
+                       ("cap_conn", {"opt": 1.0}),
+                       ("out", {"vals": np.zeros(32),
+                                "ok": np.ones(32, bool)})]:
+        with pytest.raises(NotImplementedError):
+            solver.solve([(q0, c0, cost, "", seed)])
+    for cost, kw in [("max", {"seed_opt": 1.0}), ("cap", {"seed_opt": 1.0}),
+                     ("out", {"method": "dpccp", "engine": "fused",
+                              "seed_vals": np.zeros(32),
+                              "seed_ok": np.ones(32, bool)}),
+                     ("max", {"shards": 2}), ("cap", {"shards": 2}),
+                     ("out", {"method": "dpccp", "engine": "fused",
+                              "shards": 2})]:
+        with pytest.raises(NotImplementedError):
+            optimize(q0, c0, cost=cost, device=CPU, **kw)
     with pytest.raises(NotImplementedError):
         engine.fused_dpconv_max(cards, 5, shards=2, device=CPU)
+    with pytest.raises(NotImplementedError):
+        engine.fused_ccap(cards, 5, seed_opt=[1.0, None], device=CPU)
+    with pytest.raises(NotImplementedError):
+        engine.fused_out([q0, items[1][0]], cards, 5, shards=2, device=CPU)
     with pytest.raises(NotImplementedError):
         dpconv_max_batch(cards, 5, engine="host", gamma_batch=3,
                          device=CPU)
