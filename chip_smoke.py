@@ -36,7 +36,23 @@ Phases (any failed check exits non-zero; nothing is caught):
                and DP tables equal numpy DPsub (cliques) and the DPccp
                enumerator (sparse graphs); one micro-batch at n = 13 with
                all four lane costs comes back in request order;
-10. times    — each kernel at the path's shapes: device time per launch
+10. server   — the plan server (``PlanServer._process``, one micro-batch
+               per pass, plan cache off, layer cache with
+               ``admission_min_probes=0``), every pass run once on fresh
+               servers to warm up and then again, timed and checked:
+               16 clique(15) as ``max``, optima equal to numpy DPsub,
+               then the same 16 under fixed relabelings, every row seeded
+               (one round against the cold rounds), optima and trees
+               equal; 16 clique(13) as ``max`` then ``cap`` (the
+               cross-lane warm start), equal to the host pipeline;
+               chain/star/cycle(13) as ``out`` twice, the cold DP tables
+               equal to the DPccp enumerator's, the second pass
+               relabeled, with value hits and byte-equal DP tables; the
+               max stream replayed through the plan cache (16 hits, no
+               solve, no launch); a host-engine server at n = 13, which
+               launches the ranked-convolution kernel, equal to the
+               fused server and to DPsub;
+11. times    — each kernel at the path's shapes: device time per launch
                (torch.profiler) warm and with L2 cold, the host-launched
                call (CUDA events around 50 calls from Python), the host's
                cost per launch, its bound and its plain version; one
@@ -44,8 +60,10 @@ Phases (any failed check exits non-zero; nothing is caught):
                solved queries per second.
 
 Phases 8 and 9 print wall time, solved queries per second, peak device
-memory and host syncs per solve.  Launch counters are set to 0 just
-before each main-path phase (5, 6, 8, 9) and read just after.  Data comes from fixed seeds through numpy.  The
+memory and host syncs per solve; phase 10 prints each pass's wall time,
+requests per second, cache hits, seeded solves, rounds, host syncs and
+launches.  Launch counters are set to 0 just before each main-path
+phase (5, 6, 8, 9) and each server pass, and read just after.  Data comes from fixed seeds through numpy.  The
 second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a card, and
 in a directory without the port.
@@ -125,32 +143,40 @@ def _device_us(evt) -> float:
 
 
 def device_ms(fn, names, iters: int = 200, between=None) -> tuple:
-    """Device milliseconds per call of ``fn`` and kernel launches per
-    call: torch.profiler's self device time of the kernels whose name
-    holds one of ``names``, summed over ``iters`` calls.  ``between``
-    runs before each call (an L2 flush); its kernels are not counted."""
+    """Device milliseconds per call of ``fn``, kernel launches per call
+    and the profiler sessions it took: torch.profiler's self device time
+    of the kernels whose name holds one of ``names``, summed over
+    ``iters`` calls.  ``between`` runs before each call (an L2 flush);
+    its kernels are not counted.  A profiler session that reports no
+    device event of ``names`` (seen now and then on the card's machine,
+    cause not found) is run again, up to three sessions in all; the run
+    fails if none sees one, and the count of sessions is reported so
+    that a retry shows in the result."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            if between is not None:
-                between()
-            fn()
+    for attempt in range(1, 4):
         torch.cuda.synchronize()
-    us = launched = 0
-    for e in prof.key_averages():
-        if (getattr(e, "device_type", None) == DeviceType.CUDA
-                and any(nm in e.key for nm in names)):
-            us += _device_us(e)
-            launched += e.count
-    check(launched > 0 and us > 0,
-          f"torch.profiler saw no device time of {names}")
-    return us * 1e-3 / iters, launched / iters
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if between is not None:
+                    between()
+                fn()
+            torch.cuda.synchronize()
+        us = launched = 0
+        for e in prof.key_averages():
+            if (getattr(e, "device_type", None) == DeviceType.CUDA
+                    and any(nm in e.key for nm in names)):
+                us += _device_us(e)
+                launched += e.count
+        if launched > 0 and us > 0:
+            return us * 1e-3 / iters, launched / iters, attempt
+        print(f"torch.profiler session {attempt} saw no device time of "
+              f"{names}", flush=True)
+    fail(f"torch.profiler saw no device time of {names} in 3 sessions")
 
 
 def bound(nbytes: float, nops: float) -> tuple:
@@ -176,6 +202,9 @@ def main() -> int:
         from repro_torch.kernels.zeta_cuda import (launch_cluster,
                                                    launch_pair, launch_plan)
         from repro_torch.service.batch import BatchedSolver, BatchPolicy
+        from repro_torch.service.canon import canonicalize, relabel_tree
+        from repro_torch.service.layercache import LayerCache
+        from repro_torch.service.server import PlanRequest, PlanServer
     except ImportError as e:
         fail(f"the port is not importable from {ROOT / 'src'}: {e}")
     dev = torch.device("cuda", 0)
@@ -499,7 +528,257 @@ def main() -> int:
           f"(max, cap, out, cap_conn) came back in request order, "
           f"{chunks_mixed} chunks", flush=True)
 
-    # ----------------------------------------------------------- 10. times
+    # --------------------------------------------------------- 10. server
+    # The passes run twice, each time on fresh servers: first to build
+    # every program and touch every table ("first call"), then the run
+    # that is timed, counted and checked ("warm"), so that a cold pass and
+    # a seeded pass are compared warm against warm.
+    class TimedLayerCache(LayerCache):
+        """The layer cache, with the host seconds of its seed probes and
+        of its harvests summed."""
+        probe_s = harvest_s = 0.0
+
+        def seed_for(self, form, cost):
+            t0 = time.perf_counter()
+            try:
+                return super().seed_for(form, cost)
+            finally:
+                self.probe_s += time.perf_counter() - t0
+
+        def observe(self, *args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return super().observe(*args, **kw)
+            finally:
+                self.harvest_s += time.perf_counter() - t0
+
+    def server(**kw):
+        """A plan server on the card with the plan cache off (unless
+        asked) and a layer cache that admits from the first solve."""
+        kw.setdefault("enable_cache", False)
+        srv = PlanServer(**kw)
+        srv.layers = TimedLayerCache(admission_min_probes=0)
+        return srv
+
+    def serve_pass(srv, label, pairs, cost):
+        """One ``_process`` micro-batch of ``pairs`` as ``cost``, timed and
+        counted: responses and a dict of the pass's numbers.  ``solve_s``
+        is the batch lane's share of the wall (``BatchedSolver.solve``),
+        ``host_s`` the rest: canonicalization, cache probes, seeds,
+        harvest and relabeling, of which ``probe_s`` went to the layer
+        cache's seed probes and ``harvest_s`` to its harvests."""
+        reqs = [PlanRequest(q=q, card=c, cost=cost) for q, c in pairs]
+        st0 = srv.layers.stats.as_dict()
+        hits0 = srv.cache.stats.hits
+        solve0 = srv.solver.total_solve_s
+        probe0, harvest0 = srv.layers.probe_s, srv.layers.harvest_s
+        torch.cuda.synchronize()
+        engine.reset_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        resps = srv._process(reqs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        es = engine.stats()
+        st = srv.layers.stats.as_dict()
+        solve_s = srv.solver.total_solve_s - solve0
+        probe_s = srv.layers.probe_s - probe0
+        harvest_s = srv.layers.harvest_s - harvest0
+        num = {"wall_s": dt, "requests_per_s": len(reqs) / dt,
+               "solve_s": solve_s, "host_s": dt - solve_s,
+               "probe_s": probe_s, "harvest_s": harvest_s,
+               "plan_cache_hits": srv.cache.stats.hits - hits0,
+               "search_hits": st["search_hits"] - st0["search_hits"],
+               "value_hits": st["value_hits"] - st0["value_hits"],
+               "seeded_solves": st["seeded_solves"] - st0["seeded_solves"],
+               "solves": es.solves, "seeded_rows": es.seeded_rows,
+               "rounds": es.rounds, "host_syncs": es.host_syncs,
+               "launches": ops.launch_counts()}
+        print(f"server {label}: {len(reqs)} requests ({cost}) in "
+              f"{dt:.4f} s (solve {solve_s:.4f} s, host "
+              f"{dt - solve_s:.4f} s, of which seed probes "
+              f"{probe_s:.4f} s and harvest {harvest_s:.4f} s), "
+              f"{num['requests_per_s']:.2f} "
+              f"requests/s, plan-cache hits {num['plan_cache_hits']}, "
+              f"layer-cache search hits {num['search_hits']}, value hits "
+              f"{num['value_hits']}, seeded solves {num['seeded_solves']} "
+              f"({es.seeded_rows} rows), {es.solves} chunk solves, "
+              f"{es.rounds} rounds, {es.host_syncs} host syncs, launches "
+              f"{num['launches']} {card}", flush=True)
+        return resps, num
+
+    def relabeled(pairs, seed):
+        """The same queries under fixed random relabelings, and the
+        inverse permutations that map their trees back."""
+        prng = np.random.default_rng(seed)
+        out, inv = [], []
+        for q, c in pairs:
+            perm = [int(p) for p in prng.permutation(q.n)]
+            out.append((qg.relabel(q, perm), qg.permute_card(c, q.n, perm)))
+            back = [0] * q.n
+            for i, p in enumerate(perm):
+                back[p] = i
+            inv.append(back)
+        return out, inv
+
+    def same_answers(label, a, b, inv):
+        for i, (ra, rb) in enumerate(zip(a, b)):
+            check(float(ra.cost).hex() == float(rb.cost).hex(),
+                  f"{label} #{i}: {rb.cost!r} != {ra.cost!r}")
+            check(str(relabel_tree(rb.tree, inv[i])) == str(ra.tree),
+                  f"{label} #{i}: trees differ after relabeling back")
+
+    def same_cmax(label, pairs, resps, want):
+        """C_max optima equal DPsub's on the host, and each tree, in the
+        request's labels, realizes its optimum."""
+        for i, ((q, c), r) in enumerate(zip(pairs, resps)):
+            check(float(r.cost).hex() == float(want[i]).hex(),
+                  f"{label} #{i}: {r.cost!r} != DPsub {want[i]!r}")
+            check(r.tree.validate() and r.tree.cost_max(c) == r.cost,
+                  f"{label} #{i}: tree does not realize its optimum")
+
+    cliques13 = [qg.paper_clique_instance(13, seed) for seed in range(16)]
+    sparse13 = []
+    for i, maker in enumerate((qg.chain, qg.star, qg.cycle)):
+        q = maker(13)
+        sparse13.append((q, qg.make_cardinalities(q, seed=700 + i)))
+    re15, inv15 = relabeled(cliques15, 11)
+    re13, inv13 = relabeled(sparse13, 12)
+
+    def server_passes(tag):
+        """Every pass of the phase on fresh servers: responses and numbers
+        by pass, and the out server's DP tables by canonical key."""
+        res = {}
+        srv = server()
+        res["max15"] = serve_pass(srv, f"{tag}, max n=15 cold", cliques15,
+                                  "max")
+        res["max15_seeded"] = serve_pass(
+            srv, f"{tag}, max n=15 relabeled", re15, "max")
+        res["search_inserts15"] = srv.layers.stats.search_inserts
+        srv13 = server()
+        res["max13"] = serve_pass(srv13, f"{tag}, max n=13", cliques13,
+                                  "max")
+        res["cap13"] = serve_pass(srv13, f"{tag}, cap n=13 after max",
+                                  cliques13, "cap")
+        srv_out = server()
+        tables: dict = {}
+        observe = srv_out.layers.observe
+
+        def keep_table(form, cost, cost_v, meta, params=(), dp=None):
+            tables.setdefault(form.key, []).append(np.array(dp, copy=True))
+            return observe(form, cost, cost_v, meta, params=params, dp=dp)
+
+        srv_out.layers.observe = keep_table
+        res["out13"] = serve_pass(srv_out, f"{tag}, out n=13 cold",
+                                  sparse13, "out")
+        res["out13_seeded"] = serve_pass(
+            srv_out, f"{tag}, out n=13 relabeled", re13, "out")
+        res["tables"] = tables
+        srv_c = server(enable_cache=True)
+        res["cache_first"] = serve_pass(srv_c, f"{tag}, plan cache first",
+                                        cliques15, "max")
+        res["cache_replay"] = serve_pass(srv_c, f"{tag}, plan cache replay",
+                                         re15, "max")
+        srv_h = server(batch_policy=BatchPolicy(engine="host"))
+        res["host13"] = serve_pass(srv_h, f"{tag}, host engine n=13",
+                                   host_items, "max")
+        return res
+
+    server_passes("first call")
+    res10 = server_passes("warm")
+    server_launches = {k: 0 for k in build.KERNELS}
+    for val in res10.values():
+        if isinstance(val, tuple):
+            for k, v in val[1]["launches"].items():
+                server_launches[k] += v
+
+    # max n=15: cold against DPsub on the host, seeded against cold
+    cold, n_cold = res10["max15"]
+    warm, n_warm = res10["max15_seeded"]
+    check(all(r.route.lane == "batch" and r.meta["backend"] == "cuda"
+              for r in cold + warm), "the max passes left the kernel tier")
+    check(res10["search_inserts15"] == 16
+          and n_warm["search_hits"] == 16 and n_warm["seeded_rows"] == 16
+          and n_warm["solves"] == 1,
+          f"the relabeled pass was not seeded 16/16 in one chunk: {n_warm}")
+    check(n_warm["rounds"] == 1 < n_cold["rounds"],
+          f"seeded rounds {n_warm['rounds']}, cold {n_cold['rounds']}")
+    check(n_cold["launches"]["zeta_cluster"] > 0
+          and n_warm["launches"]["zeta_cluster"] > 0,
+          "a max pass at n = 15 launched no zeta_cluster")
+    cmax15 = [dpsub(c, 15, mode="max")[-1] for _, c in cliques15]
+    same_cmax("server max n=15 cold", cliques15, cold, cmax15)
+    same_answers("server max n=15", cold, warm, inv15)
+
+    # cap n=13 after max: the cross-lane warm start, against the host
+    # pipeline on the canonical form the server solved
+    max13, n_max13 = res10["max13"]
+    caps, n_cap13 = res10["cap13"]
+    same_cmax("server max n=13", cliques13, max13,
+              [dpsub(c, 13, mode="max")[-1] for _, c in cliques13])
+    check(n_cap13["search_hits"] == 16 and n_cap13["seeded_rows"] == 16
+          and n_cap13["rounds"] == 1,
+          f"the cap pass was not warm-started by the max pass: {n_cap13}")
+    for i, ((q, c), r) in enumerate(zip(cliques13, caps)):
+        check(r.route.lane == "batch" and r.meta["engine"] == "fused",
+              f"cap n=13 #{i}: route {r.route}, meta {r.meta}")
+        form = canonicalize(q, c)      # what the server solved
+        h = ccap(form.q, form.card, engine="host")
+        same_plan(f"server cap n=13 #{i}", r,
+                  h.cout, relabel_tree(h.tree, form.inverse_perm), h.gamma)
+
+    # out n=13: cold DP tables against the DPccp enumerator on the
+    # canonical form, seeded tables byte-equal to cold
+    out1, n_out1 = res10["out13"]
+    out2, n_out2 = res10["out13_seeded"]
+    tables = res10["tables"]
+    check(all(r.route.method == "dpccp" and r.route.lane == "batch"
+              for r in out1 + out2), "the out passes left the fused lane")
+    check(n_out2["value_hits"] > 0 and n_out2["seeded_rows"] == 3,
+          f"the relabeled out pass scored no value hits: {n_out2}")
+    for i, ((q, c), r) in enumerate(zip(sparse13, out1)):
+        form = canonicalize(q, c)
+        dp, tree = dpccp_with_tree(form.q, form.card)
+        same_plan(f"server out n=13 #{i}", r, dp[-1],
+                  relabel_tree(tree, form.inverse_perm))
+        check(len(tables.get(form.key, ())) == 2
+              and tables[form.key][0].tobytes() == dp.tobytes(),
+              f"server out n=13 #{i}: cold DP table != DPccp enumerator")
+    check(len(tables) == 3 and all(
+        v[0].tobytes() == v[1].tobytes() for v in tables.values()),
+        "seeded out DP tables differ from the cold ones")
+    same_answers("server out n=13", out1, out2, inv13)
+
+    # the plan cache: the first pass against DPsub, the replay from cache
+    first, _ = res10["cache_first"]
+    replay, n_replay = res10["cache_replay"]
+    same_cmax("server plan cache first", cliques15, first, cmax15)
+    check(n_replay["plan_cache_hits"] == 16 and n_replay["solves"] == 0
+          and sum(n_replay["launches"].values()) == 0
+          and all(r.cache_hit for r in replay),
+          f"the replay was not answered by the plan cache: {n_replay}")
+    same_answers("server plan-cache replay", first, replay, inv15)
+
+    # the host engine: ranked_conv launched, answers == fused server
+    host_resp, n_host = res10["host13"]
+    check(n_host["launches"]["ranked_conv"] > 0,
+          f"the host-engine server launched {n_host['launches']}")
+    fused_resp = server()._process([PlanRequest(q=q, card=c)
+                                    for q, c in host_items])
+    for i, (a, b) in enumerate(zip(host_resp, fused_resp)):
+        check(float(a.cost).hex() == float(b.cost).hex()
+              and str(a.tree) == str(b.tree),
+              f"host-engine server #{i} differs from the fused server")
+    same_cmax("server host engine n=13", host_items, host_resp,
+              [dpsub(c, 13, mode="max")[-1] for _, c in host_items])
+    print(f"server: every warm pass == its reference answer (DPsub, the "
+          f"cap pipeline, the DPccp enumerator); rounds cold "
+          f"{n_cold['rounds']} -> seeded {n_warm['rounds']} (max n=15), "
+          f"{n_max13['rounds']} -> {n_cap13['rounds']} (cap n=13 after "
+          f"max); launches over the warm passes {server_launches} {card}",
+          flush=True)
+
+    # ----------------------------------------------------------- 11. times
     # Device time per launch from torch.profiler (self device time of the
     # kernel, by name), warm and after a 64 MB write (L2 cold);
     # "host-launched call" = CUDA events around 50 calls issued back to
@@ -516,8 +795,8 @@ def main() -> int:
 
     def row(kernel, names, source, replaces, launch, plain, nbytes, nops,
             launches, shape):
-        dev_ms, per_call = device_ms(launch, names)
-        cold_ms, _ = device_ms(launch, names, between=flush_l2)
+        dev_ms, per_call, tries = device_ms(launch, names)
+        cold_ms, _, tries_cold = device_ms(launch, names, between=flush_l2)
         call_ms = time_ms(launch)
         host = host_us(launch)
         plain_ms = time_ms(plain)
@@ -528,18 +807,20 @@ def main() -> int:
                      "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": None,
                      "ms_method": "torch.profiler self device time",
+                     "profiler_sessions": [tries, tries_cold],
                      "ms_l2_cold": cold_ms,
                      "host_call_ms": call_ms, "host_us_per_launch": host,
                      "shape": shape})
         print(f"time {kernel} {shape}: device {dev_ms:.5f} ms per launch "
               f"warm, {cold_ms:.5f} ms L2 cold (torch.profiler, "
-              f"{per_call:g} kernel(s) per call), "
+              f"{per_call:g} kernel(s) per call, profiler sessions "
+              f"{tries} / {tries_cold}), "
               f"host-launched call {call_ms:.5f} ms, host cost "
               f"{host:.2f} us per launch, plain {plain_ms:.5f} ms, bound "
               f"{b_ms:.5f} ms ({b_by}) {card}", flush=True)
 
     launches = {k: counts5[k] + counts6[k] + counts8[k] + counts8k[k]
-                + counts9[k] for k in build.KERNELS}
+                + counts9[k] + server_launches[k] for k in build.KERNELS}
     row("zeta_cluster", ("zeta_cluster_kernel",),
         "src/repro_torch/csrc/zeta.cu",
         "src/repro/kernels/zeta_pallas.py:53",
@@ -569,8 +850,8 @@ def main() -> int:
         xt = on_card(rng.integers(0, 2, shape).astype(np.int32))
         ot = torch.empty_like(xt)
         fn = lambda: ops.zeta_op(xt, out=ot)    # noqa: E731
-        warm, per_call = device_ms(fn, ZETA_KERNELS)
-        cold, _ = device_ms(fn, ZETA_KERNELS, between=flush_l2)
+        warm, per_call, tries = device_ms(fn, ZETA_KERNELS)
+        cold, _, tries_cold = device_ms(fn, ZETA_KERNELS, between=flush_l2)
         call_ms = time_ms(fn)
         plain = time_ms(lambda: ref.zeta_ref(xt))
         b_ms, _ = bound(8 * xt.numel(), xt.numel() // 2 * 15)
@@ -578,7 +859,8 @@ def main() -> int:
               f"{cold:.5f} ms L2 cold ({per_call:g} launches per "
               f"transform, torch.profiler), host-launched call "
               f"{call_ms:.5f} ms, plain {plain:.5f} ms, bound {b_ms:.5f} ms "
-              f"({100 * b_ms / cold:.1f}% of it cold) {card}", flush=True)
+              f"({100 * b_ms / cold:.1f}% of it cold), profiler sessions "
+              f"{tries} / {tries_cold} {card}", flush=True)
     del scratch
     print(f"launches per solve: fused lane "
           f"{ {k: v / chunks5 for k, v in counts5.items()} } over "
@@ -587,7 +869,9 @@ def main() -> int:
     print(f"throughput: fused lane (phase 5) {qps5:.3f} queries/s, f64 "
           f"tier n=18 (phase 7) {qps7:.4f} queries/s, cap lane n=15 "
           f"(phase 8) {qps8:.3f} queries/s, out lane n=15 (phase 9) "
-          f"{qps9:.3f} queries/s {card}", flush=True)
+          f"{qps9:.3f} queries/s, server max n=15 cold / seeded "
+          f"(phase 10) {n_cold['requests_per_s']:.3f} / "
+          f"{n_warm['requests_per_s']:.3f} requests/s {card}", flush=True)
 
     loaded = [m for m in sys.modules
               if m.split(".")[0] == "jax" or m.startswith("repro.")

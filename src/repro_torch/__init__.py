@@ -10,9 +10,13 @@ C++ kernel under ``csrc/``, built with ``nvcc`` at first use
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card they raise instead of falling back.
 
-Ported so far: the batch lane's four costs (``max``, ``cap``,
-``cap_conn``, ``out``), from ``service.batch.BatchedSolver`` down to the
-zeta/Moebius and ranked-convolution kernels, and every (cost, method)
-pair of ``core.dpconv.optimize``.  Warm-start seeds and ``shards > 1``
-raise ``NotImplementedError``.
+Ported so far: the plan server's single-request and micro-batch path
+(``service.server.PlanServer.plan_one``: canonicalization, routing, the
+plan cache and the layer cache's warm starts), the batch lane's four
+costs (``max``, ``cap``, ``cap_conn``, ``out``) from
+``service.batch.BatchedSolver`` down to the zeta/Moebius and
+ranked-convolution kernels, and every (cost, method) pair of
+``core.dpconv.optimize``.  ``shards > 1`` and the serving runtime
+(``PlanServer.serve``, ``plan_async``, ``prewarm``) raise
+``NotImplementedError``.
 """

@@ -80,12 +80,15 @@ def ccap(
     ``engine_pass2="dpccp"``.  The cap stays the full-lattice C_max
     optimum; if no cross-product-free plan attains it, the assertion
     fires (loosen ``gamma_slack``).  The fused engine runs on ``device``
-    (CUDA unless given) on the f64 tier, as the reference's runs XLA."""
+    (CUDA unless given) on the f64 tier, as the reference's runs XLA.
+    ``seed_opt`` (a cached C_max optimum) warm-starts the fused pass 1;
+    the host pipeline ignores it."""
     n = q.n
     card = host_cards(card)
     if engine not in ("auto", "fused", "host"):
         raise ValueError(f"unknown engine {engine!r}")
-    engine_mod.reject_unported(shards, seed_opt=seed_opt)
+    engine_mod.reject_unported(shards)
+    seeds = None if seed_opt is None else [seed_opt]
     if connected:
         if engine_pass2 == "dpsub":
             engine_pass2 = "dpccp"
@@ -102,7 +105,7 @@ def ccap(
             fc = engine_mod.fused_ccap(
                 card[None, :], n, gamma_slack=gamma_slack,
                 extract_tree=extract_tree, gamma_batch=gamma_batch,
-                qs=[q], device=device)
+                qs=[q], seed_opt=seeds, device=device)
             return _fused_result(fc, 0, True)
         # fall through to the host pipeline (engine_pass2 == "dpccp")
     elif engine == "fused" and not _fused_combo(engine_pass1,
@@ -117,7 +120,7 @@ def ccap(
         fc = engine_mod.fused_ccap(
             card[None, :], n, gamma_slack=gamma_slack,
             extract_tree=extract_tree, gamma_batch=gamma_batch,
-            device=device)
+            seed_opt=seeds, device=device)
         return _fused_result(fc, 0, False)
 
     diagnostics = {}
@@ -172,12 +175,13 @@ def ccap_batch(
 
     ``connected=True`` is the batched no-cross-products cap.  Any
     non-fusable member (hyperedges / disconnected) drops the whole chunk
-    to the per-query host pipeline, as in the reference.
+    to the per-query host pipeline, as in the reference.  ``seed_opt``:
+    per-row cached C_max optima for the fused pass 1.
     """
     cards = host_cards(cards)
     if cards.shape[1] != 1 << n:
         raise ValueError(f"cards of width {cards.shape[1]} do not fit n={n}")
-    engine_mod.reject_unported(shards, seed_opt=seed_opt)
+    engine_mod.reject_unported(shards)
     fusable = not connected or all(
         not q.hyperedges and q.is_connected(q.full_mask) for q in qs)
     if engine in ("fused", "auto") and fusable:
@@ -185,7 +189,7 @@ def ccap_batch(
                                    extract_tree=extract_tree,
                                    gamma_batch=gamma_batch,
                                    qs=list(qs) if connected else None,
-                                   device=device)
+                                   seed_opt=seed_opt, device=device)
         return [_fused_result(fc, b, connected)
                 for b in range(cards.shape[0])]
     return [ccap(q, cards[b], gamma_slack=gamma_slack,

@@ -12,9 +12,10 @@ of the paper, instantiated per cost function.
 Every (cost, method) pair of the reference runs, with the same routing.
 ``device`` (CUDA unless given) reaches the paths that run tensor code;
 the numpy oracles (``dpsub``, the host ``dpccp`` enumerator) run on the
-host, as in the reference.  Warm-start seeds (``seed_opt``,
-``seed_vals``, ``seed_ok``) and ``shards > 1`` raise
-``NotImplementedError``.
+host, as in the reference.  Warm-start seeds ride as in the reference:
+``seed_opt`` reaches the fused max and cap searches, ``seed_vals``/
+``seed_ok`` the fused DPccp sweep only (the host enumerator drops them).
+``shards > 1`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -42,11 +43,9 @@ class PlanResult:
 
 
 def _ported(kw: dict) -> None:
-    """Raise for the arguments the port does not carry yet: warm-start
-    seeds and a solve mesh wider than one device.  Drops them otherwise,
-    so the routing below sees the reference's keywords."""
-    engine_mod.reject_unported(int(kw.pop("shards", 1) or 1),
-                               **{s: kw.pop(s, None) for s in _SEEDS})
+    """Raise for a solve mesh wider than one device, which the port does
+    not carry yet; drop ``shards`` otherwise."""
+    engine_mod.reject_unported(int(kw.pop("shards", 1) or 1))
 
 
 def _fusable_out(q: QueryGraph) -> bool:
@@ -92,13 +91,21 @@ def optimize(q: QueryGraph, card, cost: str = "max",
         if method == "dpccp":
             engine = kw.pop("engine", "host")
             device = kw.pop("device", None)
+            # value seeds ride the fused path only: the host enumerator
+            # has no slot for them, so they are dropped, never an error
+            seed_vals = kw.pop("seed_vals", None)
+            seed_ok = kw.pop("seed_ok", None)
             card = host_cards(card)
             if engine not in ("host", "fused"):
                 raise ValueError(f"unknown dpccp engine {engine!r}")
             if engine == "fused" and not kw and _fusable_out(q):
-                fo = engine_mod.fused_out([q], card[None, :], n,
-                                          extract_tree=extract_tree,
-                                          device=device)
+                fo = engine_mod.fused_out(
+                    [q], card[None, :], n, extract_tree=extract_tree,
+                    seed_vals=None if seed_vals is None
+                    else np.asarray(seed_vals, np.float64)[None, :],
+                    seed_ok=None if seed_ok is None
+                    else np.asarray(seed_ok, bool)[None, :],
+                    device=device)
                 meta = {"engine": "fused", "dispatches": fo.dispatches}
                 if fo.dp is not None:
                     meta["dp_table"] = np.asarray(fo.dp[0], np.float64)
@@ -156,11 +163,13 @@ def optimize_batch(qs, cards, cost: str = "max", method: str = "dpconv",
                             "dispatches": r.dispatches,
                             "batched": True}) for r in rs]
     if (cost == "out" and method == "dpccp" and same_n and dp_fn is None
-            and set(kw) <= {"engine", "device"}
+            and set(kw) <= {"engine", "device", "seed_vals", "seed_ok"}
             and kw.get("engine") == "fused"
             and all(_fusable_out(q) for q in qs)):
         fo = engine_mod.fused_out(qs, np.stack(cards), qs[0].n,
                                   extract_tree=extract_tree,
+                                  seed_vals=kw.get("seed_vals"),
+                                  seed_ok=kw.get("seed_ok"),
                                   device=kw.get("device"))
         out = []
         for b in range(len(qs)):
@@ -180,6 +189,10 @@ def optimize_batch(qs, cards, cost: str = "max", method: str = "dpconv",
                             "dispatches": r.dispatches,
                             "passes": r.passes.get("pass1_fsc_passes"),
                             "batched": True}) for r in rs]
+    # the per-query fallback: batch-shaped seeds do not apply to single
+    # solves, so they are dropped (seeds are never load-bearing)
+    for hint in _SEEDS:
+        kw.pop(hint, None)
     return [optimize(q, c, cost=cost, method=method,
                      extract_tree=extract_tree, **kw)
             for q, c in zip(qs, cards)]

@@ -11,8 +11,11 @@ Two engines, as in the reference: ``"fused"`` (``core.engine``: the
 whole lockstep search and the Alg. 2 extraction scan on the device) and
 ``"host"`` (one feasibility pass per round, host recursion for the tree;
 the parity reference and the ``dp_fn`` hook that the kernel tier's
-ranked convolution runs through).  Held over: the host loop's
-``gamma_batch > 1`` and ``early_exit`` variants, and warm-start seeds.
+ranked convolution runs through).  ``seed_opt`` (a cached optimum from
+the layer cache) warm-starts the fused search and is ignored by the host
+loop, as in the reference: a seed is a perf hint, never an input to the
+result.  Held over: the host loop's ``gamma_batch > 1`` and
+``early_exit`` variants.
 """
 from __future__ import annotations
 
@@ -54,6 +57,7 @@ def dpconv_max(
     engine: str = "auto",
     backend: str = "f64",
     shards: int = 1,
+    seed_opt: "float | None" = None,
     device=None,
 ) -> CmaxResult:
     """Optimal C_max value (and join tree) for query graph ``q`` with the
@@ -62,7 +66,8 @@ def dpconv_max(
 
     ``engine`` ``"auto"``/``"fused"`` runs the fused engine (``backend``
     selects its tier, ``gamma_batch`` its probe width); ``"host"`` runs
-    the per-round host loop on the f64 tier."""
+    the per-round host loop on the f64 tier.  ``seed_opt`` warm-starts the
+    fused search (bit-identical results; the host loop ignores it)."""
     _check_engine(engine)
     card = host_cards(card)
     if engine == "host":
@@ -75,6 +80,7 @@ def dpconv_max(
     fs = fused_dpconv_max(card[None, :], q.n, direct_layers=direct_layers,
                           extract_tree=extract_tree, backend=backend,
                           gamma_batch=gamma_batch, shards=shards,
+                          seed_opt=None if seed_opt is None else [seed_opt],
                           device=device)
     return CmaxResult(optimum=float(fs.optima[0]), tree=fs.trees[0],
                       feasibility_passes=fs.passes, engine="fused",
@@ -92,6 +98,7 @@ def dpconv_max_batch(
     backend: str = "f64",
     gamma_batch: int = 1,
     shards: int = 1,
+    seed_opt=None,
     device=None,
 ) -> "list[CmaxResult]":
     """Solve B same-``n`` DPconv[max] instances in lockstep; ``cards`` is
@@ -103,6 +110,8 @@ def dpconv_max_batch(
     feasibility pass (``service.batch.kernel_dp_fn`` is the kernel tier);
     the default is the f64 layered DP.  ``engine="fused"`` (and
     ``"auto"`` without ``dp_fn``) runs ``core.engine.fused_dpconv_max``.
+    ``seed_opt`` — per-row cached optima (None entries cold) for the
+    fused search; the host loop ignores them.
     """
     _check_engine(engine)
     cards = host_cards(cards)
@@ -116,7 +125,7 @@ def dpconv_max_batch(
         fs = fused_dpconv_max(cards, n, direct_layers=direct_layers,
                               extract_tree=extract_tree, backend=backend,
                               gamma_batch=gamma_batch, shards=shards,
-                              device=device)
+                              seed_opt=seed_opt, device=device)
         return [CmaxResult(optimum=float(fs.optima[b]), tree=fs.trees[b],
                            feasibility_passes=fs.passes, engine="fused",
                            dispatches=fs.dispatches) for b in range(B)]

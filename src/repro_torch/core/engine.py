@@ -17,6 +17,14 @@ The C_out program has no search loop: its syncs are its result copies.
 ``rounds`` and ``passes`` are the reference's exactly.  Capturing the loop in a
 CUDA graph is later work.
 
+Warm starts (the layer cache's seeds): ``seed_opt`` in
+``fused_dpconv_max``/``fused_ccap`` encodes cached C_max optima into the
+search brackets (``_seed_bracket``) and runs the ``<cost>_seeded``
+program, which verifies each one with a dual probe (one round, no host
+sync); ``seed_vals``/``seed_ok`` in ``fused_out`` run the ``out_seeded``
+program, which replays cached sub-table values in its sweep.  Results
+are bit-identical with or without seeds.
+
 Exactness: as in the reference — feasibility values are exact {0,1}
 counts (f64 to n = 26 on the ``f64`` tier, int32 to n = 15 on the
 ``cuda`` tier), the G = 1 probe sequence is the host loop's pivot
@@ -52,6 +60,8 @@ class EngineStats:
         "exec_cache_hits",     # program (and its device tables) reused
         "exec_cache_misses",   # shape buckets built
         "host_extractions",    # per-solve host recursions (must stay 0)
+        "seeded_solves",       # solves that ran a warm-start program
+        "seeded_rows",         # queries whose seed engaged in those solves
     )
 
     def __init__(self):
@@ -98,6 +108,7 @@ class FusedSolve:
     dispatches: int = 1            # program calls (one per solve)
     syncs: int = 0                 # host syncs the solve cost
     dp: "np.ndarray | None" = None  # (B, 2^n) extraction feasibility table
+    seeded: int = 0                # rows whose search bracket was seeded
 
 
 @dataclasses.dataclass
@@ -110,6 +121,7 @@ class FusedOutSolve:
     syncs: int = 0
     dp: "np.ndarray | None" = None  # (B, 2^n) value table (+inf outside
     #                                 the connected sets)
+    seeded: int = 0                # rows carrying cached sub-table seeds
 
 
 @dataclasses.dataclass
@@ -122,6 +134,7 @@ class FusedCapSolve:
     rounds: int                    # pass-1 search rounds (lockstep)
     dispatches: int = 1
     syncs: int = 0
+    seeded: int = 0                # rows whose search bracket was seeded
 
 
 # ----------------------------------------------------------- program cache
@@ -170,22 +183,26 @@ def get_program(n: int, B: int, C: int, tier: str, direct_layers: int,
     static device tables across calls.  ``cost`` is ``"max"``, ``"cap"``,
     ``"cap_conn"`` (pass 2 under connected-split masks) or ``"out"``
     (keyed with ``C = 0``, tier ``"f64"`` and G = 1: it searches
-    nothing)."""
+    nothing), each with an optional ``"_seeded"`` suffix: the warm-start
+    variant, in a slot of its own."""
     key = (n, B, C, tier, direct_layers, bool(extract), cost, gamma_batch,
            str(device))
     fn = _PROGRAMS.get(key)
     if fn is not None:
         _STATS.inc("exec_cache_hits")
         return fn
-    if cost == "max":
+    seeded = cost.endswith("_seeded")
+    base = cost[:-len("_seeded")] if seeded else cost
+    if base == "max":
         fn = lattice.build_max_program(n, direct_layers, tier, extract,
-                                       gamma_batch)
-    elif cost in ("cap", "cap_conn"):
+                                       gamma_batch, seeded=seeded)
+    elif base in ("cap", "cap_conn"):
         fn = lattice.build_cap_program(n, direct_layers, tier, extract,
                                        gamma_batch,
-                                       connected=cost == "cap_conn")
-    elif cost == "out":
-        fn = lattice.build_out_program(n, extract)
+                                       connected=base == "cap_conn",
+                                       seeded=seeded)
+    elif base == "out":
+        fn = lattice.build_out_program(n, extract, seeded=seeded)
     else:
         raise ValueError(f"unknown fused cost {cost!r}")
     _STATS.inc("exec_cache_misses")
@@ -223,13 +240,47 @@ def _connectivity(qs, B: int, what: str) -> np.ndarray:
     return conn
 
 
-def reject_unported(shards: int, **seeds) -> None:
+def reject_unported(shards: int) -> None:
     """Raise for what the port does not carry yet: a solve mesh wider
-    than one device, or any warm-start seed."""
+    than one device."""
     if shards != 1:
         raise NotImplementedError("shards > 1 is not ported yet")
-    if any(v is not None for v in seeds.values()):
-        raise NotImplementedError("warm-start seeds are not ported yet")
+
+
+def _seed_bracket(cand_pad: np.ndarray, hi0: np.ndarray, seed_opt,
+                  B: int):
+    """Encode cached optima as warm-start hypotheses in the brackets.
+
+    ``seed_opt`` is a length-B sequence of cached C_max optima (None or
+    non-finite: no seed for that row).  A seed engages only when it
+    equals a candidate of the row's live range exactly (f64 equality, so
+    seeds travel as Python floats); the row is then encoded ``lo0 =
+    -(idx + 1)`` with the full bracket kept in ``hi0``, and the seeded
+    program verifies the hypothesis on the device before collapsing.  A
+    stale seed only shrinks the bracket.  Returns ``(lo0, hi0,
+    rows_seeded)``."""
+    lo0 = np.zeros_like(hi0)
+    hits = 0
+    if seed_opt is None:
+        return lo0, hi0, hits
+    for b in range(min(B, len(seed_opt))):
+        v = seed_opt[b]
+        if v is None or not np.isfinite(v):
+            continue
+        row = cand_pad[b]
+        idx = int(np.searchsorted(row[:hi0[b] + 1], v))
+        if idx <= hi0[b] and row[idx] == v:
+            lo0[b] = -(idx + 1)
+            hits += 1
+    return lo0, hi0, hits
+
+
+def _count_call(seeded: int) -> None:
+    """Count one whole-solve program call (and its engaged seeds)."""
+    _STATS.inc("dispatches")
+    if seeded:
+        _STATS.inc("seeded_solves")
+        _STATS.inc("seeded_rows", seeded)
 
 
 def _host(out) -> tuple:
@@ -256,8 +307,14 @@ def fused_dpconv_max(cards, n: int, direct_layers: int = 4,
     transform tier (``"f64"`` or ``"cuda"``), ``gamma_batch = G > 1``
     probes G thresholds per round ((G+1)-ary search).  Optima and trees
     are bit-identical to B host-loop ``dpconv_max`` calls.
+
+    ``seed_opt`` — per-row cached optima from the layer cache (None
+    entries cold): if any matches, the ``max_seeded`` program verifies
+    each with one dual probe and collapses the bracket (one round instead
+    of ~log2 C when the seed holds); results are bit-identical either
+    way.
     """
-    reject_unported(shards, seed_opt=seed_opt)
+    reject_unported(shards)
     dev = resolve_device(device)
     cards = host_cards(cards)
     if cards.ndim == 1:
@@ -268,14 +325,16 @@ def fused_dpconv_max(cards, n: int, direct_layers: int = 4,
     if gamma_batch < 1:
         raise ValueError("gamma_batch must be >= 1")
     cards_pad, cand_pad, hi0, Bp, C = _pad_candidates(cards, n)
+    lo0, hi0, seeded = _seed_bracket(cand_pad, hi0, seed_opt, B)
     fn = get_program(n, Bp, C, backend, direct_layers, extract_tree,
-                     gamma_batch, dev)
+                     gamma_batch, dev,
+                     cost="max_seeded" if seeded else "max")
     rec0 = jointree.recursive_extractions()
     out = fn(torch.as_tensor(cards_pad, device=dev),
              torch.as_tensor(cand_pad, device=dev),
-             torch.zeros(Bp, dtype=torch.int64, device=dev),
+             torch.as_tensor(lo0, device=dev),
              torch.as_tensor(hi0, device=dev))
-    _STATS.inc("dispatches")
+    _count_call(seeded)
     *result, rounds, syncs = out
     host, copies = _host(result)
     syncs += copies
@@ -295,7 +354,7 @@ def fused_dpconv_max(cards, n: int, direct_layers: int = 4,
     return FusedSolve(optima=np.asarray(opt, np.float64)[:B], trees=trees,
                       rounds=rounds,
                       passes=rounds + (1 if extract_tree else 0),
-                      dispatches=1, syncs=syncs, dp=dpn)
+                      dispatches=1, syncs=syncs, dp=dpn, seeded=seeded)
 
 
 def fused_out(qs: list, cards, n: int, extract_tree: bool = True,
@@ -310,8 +369,15 @@ def fused_out(qs: list, cards, n: int, extract_tree: bool = True,
     (B, 2^n).  Every graph must be connected and simple-edge, else
     ``ValueError``.  Optima, DP tables and trees are bit-identical to B
     ``dpccp_with_tree`` calls.
+
+    ``seed_vals``/``seed_ok`` — (B, 2^n) cached sub-table values and
+    their validity mask from the layer cache: if any row has one, the
+    ``out_seeded`` program replays those entries in its sweep.  They go
+    to the device once per call, not once per layer.  ``dp[S]`` is a
+    pure function of the sub-problem induced on ``S``, so results never
+    change.
     """
-    reject_unported(shards, seed_vals=seed_vals, seed_ok=seed_ok)
+    reject_unported(shards)
     dev = resolve_device(device)
     cards = host_cards(cards)
     if cards.ndim == 1:
@@ -321,11 +387,22 @@ def fused_out(qs: list, cards, n: int, extract_tree: bool = True,
         raise ValueError(f"cards of width {size} do not fit n={n} >= 2")
     conn = _connectivity(qs, B, "fused_out")
     Bp = _next_pow2(B)
-    fn = get_program(n, Bp, 0, "f64", 4, extract_tree, 1, dev, cost="out")
+    seeded = 0
+    extra = ()
+    if seed_ok is not None and np.any(seed_ok):
+        sv = np.zeros((Bp, size), np.float64)
+        so = np.zeros((Bp, size), bool)
+        sv[:B] = np.asarray(seed_vals, np.float64)
+        so[:B] = np.asarray(seed_ok, bool)
+        seeded = int(np.count_nonzero(so[:B].any(axis=1)))
+        extra = (torch.as_tensor(sv, device=dev),
+                 torch.as_tensor(so, device=dev))
+    fn = get_program(n, Bp, 0, "f64", 4, extract_tree, 1, dev,
+                     cost="out_seeded" if seeded else "out")
     rec0 = jointree.recursive_extractions()
     out = fn(torch.as_tensor(_pad_rows(cards, Bp), device=dev),
-             torch.as_tensor(_pad_rows(conn, Bp), device=dev))
-    _STATS.inc("dispatches")
+             torch.as_tensor(_pad_rows(conn, Bp), device=dev), *extra)
+    _count_call(seeded)
     host, syncs = _host(out)
     trees: list = [None] * B
     dpn = None
@@ -339,7 +416,8 @@ def fused_out(qs: list, cards, n: int, extract_tree: bool = True,
     _STATS.inc("solves")
     _STATS.inc("queries", B)
     return FusedOutSolve(couts=np.asarray(host[0], np.float64)[:B],
-                         trees=trees, dispatches=1, syncs=syncs, dp=dpn)
+                         trees=trees, dispatches=1, syncs=syncs, dp=dpn,
+                         seeded=seeded)
 
 
 def fused_ccap(cards, n: int, gamma_slack: float = 1.0,
@@ -359,8 +437,13 @@ def fused_ccap(cards, n: int, gamma_slack: float = 1.0,
     ``dpconv_max`` + ``dpccp(prune_gamma=gamma)``; it requires connected
     simple-edge graphs.  A cap the connected space cannot attain yields
     ``cout = +inf``; the caller decides whether that is an error.
+
+    ``seed_opt`` — per-row cached C_max optima warm-starting the pass-1
+    bracket exactly as in ``fused_dpconv_max``, verification included:
+    at the default slack pass 1 yields the cached value bitwise, so max-
+    and cap-lane solves of one canonical query seed each other.
     """
-    reject_unported(shards, seed_opt=seed_opt)
+    reject_unported(shards)
     dev = resolve_device(device)
     cards = host_cards(cards)
     if cards.ndim == 1:
@@ -371,20 +454,23 @@ def fused_ccap(cards, n: int, gamma_slack: float = 1.0,
     if gamma_batch < 1:
         raise ValueError("gamma_batch must be >= 1")
     cards_pad, cand_pad, hi0, Bp, C = _pad_candidates(cards, n)
+    lo0, hi0, seeded = _seed_bracket(cand_pad, hi0, seed_opt, B)
     extra = ()
     cost = "cap"
     if qs is not None:
         conn = _connectivity(qs, B, "the connected C_cap pass")
         extra = (torch.as_tensor(_pad_rows(conn, Bp), device=dev),)
         cost = "cap_conn"
+    if seeded:
+        cost += "_seeded"
     fn = get_program(n, Bp, C, backend, direct_layers, extract_tree,
                      gamma_batch, dev, cost=cost)
     rec0 = jointree.recursive_extractions()
     out = fn(torch.as_tensor(cards_pad, device=dev),
              torch.as_tensor(cand_pad, device=dev),
-             torch.zeros(Bp, dtype=torch.int64, device=dev),
+             torch.as_tensor(lo0, device=dev),
              torch.as_tensor(hi0, device=dev), float(gamma_slack), *extra)
-    _STATS.inc("dispatches")
+    _count_call(seeded)
     *result, rounds, syncs = out
     host, copies = _host(result)
     syncs += copies
@@ -400,4 +486,4 @@ def fused_ccap(cards, n: int, gamma_slack: float = 1.0,
     return FusedCapSolve(gammas=np.asarray(host[0], np.float64)[:B],
                          couts=np.asarray(host[1], np.float64)[:B],
                          trees=trees, rounds=rounds, dispatches=1,
-                         syncs=syncs)
+                         syncs=syncs, seeded=seeded)

@@ -39,8 +39,12 @@ Differences from the reference, none of which changes a result:
   promotes the sum to int64.  Counts at n <= 15 fit either way, and
   two's-complement intermediates are exact modulo 2^32.
 
-Held over to later slices: warm-start seeds and sharded sweeps (the
-entry points raise on ``shards > 1``).
+Warm starts, as in the reference: ``feasibility_layers(seed_layers=)``
+replays a solved layer prefix, ``minplus_connected_layers(seed_vals=,
+seed_ok=)`` replays cached sub-table values, and the ``seeded`` program
+variants verify a cached C_max optimum with one dual probe before the
+search (``_fused_search(verify_seed=True)``).  Held over to a later
+slice: sharded sweeps (the entry points raise on ``shards > 1``).
 """
 from __future__ import annotations
 
@@ -174,7 +178,8 @@ def moebius_at_v(acc, pc, n: int):
 def feasibility_layers(gate, n: int, direct_layers: int = 4,
                        tfm: "Transforms | None" = None,
                        final_shortcut: bool = True,
-                       Z=None, scan_middle: bool = False):
+                       Z=None, scan_middle: bool = False,
+                       seed_layers=None):
     """One full layered feasibility DP under ``gate`` (paper Sec. 5 + 6).
 
     Returns ``(dp, Z, feas)``: the accumulated feasibility table, the
@@ -190,6 +195,15 @@ def feasibility_layers(gate, n: int, direct_layers: int = 4,
     unrolled (``conv_fixed``, the host-loop path and the ranked-conv
     kernel) or scan form (``conv_masked``, the fused engine).  Both are
     exact, so results are bit-identical across forms.
+
+    ``seed_layers`` — the warm start: a ``(k0, dp_seed)`` pair where
+    ``dp_seed`` (broadcastable to ``gate``) is an accumulated feasibility
+    table whose layer slices ``dp_seed * [pc == k]`` are valid for this
+    gate for every ``k <= k0``.  Layers ``2..k0`` are replayed from the
+    seed (one select and one zeta each) instead of enumerated.  A seed
+    transfers exactly when the gate over sets of size ``<= k0`` matches
+    the run that produced it; seeded and cold runs are then
+    bit-identical.
     """
     tfm = tfm or transforms("f64")
     size = 1 << n
@@ -207,7 +221,19 @@ def feasibility_layers(gate, n: int, direct_layers: int = 4,
         tfm.zeta(singles, out=Z[1])
 
     dl = min(direct_layers, n - 1) if scan_middle else min(direct_layers, n)
-    for k in range(2, dl + 1):                 # direct small layers
+    start_k = 2
+    if seed_layers is not None:                # warm-start solved prefix
+        k0, dp_seed = seed_layers
+        k0 = min(int(k0), n - 1)
+        seed_t = torch.as_tensor(dp_seed, device=dev).to(dtype) \
+            .expand(dp.shape)
+        for k in range(2, k0 + 1):
+            layer_full = torch.where(pc == k, seed_t, zero)
+            dp = dp + layer_full
+            if k < n:
+                tfm.zeta(layer_full, out=Z[k])
+        start_k = max(2, k0 + 1)
+    for k in range(start_k, dl + 1):           # direct small layers
         layer_full = direct_layer_full(dp, gate, n, k, pc, dtype)
         dp = dp + layer_full
         if k < n:
@@ -271,7 +297,8 @@ def minplus_value_layers(card, gate_ok, n: int):
     return dp
 
 
-def minplus_connected_layers(card, conn, n: int):
+def minplus_connected_layers(card, conn, n: int, seed_vals=None,
+                             seed_ok=None):
     """DPccp's recursion as a dense layer program — the connectivity-
     masked C_out sweep.
 
@@ -287,6 +314,13 @@ def minplus_connected_layers(card, conn, n: int):
 
     ``card`` (..., 2^n) f64; ``conn`` boolean, same shape (each batch row
     may carry a different query graph).
+
+    ``seed_vals``/``seed_ok`` (same shape as ``card``; f64 / bool, on its
+    device) are value seeds: where ``seed_ok[S]`` the layer write takes
+    ``seed_vals[S]`` instead of the computed value.  ``dp[S]`` is a pure
+    function of the sub-problem induced on ``S``, so a seed taken from a
+    solve whose induced sub-problem is a byte-exact relabeling transfers
+    bitwise, and seeded sweeps stay bit-identical to cold ones.
     """
     inf = float("inf")
     dp = _minplus_init(card, n)
@@ -299,7 +333,10 @@ def minplus_connected_layers(card, conn, n: int):
         val = combo.masked_fill_(~split_ok, inf).amin(dim=-1)
         del combo, split_ok
         val += card[..., sets]
-        dp[..., sets] = val.masked_fill_(~conn[..., sets], inf)
+        val.masked_fill_(~conn[..., sets], inf)
+        if seed_vals is not None:
+            val = torch.where(seed_ok[..., sets], seed_vals[..., sets], val)
+        dp[..., sets] = val
     return dp
 
 
@@ -405,14 +442,39 @@ def _gate_builder(cards, pc, dtype):
 
 
 def _fused_search(cards, cand, lo0, hi0, n, direct_layers, tfm, G,
-                  gate_of, Z0):
+                  gate_of, Z0, verify_seed: bool = False, Zv=None):
     """The whole-solve lockstep (G+1)-ary search: each round builds its G
     gates and runs the layered DP on the carried buffer ``Z0`` (updated
     in place).  Returns ``(hi, Z, rounds, syncs)`` with cand[hi]
-    feasible; ``syncs`` counts the host reads of the loop condition."""
+    feasible; ``syncs`` counts the host reads of the loop condition.
+
+    ``lo0`` is the warm-start floor (cold solves pass zeros).  With
+    ``verify_seed=True`` a row whose ``lo0 = -(idx + 1)`` carries a
+    cached-optimum hypothesis at candidate ``idx``, never trusted: one
+    dual probe before the loop checks feasibility at ``idx`` and
+    ``idx - 1`` in one feasibility pass on ``Zv``, a G = 2 search state
+    of its own (the loop's buffer ``Z0`` is never touched by it).  A
+    verified seed collapses the bracket and the loop runs no round; a
+    stale one only shrinks the bracket monotonically and the search
+    proceeds to the true optimum.  The probe costs one round and no host
+    sync.  The extraction pass rebuilds every Z slot >= 2 at the
+    optimum's gate, so results are bit-identical to the cold search.
+    The caller keeps the invariant: cand[hi0] is feasible and no
+    candidate below ``max(lo0, 0)`` is."""
     dl = min(direct_layers, n - 1)
     lo, hi, Z = lo0, hi0, Z0
     rounds = syncs = 0
+    if verify_seed:
+        has = lo < 0
+        idx = torch.where(has, -lo - 1, 0)
+        lo = torch.clamp(lo, min=0)
+        piv = torch.stack([torch.clamp(idx - 1, min=0), idx])  # (2, B)
+        piv = torch.where(has[None, :], piv, hi[None, :])
+        gamma = torch.gather(cand, 1, piv.T).T
+        _, _, ok = feasibility_layers(gate_of(gamma), n, dl, tfm, True,
+                                      Z=Zv, scan_middle=True)
+        lo, hi = bracket_update(lo, hi, piv, ok, has)
+        rounds = 1                       # the verification sweep is paid
     while True:
         active = lo < hi
         syncs += 1
@@ -436,39 +498,48 @@ def _fused_search(cards, cand, lo0, hi0, n, direct_layers, tfm, G,
     return hi, Z, rounds, syncs
 
 
-def _searcher(n: int, direct_layers: int, tfm: Transforms, G: int):
+def _searcher(n: int, direct_layers: int, tfm: Transforms, G: int,
+              seeded: bool = False):
     """The lockstep search of a whole-solve program: ``search(cards,
     cand, lo0, hi0) -> (gate_of, hi, Z, rounds, syncs)``.  It keeps the
-    initial ranked-zeta buffer of its first call (a static table of its
-    shape) and starts every later call from a copy."""
+    initial ranked-zeta buffers of its first call (static tables of
+    their shapes: the loop's and, when ``seeded``, the G = 2
+    verification probe's) and starts every later call from copies."""
     state: dict = {}
 
     def search(cards, cand, lo0, hi0):
         dev = cards.device
+        B = cards.shape[0]
         if "Z0" not in state:
-            state["Z0"] = _search_state(cards.shape[0], n, tfm, G, dev)
+            state["Z0"] = _search_state(B, n, tfm, G, dev)
+            if seeded:
+                state["Zv"] = _search_state(B, n, tfm, 2, dev)
         gate_of = _gate_builder(cards, popcounts_on(n, dev), tfm.dtype)
+        Zv = state["Zv"].clone() if seeded else None
         return (gate_of,) + _fused_search(
             cards, cand, lo0, hi0, n, direct_layers, tfm, G, gate_of,
-            state["Z0"].clone())
+            state["Z0"].clone(), verify_seed=seeded, Zv=Zv)
 
     return search
 
 
 def build_max_program(n: int, direct_layers: int, tier: str,
-                      extract: bool, gamma_batch: int = 1):
+                      extract: bool, gamma_batch: int = 1,
+                      seeded: bool = False):
     """The whole-solve DPconv[max] program:
     ``(cards, cand, lo0, hi0) -> (opt[, dp, nodes, lidx], rounds, syncs)``.
 
     cards (B, 2^n) f64, cand (B, C) f64, lo0/hi0 (B,) int64 on one
     device.  Search, gate construction, layered DP, the extraction table
     and the Alg. 2 split scan all run on that device; the host reads the
-    loop condition once per round.
+    loop condition once per round.  ``seeded=True`` is the warm-start
+    variant: rows with ``lo0 = -(idx + 1)`` carry a cached optimum that
+    the search verifies with one dual probe (``_fused_search``).
     """
     tfm = transforms(tier)
     dl = min(direct_layers, n - 1)
     G = gamma_batch
-    search = _searcher(n, direct_layers, tfm, G)
+    search = _searcher(n, direct_layers, tfm, G, seeded)
 
     def fn(cards, cand, lo0, hi0):
         gate_of, hi, Z, rounds, syncs = search(cards, cand, lo0, hi0)
@@ -489,9 +560,12 @@ def build_max_program(n: int, direct_layers: int, tier: str,
     return fn
 
 
-def build_out_program(n: int, extract: bool):
+def build_out_program(n: int, extract: bool, seeded: bool = False):
     """The whole-solve connected C_out program (DPccp semantics):
-    ``(cards, conn) -> (cout[, dp, nodes, lidx])``.
+    ``(cards, conn) -> (cout[, dp, nodes, lidx])`` — or, with
+    ``seeded=True``, ``(cards, conn, seed_vals, seed_ok) -> ...``: the
+    sweep replays cached sub-table values where ``seed_ok`` (see
+    ``minplus_connected_layers``).
 
     cards (B, 2^n) f64 and conn (B, 2^n) bool — the per-query
     connected-subset masks (``dpccp.connectivity_masks``) — on one
@@ -501,8 +575,12 @@ def build_out_program(n: int, extract: bool):
     the program reads nothing back until its results.  Bit-identical
     optima, DP tables and trees to ``dpccp_with_tree``.
     """
-    def fn(cards, conn):
-        dpv = minplus_connected_layers(cards, conn, n)
+    def fn(cards, conn, seed_vals=None, seed_ok=None):
+        if seeded != (seed_ok is not None):
+            raise ValueError("the seeded out program takes seed_vals and "
+                             "seed_ok, the cold one neither")
+        dpv = minplus_connected_layers(cards, conn, n, seed_vals=seed_vals,
+                                       seed_ok=seed_ok)
         cout = dpv[..., -1]
         if not extract:
             return (cout,)
@@ -514,7 +592,7 @@ def build_out_program(n: int, extract: bool):
 
 def build_cap_program(n: int, direct_layers: int, tier: str,
                       extract: bool, gamma_batch: int = 1,
-                      connected: bool = False):
+                      connected: bool = False, seeded: bool = False):
     """The whole-solve C_cap program (paper Sec. 8, both passes):
     ``(cards, cand, lo0, hi0, slack[, conn]) ->
     (gamma, cout[, nodes, lidx], rounds, syncs)``.
@@ -528,10 +606,11 @@ def build_cap_program(n: int, direct_layers: int, tier: str,
     & conn``, bit-identical to ``dpconv_max`` + ``dpccp(prune_gamma=
     gamma)``.  The cap stays the full-lattice C_max optimum, which a
     cross-product-free plan may not attain: ``cout`` is then +inf, as in
-    the host pipeline.
+    the host pipeline.  ``seeded=True`` verifies cached pass-1 optima as
+    ``build_max_program`` does.
     """
     tfm = transforms(tier)
-    search = _searcher(n, direct_layers, tfm, gamma_batch)
+    search = _searcher(n, direct_layers, tfm, gamma_batch, seeded)
 
     def fn(cards, cand, lo0, hi0, slack, conn=None):
         _, hi, _, rounds, syncs = search(cards, cand, lo0, hi0)
@@ -550,3 +629,40 @@ def build_cap_program(n: int, direct_layers: int, tier: str,
         return gamma, cout, nodes, lidx, rounds, syncs
 
     return fn
+
+
+def program_card(n: int, cost: str, backend: str = "f64",
+                 gamma_batch: int = 1, extract: bool = True,
+                 shards: int = 1) -> dict:
+    """Static description of one whole-solve lattice program: which
+    semiring passes run, how many DP layers, the subset-lattice width and
+    the search arity.  ``cost`` may carry the ``_seeded`` suffix of the
+    warm-start variants; ``backend`` is the search's transform tier."""
+    semirings = {
+        "max": ["feasibility(count)"],
+        "max_seeded": ["feasibility(count), verified warm start"],
+        "cap": ["feasibility(count)", "(min,+)"],
+        "cap_seeded": ["feasibility(count), verified warm start",
+                       "(min,+)"],
+        "cap_conn": ["feasibility(count)", "(min,+) connected"],
+        "cap_conn_seeded": ["feasibility(count), verified warm start",
+                            "(min,+) connected"],
+        "out": ["(min,+) connected"],
+        "out_seeded": ["(min,+) connected, seeded"],
+    }
+    if cost not in semirings:
+        raise ValueError(f"unknown fused cost {cost!r}")
+    searched = cost not in ("out", "out_seeded")
+    dtype = transforms(backend).dtype if searched else torch.float64
+    return {
+        "cost": cost,
+        "backend": backend if searched else "f64",
+        "semirings": semirings[cost],
+        "layers": n - 1,                # DP layers per value sweep
+        "subset_lattice": 1 << n,       # cells per query per layer
+        "search": (f"lockstep {gamma_batch + 1}-ary" if searched
+                   else "none"),
+        "extract": bool(extract),
+        "shards": int(shards),
+        "dtype": str(dtype).replace("torch.", ""),
+    }

@@ -28,15 +28,18 @@ loop for max (whose kernel tier also takes the ranked-convolution
 kernel, ``kernel_dp_fn``), the host pipeline for cap (B independent
 solves, ``chunk = 1``) and the host DPccp enumerator for out.
 
-Warm-start seeds raise ``NotImplementedError``.  Results are
-bit-identical in cost and tree to single-query ``core.dpconv.optimize``
-and to ``repro``.
+Warm-start seeds ride an item's 5th slot (``_unpack``) into the fused
+engine only: a chunk with any seeded row runs the seeded program, and
+rows without a seed keep a cold bracket.  Results are bit-identical in
+cost and tree to single-query ``core.dpconv.optimize`` and to ``repro``,
+with or without seeds.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.core.dpconv import optimize, optimize_batch
@@ -93,13 +96,38 @@ def kernel_dp_fn(n: int, direct_layers: int = 4):
 
 def _unpack(item):
     """items are (q, card[, cost[, tag[, seed]]]); cost defaults to
-    "max" and ``tag`` is an attribution label kept in ``last_timings``."""
+    "max", ``tag`` is an attribution label kept in ``last_timings``, and
+    ``seed`` the layer cache's warm-start payload (None cold; ``{"opt":
+    float}`` for the max/cap search, ``{"vals": (2^n,) f64, "ok": (2^n,)
+    bool}`` for the out sweep).  Seeds are perf hints: the solvers return
+    bit-identical results with or without them."""
     q, card = item[0], item[1]
     cost = item[2] if len(item) > 2 else "max"
     tag = item[3] if len(item) > 3 else ""
-    if len(item) > 4 and item[4] is not None:
-        raise NotImplementedError("warm-start seeds are not ported yet")
-    return q, card, cost, tag
+    seed = item[4] if len(item) > 4 else None
+    return q, card, cost, tag, seed
+
+
+def _seed_kw(seeds: list, cost: str, size: int) -> dict:
+    """One chunk's seeds as engine keywords: per-row optima for a search
+    lane, (B, 2^n) values and mask for the out lane; {} when no row has
+    a seed the lane can use."""
+    if not any(s is not None for s in seeds):
+        return {}
+    if cost == "out":
+        if not any(s and s.get("ok") is not None for s in seeds):
+            return {}
+        sv = np.zeros((len(seeds), size), np.float64)
+        so = np.zeros((len(seeds), size), bool)
+        for b, s in enumerate(seeds):
+            if s and s.get("ok") is not None:
+                sv[b] = s["vals"]
+                so[b] = s["ok"]
+        return {"seed_vals": sv, "seed_ok": so}
+    opts = [s.get("opt") if s else None for s in seeds]
+    if not any(o is not None for o in opts):
+        return {}
+    return {"seed_opt": opts}
 
 
 class BatchedSolver:
@@ -111,6 +139,9 @@ class BatchedSolver:
         self.device = resolve_device(device)
         self.batches_run = 0
         self.queries_batched = 0
+        # cumulative solver-lane totals (all chunks ever solved)
+        self.total_solve_s = 0.0
+        self.total_solved = 0
         # (n, queries, seconds, engine, cost, tag_counts) per chunk of the
         # last solve() call
         self.last_timings: list = []
@@ -128,12 +159,16 @@ class BatchedSolver:
     def _dp_fn(self, n: int):
         return kernel_dp_fn(n) if self.use_kernels(n) else None
 
-    def _solve_chunk(self, qs, cards, n, cost, extract_tree):
-        """One same-(n, cost) chunk through the routed engine tier."""
+    def _solve_chunk(self, qs, cards, n, cost, extract_tree, seeds=None):
+        """One same-(n, cost) chunk through the routed engine tier.
+        ``seeds`` (per-query warm-start payloads, see ``_unpack``) reach
+        the fused engine only."""
         engine = self.policy.engine
         G = self.policy.gamma_batch
         tier = "cuda" if self.use_kernels(n) else "f64"
         dev = self.device
+        seed_kw = (_seed_kw(seeds or [None] * len(qs), cost, 1 << n)
+                   if engine == "fused" else {})
         method = "dpccp" if cost == "out" else "dpconv"
         solve_cost, conn_kw = (("cap", {"connected": True})
                                if cost == "cap_conn" else (cost, {}))
@@ -143,6 +178,8 @@ class BatchedSolver:
                 kw["gamma_batch"] = G   # out's (min,+) sweep never probes
                 if cost == "max":   # cap's pass 1 stays on the f64 tier
                     kw["backend"] = tier
+            # the single-query slice of the chunk's seeds
+            kw.update({k: v[0] for k, v in seed_kw.items()})
             res = optimize(qs[0], cards[0], cost=solve_cost, method=method,
                            extract_tree=extract_tree, **kw, **conn_kw)
             res.meta["batched"] = False
@@ -157,7 +194,7 @@ class BatchedSolver:
             # space, B host enumerations accounted as chunk-1 solves
             results = optimize_batch(qs, cards, cost="out", method="dpccp",
                                      extract_tree=extract_tree,
-                                     engine=engine, device=dev)
+                                     engine=engine, device=dev, **seed_kw)
             if not results[0].meta.get("batched"):
                 return self._independent(results)
         elif solve_cost == "cap":
@@ -170,12 +207,13 @@ class BatchedSolver:
                      for q, c in zip(qs, cards)])
             results = optimize_batch(qs, cards, cost="cap",
                                      extract_tree=extract_tree,
-                                     gamma_batch=G, device=dev, **conn_kw)
+                                     gamma_batch=G, device=dev, **conn_kw,
+                                     **seed_kw)
         elif engine == "fused":
             results = optimize_batch(qs, cards, cost="max",
                                      extract_tree=extract_tree,
                                      engine="fused", backend=tier,
-                                     gamma_batch=G, device=dev)
+                                     gamma_batch=G, device=dev, **seed_kw)
         else:
             results = optimize_batch(qs, cards, cost="max",
                                      extract_tree=extract_tree,
@@ -197,13 +235,15 @@ class BatchedSolver:
         return results
 
     def solve(self, items: list, extract_tree: bool = True) -> list:
-        """``items``: list of (q, card[, cost[, tag]]) tuples; cost is
-        "max", "cap", "cap_conn" or "out".  Returns PlanResults aligned
-        with the input order."""
+        """``items``: list of (q, card[, cost[, tag[, seed]]]) tuples;
+        cost is "max", "cap", "cap_conn" or "out", ``seed`` the optional
+        layer-cache warm-start payload.  Returns PlanResults aligned with
+        the input order."""
         groups: dict = {}
         for idx, item in enumerate(items):
-            q, card, cost, tag = _unpack(item)
-            groups.setdefault((q.n, cost), []).append((idx, q, card, tag))
+            q, card, cost, tag, seed = _unpack(item)
+            groups.setdefault((q.n, cost), []).append(
+                (idx, q, card, tag, seed))
         out: list = [None] * len(items)
         self.last_timings = []
         for (n, cost), group in sorted(groups.items()):
@@ -216,12 +256,15 @@ class BatchedSolver:
                 tags: dict = {}
                 for g in part:
                     tags[g[3]] = tags.get(g[3], 0) + 1
+                seeds = [g[4] for g in part]
                 t0 = time.perf_counter()  # timing: measured-duration
                 results = self._solve_chunk(qs, cards, n, cost,
-                                            extract_tree)
+                                            extract_tree, seeds=seeds)
                 for g, res in zip(part, results):
                     out[g[0]] = res
                 dt = time.perf_counter() - t0  # timing: measured-duration
+                self.total_solve_s += dt
+                self.total_solved += chunk
                 eng = results[0].meta.get("engine", self.policy.engine)
                 self.last_timings.append((n, chunk, dt, eng, cost, tags))
         return out

@@ -228,23 +228,12 @@ def test_convert_round_trip_and_oracle():
 
 
 def test_unported_paths_raise():
-    """What stays unported raises: warm-start seeds in every lane,
-    ``shards > 1`` and the host loop's ``gamma_batch > 1``."""
+    """What stays unported raises: ``shards > 1`` and the host loop's
+    ``gamma_batch > 1``."""
     qs, cards = _queries(5, 2, seed=1)
     items = [_port_query(q, c) for q, c in zip(qs, cards)]
     q0, c0 = items[0]
-    solver = BatchedSolver(device=CPU)
-    for cost, seed in [("max", {"opt": 1.0}), ("cap", {"opt": 1.0}),
-                       ("cap_conn", {"opt": 1.0}),
-                       ("out", {"vals": np.zeros(32),
-                                "ok": np.ones(32, bool)})]:
-        with pytest.raises(NotImplementedError):
-            solver.solve([(q0, c0, cost, "", seed)])
-    for cost, kw in [("max", {"seed_opt": 1.0}), ("cap", {"seed_opt": 1.0}),
-                     ("out", {"method": "dpccp", "engine": "fused",
-                              "seed_vals": np.zeros(32),
-                              "seed_ok": np.ones(32, bool)}),
-                     ("max", {"shards": 2}), ("cap", {"shards": 2}),
+    for cost, kw in [("max", {"shards": 2}), ("cap", {"shards": 2}),
                      ("out", {"method": "dpccp", "engine": "fused",
                               "shards": 2})]:
         with pytest.raises(NotImplementedError):
@@ -252,7 +241,7 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError):
         engine.fused_dpconv_max(cards, 5, shards=2, device=CPU)
     with pytest.raises(NotImplementedError):
-        engine.fused_ccap(cards, 5, seed_opt=[1.0, None], device=CPU)
+        engine.fused_ccap(cards, 5, shards=2, device=CPU)
     with pytest.raises(NotImplementedError):
         engine.fused_out([q0, items[1][0]], cards, 5, shards=2, device=CPU)
     with pytest.raises(NotImplementedError):
