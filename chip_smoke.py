@@ -52,7 +52,25 @@ Phases (any failed check exits non-zero; nothing is caught):
                solve, no launch); a host-engine server at n = 13, which
                launches the ranked-convolution kernel, equal to the
                fused server and to DPsub;
-11. times    — each kernel at the path's shapes: device time per launch
+11. runtime  — the serving runtime on one seeded stream
+               (``make_workload``: 96 requests, n = 12..15, clique, chain,
+               star and cycle, the default cost mix, 200 requests/s), B = 16:
+               (a) ``prewarm(range(12, 16))`` from a cold program cache,
+               then ``serve``, every dispatch of a prewarmed bucket a
+               program-cache hit; (b) ``serve(closed_loop=True)``; (c)
+               ``serve`` at the stream's arrivals; (d) 16 concurrent
+               ``plan_async`` calls (8 clique(15), 8 relabelled
+               duplicates) on the worker-thread executor; (e) a
+               ``lanes=2`` thread runtime; (f) a host-engine server on the
+               stream's n = 13 requests, which launches the ranked
+               convolution; each pass once on fresh servers to warm up,
+               then again, timed and checked: every answer equals a fresh
+               server's ``plan_one`` (clique max optima also numpy DPsub),
+               and no fault, retry, reroute, watchdog fire, shed or error;
+               (g) ``FaultPlan.chaos`` on a ``VirtualClock``, run twice:
+               identical tickets, every exact answer equal to
+               ``plan_one``'s, every degraded one certified;
+12. times    — each kernel at the path's shapes: device time per launch
                (torch.profiler) warm and with L2 cold, the host-launched
                call (CUDA events around 50 calls from Python), the host's
                cost per launch, its bound and its plain version; one
@@ -62,8 +80,12 @@ Phases (any failed check exits non-zero; nothing is caught):
 Phases 8 and 9 print wall time, solved queries per second, peak device
 memory and host syncs per solve; phase 10 prints each pass's wall time,
 requests per second, cache hits, seeded solves, rounds, host syncs and
-launches.  Launch counters are set to 0 just before each main-path
-phase (5, 6, 8, 9) and each server pass, and read just after.  Data comes from fixed seeds through numpy.  The
+launches; phase 11 prints each pass's wall time, requests per second,
+p50/p99 latency, batches, batch occupancy, coalesced joins, fast-path
+and plan-cache hits, the engine's dispatch records (count, execute and
+build seconds, program-cache hits) and launches.  Launch counters are
+set to 0 just before each main-path phase (5, 6, 8, 9), each server
+pass and each runtime pass, and read just after.  Data comes from fixed seeds through numpy.  The
 second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a card, and
 in a directory without the port.
@@ -89,6 +111,13 @@ ZETA_KERNELS = ("zeta_cluster_kernel", "zeta_pair_kernel")
 # phase 5's workload searches 23 rounds and runs 31 feasibility passes
 # (23 rounds + 8 extraction passes), as the reference does
 LANE_ROUNDS, LANE_PASSES = 23, 31
+# phase 11's stream: WorkloadSpec(n_requests=96, seed=12, ...) is the
+# first seed whose stream has clique max requests and routes nothing to
+# the approx lane (see phase 11).  FaultPlan.chaos(seed=139, rate=0.01)
+# draws a firing fault at its first arming (each of its six specs fires
+# with probability rate / 6 per arming, so most seeds fire none in one
+# stream)
+RUNTIME_REQUESTS, RUNTIME_SEED, CHAOS_SEED = 96, 12, 139
 
 
 def fail(msg: str) -> None:
@@ -208,7 +237,7 @@ def main() -> int:
     except ImportError as e:
         fail(f"the port is not importable from {ROOT / 'src'}: {e}")
     dev = torch.device("cuda", 0)
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -217,7 +246,7 @@ def main() -> int:
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     smi_line = smi.stdout.strip().splitlines()[0]
     card = f"[{smi_line}]"
-    print(f"card: {name}, devices: {count}, torch {torch.__version__}, "
+    print(f"card: {kind}, devices: {count}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}", flush=True)
     # exact float32 kernels: no TF32 anywhere in this run
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -778,7 +807,345 @@ def main() -> int:
           f"max); launches over the warm passes {server_launches} {card}",
           flush=True)
 
-    # ----------------------------------------------------------- 11. times
+    # -------------------------------------------------------- 11. runtime
+    # The serving runtime (PlanServer.serve, the async front end, prewarm)
+    # on one seeded stream at the int32 tier's sizes, n = 12..15, B = 16.
+    # Every pass runs once on fresh servers to warm up ("first call"),
+    # then again, timed, counted and checked ("warm").
+    import asyncio
+    from collections import Counter
+
+    from repro_torch.service import faults
+    from repro_torch.service.canon import topology_signature
+    from repro_torch.service.router import Router
+    from repro_torch.service.runtime import (RuntimeConfig, VirtualClock,
+                                             WallClock)
+    from repro_torch.service.workload import WorkloadSpec, make_workload
+
+    spec = WorkloadSpec(n_requests=RUNTIME_REQUESTS, seed=RUNTIME_SEED,
+                        n_range=(12, 15),
+                        topologies=("clique", "chain", "star", "cycle"),
+                        pool_size=16, relabel_frac=0.5, fresh_frac=0.1,
+                        rate=200.0)
+    stream = make_workload(spec)
+    router0 = Router()
+    routes0 = [router0.route(r.q, r.cost, None,
+                             signature=topology_signature(r.q))
+               for r in stream]
+    route_mix = Counter(f"{rt.method}/{rt.lane}" for rt in routes0)
+    # the approx lane (dense out and smj above n = 13) costs minutes of
+    # host numpy per n >= 14 solve: the stream's seed is one whose
+    # requests route to every other lane and never there
+    check(route_mix.get("approx/single", 0) == 0,
+          f"the runtime stream routes to the approx lane: {route_mix}")
+    check(route_mix.get("dpconv/batch", 0) > 0
+          and route_mix.get("dpccp/batch", 0) > 0
+          and route_mix.get("dpconv/single", 0) > 0
+          and route_mix.get("dpccp/single", 0) > 0,
+          f"the runtime stream misses a lane: {route_mix}")
+
+    def is_clique(q):
+        return len(q.edges) == q.n * (q.n - 1) // 2
+
+    # the answers a fresh server's plan_one gives, and numpy DPsub for
+    # the clique max optima
+    t0 = time.perf_counter()
+    oracle_srv = PlanServer()
+    want = {r.req_id: oracle_srv.plan_one(r.q, r.card, cost=r.cost)
+            for r in stream}
+    dpsub_max = {}
+    for r in stream:
+        if r.cost == "max" and is_clique(r.q):
+            dpsub_max[r.req_id] = dpsub(r.card, r.q.n, mode="max")[-1]
+            check(float(want[r.req_id].cost).hex()
+                  == float(dpsub_max[r.req_id]).hex(),
+                  f"plan_one clique({r.q.n}) max {want[r.req_id].cost!r} "
+                  f"!= DPsub {dpsub_max[r.req_id]!r}")
+    check(len(dpsub_max) > 0, "the runtime stream has no clique max")
+    t_oracle = time.perf_counter() - t0
+    print(f"runtime: stream of {len(stream)} requests (seed {RUNTIME_SEED},"
+          f" n = 12..15), routes {dict(sorted(route_mix.items()))}, "
+          f"{len(dpsub_max)} clique max requests; plan_one answers and "
+          f"DPsub optima in {t_oracle:.2f} s", flush=True)
+
+    def same_as_plan_one(label, reqs, resps, wanted):
+        for r, got in zip(reqs, resps):
+            w = wanted[r.req_id]
+            check(got is not None and got.status == "exact",
+                  f"{label} #{r.req_id}: status "
+                  f"{None if got is None else got.status}")
+            check(float(got.cost).hex() == float(w.cost).hex(),
+                  f"{label} #{r.req_id}: {got.cost!r} != plan_one "
+                  f"{w.cost!r}")
+            check(str(got.tree) == str(w.tree),
+                  f"{label} #{r.req_id}: tree differs from plan_one's")
+            if r.req_id in dpsub_max:
+                check(float(got.cost).hex()
+                      == float(dpsub_max[r.req_id]).hex(),
+                      f"{label} #{r.req_id}: != DPsub")
+
+    def no_faults(label, rt):
+        """The failure ladder never engaged: no failure, retry, reroute,
+        watchdog fire, quarantine, degraded response, shed or error."""
+        fs = rt.fstats.as_dict()
+        check(all(v == 0 for v in fs.values()),
+              f"{label}: the failure ladder engaged: "
+              f"{ {k: v for k, v in fs.items() if v} }")
+        st = rt.stats
+        check(st.shed == st.shed_backpressure == st.downgraded
+              == st.deadline_misses == 0,
+              f"{label}: shed/downgraded/missed {st.as_dict()}")
+        bad = {k: v for k, v in rt.recorder.counts.items()
+               if k != "completed" and v}
+        check(not bad, f"{label}: flight-recorder incidents {bad}")
+        check(not rt.breakers.lanes and
+              rt.quarantine.snapshot()["added"] == 0,
+              f"{label}: breakers {rt.breakers.snapshot()}")
+
+    def runtime_pass(label, run):
+        """Time and count one pass: ``run()`` returns (requests,
+        responses, runtimes, server).  Returns the numbers."""
+        torch.cuda.synchronize()
+        engine.reset_stats()
+        ops.reset_launch_counts()
+        mark = engine.dispatch_mark()
+        t0 = time.perf_counter()
+        reqs, resps, rts, srv = run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        recs = engine.dispatches_since(mark)
+        lat = np.array([r.latency for r in resps]) * 1e3
+        st = [rt.stats for rt in rts]
+        batches = sum(s.batches for s in st)
+        items = sum(s.batched_items for s in st)
+        num = {"requests": len(reqs), "wall_s": dt,
+               "requests_per_s": len(reqs) / dt,
+               "p50_ms": float(np.percentile(lat, 50)),
+               "p99_ms": float(np.percentile(lat, 99)),
+               "batches": batches,
+               "batch_lane_s": sum(s.solve_s for s in st),
+               "occupancy": items / batches if batches else 0.0,
+               "coalesced": sum(s.coalesced for s in st),
+               "fast_path_hits": sum(s.fast_path_hits for s in st),
+               "plan_cache_hits": srv.cache.stats.hits,
+               "dispatches": len(recs),
+               "execute_s": sum(r.execute_s for r in recs),
+               "compile_s": sum(r.compile_s for r in recs),
+               "aot_hits": sum(r.aot_cache_hit for r in recs),
+               "records": recs, "launches": ops.launch_counts()}
+        print(f"runtime {label}: {len(reqs)} requests in {dt:.4f} s, "
+              f"{num['requests_per_s']:.2f} requests/s, latency p50 "
+              f"{num['p50_ms']:.3f} ms p99 {num['p99_ms']:.3f} ms, "
+              f"{batches} batches ({num['batch_lane_s']:.4f} s of batch-"
+              f"lane work), mean occupancy "
+              f"{num['occupancy']:.3f}, coalesced {num['coalesced']}, "
+              f"fast-path hits {num['fast_path_hits']}, plan-cache hits "
+              f"{num['plan_cache_hits']}; dispatch records {len(recs)} "
+              f"(execute {num['execute_s']:.4f} s, build "
+              f"{num['compile_s']:.4f} s, program-cache hits "
+              f"{num['aot_hits']}), launches {num['launches']} {card}",
+              flush=True)
+        return reqs, resps, rts, srv, num
+
+    def covered(rec, manifest):
+        """Did prewarm build this dispatch's bucket?"""
+        base = rec.cost[:-len("_seeded")] if rec.cost.endswith("_seeded") \
+            else rec.cost
+        for e in manifest:
+            warm = (e["cost"], e["cost"] + "_seeded") \
+                if e["cost"] in ("max", "cap") else (e["cost"],)
+            if (e["n"] == rec.n and e["cost"] == base and rec.cost in warm
+                    and rec.B <= e["max_batch"]
+                    and rec.backend == e["backend"]):
+                return True
+        return False
+
+    prewarms = []
+
+    def pass_prewarm(cold):
+        srv = PlanServer()
+        if cold:       # prewarm builds every bucket it covers from nothing
+            engine.clear_executable_cache()
+        t0 = time.perf_counter()
+        pw = srv.prewarm(range(12, 16))
+        pw_s = time.perf_counter() - t0
+        prewarms.append((pw, pw_s))
+        resps, _ = srv.serve(list(stream), closed_loop=True)
+        return stream, resps, [srv.last_runtime], srv
+
+    def pass_serve(closed_loop):
+        def run():
+            srv = PlanServer()
+            resps, _ = srv.serve(list(stream), closed_loop=closed_loop)
+            return stream, resps, [srv.last_runtime], srv
+        return run
+
+    pairs16 = [qg.paper_clique_instance(15, 900 + s) for s in range(8)]
+    dup16, _ = relabeled(pairs16, 13)
+    async_reqs = [PlanRequest(q=q, card=c, cost="max", req_id=1000 + i)
+                  for i, (q, c) in enumerate(pairs16 + dup16)]
+    want_async = {r.req_id: oracle_srv.plan_one(r.q, r.card, cost="max")
+                  for r in async_reqs}
+    dpsub_async = {}
+    for r in async_reqs[:8]:
+        dpsub_async[r.req_id] = dpsub(r.card, 15, mode="max")[-1]
+
+    def pass_async():
+        srv = PlanServer()
+
+        async def main():
+            return await asyncio.gather(*(
+                srv.plan_request_async(r) for r in async_reqs))
+        try:
+            resps = asyncio.run(main())
+        finally:
+            srv.async_runtime().close()
+        return async_reqs, resps, [srv.async_runtime()], srv
+
+    def pass_lanes():
+        srv = PlanServer(lanes=2)
+        rt = srv.make_runtime(clock=WallClock(), executor="thread")
+        tickets = []
+        try:
+            for i in range(0, len(stream), srv.max_batch):
+                tickets += [rt.submit(r)
+                            for r in stream[i:i + srv.max_batch]]
+                rt.drain()
+        finally:
+            rt.close()
+        check(all(t.done and not t.refused for t in tickets),
+              "lanes=2: a request was not answered")
+        check({s.device.type for s in rt._solvers} == {"cuda"},
+              "lanes=2: a lane solver left the card")
+        return stream, [t.response for t in tickets], [rt], srv
+
+    host13 = [r for r in stream if r.q.n == 13]
+
+    def pass_host():
+        srv = PlanServer(batch_policy=BatchPolicy(engine="host"))
+        resps, _ = srv.serve(list(host13), closed_loop=True)
+        return host13, resps, [srv.last_runtime], srv
+
+    passes = [("prewarm + stream", None),
+              ("serve closed loop", pass_serve(True)),
+              ("serve at arrivals", pass_serve(False)),
+              ("plan_async x16", pass_async),
+              ("lanes=2 thread", pass_lanes),
+              ("host engine n=13", pass_host)]
+    res11 = {}
+    for tag in ("first call", "warm"):
+        for pname, run in passes:
+            if run is None:
+                run = (lambda cold=(tag == "first call"):
+                       pass_prewarm(cold))
+            res11[pname] = runtime_pass(f"{tag}, {pname}", run)
+    runtime_launches = {k: 0 for k in build.KERNELS}
+    for pname, (reqs, resps, rts, srv, num) in res11.items():
+        wanted = want_async if pname.startswith("plan_async") else want
+        same_as_plan_one(f"runtime {pname}", reqs, resps, wanted)
+        for rt in rts:
+            no_faults(f"runtime {pname}", rt)
+        for k, v in num["launches"].items():
+            runtime_launches[k] += v
+    for rid, v in dpsub_async.items():
+        got = next(r for r in res11["plan_async x16"][1] if r.req_id == rid)
+        check(float(got.cost).hex() == float(v).hex(),
+              f"plan_async #{rid}: {got.cost!r} != DPsub {v!r}")
+    # prewarm: every dispatch of a prewarmed bucket is a cache hit
+    srv_a, num_a = res11["prewarm + stream"][3], res11["prewarm + stream"][4]
+    (pw0, pw0_s), (pw, pw_s) = prewarms
+    cov = [r for r in num_a["records"] if covered(r, srv_a.prewarm_manifest)]
+    check(cov and all(r.aot_cache_hit and r.compile_s == 0.0 for r in cov),
+          f"a prewarmed bucket missed: "
+          f"{[(r.cost, r.n, r.B) for r in cov if not r.aot_cache_hit]}")
+    check(all(r.execute_s > 0 and r.flops > 0 and r.bytes_accessed > 0
+              and r.devices == (str(srv_a.device),)
+              for r in num_a["records"]),
+          "a dispatch record lacks its device time or work count")
+    check(pw0["compiled"] > 0 and pw["compiled"] == 0,
+          f"prewarm built {pw0['compiled']} programs from a cold cache, "
+          f"then {pw['compiled']}")
+    print(f"runtime prewarm: {len(srv_a.prewarm_manifest)} (n, cost) "
+          f"buckets, {pw0['compiled']} programs built and first-touched in "
+          f"{pw0_s:.3f} s from a cold program cache (warm run: "
+          f"{pw['compiled']} in {pw_s:.4f} s); {len(cov)} of "
+          f"{len(num_a['records'])} stream dispatches in prewarmed "
+          f"buckets, all program-cache hits {card}", flush=True)
+    # the async front end: 8 relabelled duplicates coalesce or hit
+    num_d = res11["plan_async x16"][4]
+    check(num_d["coalesced"] + num_d["fast_path_hits"]
+          + num_d["plan_cache_hits"] >= 8,
+          f"plan_async: duplicates were solved again: {num_d}")
+    # the host engine launches the ranked convolution
+    check(res11["host engine n=13"][4]["launches"]["ranked_conv"] > 0,
+          "the host-engine runtime pass launched no ranked_conv")
+    check(runtime_launches["zeta_cluster"] > 0,
+          "the runtime passes launched no zeta_cluster")
+
+    # (g) chaos: a seeded fault plan on a VirtualClock with injected
+    # durations (and fixed chunk timings for the router's prices), run
+    # twice from a cold program cache: the two runs replay identically
+    def chaos_run():
+        engine.clear_executable_cache()
+        srv = PlanServer()
+        observe = srv._observe_batch
+        srv._observe_batch = lambda timings: observe(
+            [(n, cnt, 1e-3 * cnt, eng, cost, tags)
+             for n, cnt, _, eng, cost, tags in timings])
+        inj = faults.FaultInjector(faults.FaultPlan.chaos(seed=CHAOS_SEED,
+                                                          rate=0.01))
+        rt = srv.make_runtime(
+            clock=VirtualClock(), injector=inj,
+            duration_fn=lambda what, info: {"admit": 0.0, "solve": 0.05,
+                                            "single": 0.02}[what],
+            config=RuntimeConfig(watchdog_min=0.5, retry_backoff=1e-3,
+                                 retry_backoff_cap=0.05))
+        try:
+            tickets = [rt.submit(r) for r in stream]
+            rt.drain()
+        finally:
+            rt.close()
+        check(not rt._inflight and not rt._by_key,
+              "chaos: work left in flight")
+        key = [(t.request.req_id, t.status, t.refuse_reason,
+                None if t.error is None else repr(t.error),
+                None if t.response is None
+                else (float(t.response.cost).hex(), str(t.response.tree)),
+                t.completed_at) for t in tickets]
+        return tickets, key, rt.fstats.as_dict(), inj.snapshot()
+
+    t0 = time.perf_counter()
+    tickets_g, key1, fstats_g, inj_g = chaos_run()
+    _, key2, fstats_g2, inj_g2 = chaos_run()
+    t_chaos = time.perf_counter() - t0
+    check(key1 == key2 and fstats_g == fstats_g2 and inj_g == inj_g2,
+          "chaos: the two runs differ")
+    check(inj_g["fired"] > 0, "chaos: no fault fired")
+    statuses = Counter(t.status for t in tickets_g)
+    for t in tickets_g:
+        r = t.request
+        if t.status == "exact":
+            same_as_plan_one("chaos exact", [r], [t.response], want)
+        elif t.status == "degraded":
+            cert = t.response.meta.get("certificate")
+            check(cert is not None
+                  and cert["upper_bound"] == t.response.cost,
+                  f"chaos #{r.req_id}: degraded without its certificate")
+        else:
+            check(t.status == "error"
+                  and isinstance(t.error, faults.PlanError),
+                  f"chaos #{r.req_id}: untyped failure {t.error!r}")
+    print(f"runtime chaos: FaultPlan.chaos(seed={CHAOS_SEED}, rate=0.01), "
+          f"two runs identical ({t_chaos:.2f} s for both), statuses "
+          f"{dict(statuses)}, faults fired {inj_g['fired']}, "
+          f"{ {k: v for k, v in fstats_g.items() if v} }; every exact "
+          f"answer == plan_one, every degraded one certified", flush=True)
+    print(f"runtime: every warm pass == plan_one (and DPsub for clique "
+          f"max), no fault, retry, reroute, watchdog fire, shed or error; "
+          f"launches over the warm passes {runtime_launches} {card}",
+          flush=True)
+
+    # ----------------------------------------------------------- 12. times
     # Device time per launch from torch.profiler (self device time of the
     # kernel, by name), warm and after a 64 MB write (L2 cold);
     # "host-launched call" = CUDA events around 50 calls issued back to
@@ -820,7 +1187,8 @@ def main() -> int:
               f"{b_ms:.5f} ms ({b_by}) {card}", flush=True)
 
     launches = {k: counts5[k] + counts6[k] + counts8[k] + counts8k[k]
-                + counts9[k] + server_launches[k] for k in build.KERNELS}
+                + counts9[k] + server_launches[k] + runtime_launches[k]
+                for k in build.KERNELS}
     row("zeta_cluster", ("zeta_cluster_kernel",),
         "src/repro_torch/csrc/zeta.cu",
         "src/repro/kernels/zeta_pallas.py:53",
@@ -882,7 +1250,7 @@ def main() -> int:
     print(smi_line)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": name,
+                                             "kind": kind,
                                              "count": count}}))
     return 0
 

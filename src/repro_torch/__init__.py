@@ -10,13 +10,16 @@ C++ kernel under ``csrc/``, built with ``nvcc`` at first use
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card they raise instead of falling back.
 
-Ported so far: the plan server's single-request and micro-batch path
-(``service.server.PlanServer.plan_one``: canonicalization, routing, the
-plan cache and the layer cache's warm starts), the batch lane's four
-costs (``max``, ``cap``, ``cap_conn``, ``out``) from
+Ported so far: the plan server (``service.server.PlanServer``:
+``plan_one``, stream serving with ``serve``, the awaitable ``plan_async``
+front end and ``prewarm``) over the serving runtime
+(``service.runtime``: SLO classes, deadline shedding, coalescing, N solve
+lanes, the failure ladder of ``service.faults`` and the tenant quotas of
+``service.tenancy``) with its tracing (``obs``); canonicalization,
+routing, the plan cache and the layer cache's warm starts; the batch
+lane's four costs (``max``, ``cap``, ``cap_conn``, ``out``) from
 ``service.batch.BatchedSolver`` down to the zeta/Moebius and
-ranked-convolution kernels, and every (cost, method) pair of
-``core.dpconv.optimize``.  ``shards > 1`` and the serving runtime
-(``PlanServer.serve``, ``plan_async``, ``prewarm``) raise
+ranked-convolution kernels; and every (cost, method) pair of
+``core.dpconv.optimize``.  ``shards > 1`` raises
 ``NotImplementedError``.
 """

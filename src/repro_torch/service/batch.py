@@ -28,6 +28,13 @@ loop for max (whose kernel tier also takes the ranked-convolution
 kernel, ``kernel_dp_fn``), the host pipeline for cap (B independent
 solves, ``chunk = 1``) and the host DPccp enumerator for out.
 
+Execution splits into ``submit`` (stage the items) and ``collect`` (run
+them, possibly on another thread): the serving runtime carries a
+``SolveHandle`` onto a lane's worker thread and keeps forming the next
+micro-batch meanwhile.  One solver is one solve lane: a re-entrant lock
+serializes its solves, and ``solve`` stamps the solver's ``lane`` on
+every engine ``DispatchRecord`` it makes.
+
 Warm-start seeds ride an item's 5th slot (``_unpack``) into the fused
 engine only: a chunk with any seeded row runs the seeded program, and
 rows without a seed keep a cold bracket.  Results are bit-identical in
@@ -37,11 +44,13 @@ with or without seeds.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 
 import numpy as np
 import torch
 
+from repro_torch.core import engine as engine_mod
 from repro_torch.core.dpconv import optimize, optimize_batch
 from repro_torch.core.engine import host_cards
 from repro_torch.core.layered import layered_feasibility_dp
@@ -130,13 +139,33 @@ def _seed_kw(seeds: list, cost: str, size: int) -> dict:
     return {"seed_opt": opts}
 
 
+@dataclasses.dataclass
+class SolveHandle:
+    """A submitted, not yet collected batched solve: ``submit`` captures
+    the items, ``collect`` runs them once and keeps the solve's
+    ``last_timings`` rows in ``timings``."""
+    items: list
+    extract_tree: bool = True
+    results: "list | None" = None
+    timings: "list | None" = None        # this solve's last_timings slice
+
+
 class BatchedSolver:
     """Groups micro-batch items by ``(n, cost)`` and solves each chunk on
-    ``device`` (CUDA unless given)."""
+    ``device`` (CUDA unless given).  ``lane`` is the serving lane this
+    solver stands for (the engine's dispatch attribution label)."""
 
-    def __init__(self, policy: "BatchPolicy | None" = None, device=None):
+    def __init__(self, policy: "BatchPolicy | None" = None, device=None,
+                 lane: int = 0):
         self.policy = policy or BatchPolicy()
         self.device = resolve_device(device)
+        # one solver is one solve lane: a runtime worker thread and a
+        # synchronous caller (plan_one, serve) may both reach solve(), so
+        # the lane is a real lock, which also keeps last_timings snapshots
+        # from interleaving.  RLock: collect() holds it across solve()
+        # and the snapshot.
+        self._lock = threading.RLock()
+        self.lane = lane
         self.batches_run = 0
         self.queries_batched = 0
         # cumulative solver-lane totals (all chunks ever solved)
@@ -234,11 +263,32 @@ class BatchedSolver:
             res.meta["chunk"] = 1
         return results
 
+    # ------------------------------------------------- submit / collect
+    def submit(self, items: list, extract_tree: bool = True
+               ) -> SolveHandle:
+        """Stage a batched solve without running it; ``collect`` (from
+        any thread) runs it."""
+        return SolveHandle(items=list(items), extract_tree=extract_tree)
+
+    def collect(self, handle: SolveHandle) -> list:
+        """Run (once) and return a submitted solve's results; the
+        handle's ``timings`` keeps this solve's ``last_timings`` rows."""
+        with self._lock:
+            if handle.results is None:
+                handle.results = self.solve(
+                    handle.items, extract_tree=handle.extract_tree)
+                handle.timings = list(self.last_timings)
+        return handle.results
+
     def solve(self, items: list, extract_tree: bool = True) -> list:
         """``items``: list of (q, card[, cost[, tag[, seed]]]) tuples;
         cost is "max", "cap", "cap_conn" or "out", ``seed`` the optional
         layer-cache warm-start payload.  Returns PlanResults aligned with
         the input order."""
+        with self._lock, engine_mod.dispatch_lane(self.lane):
+            return self._solve_locked(items, extract_tree)
+
+    def _solve_locked(self, items: list, extract_tree: bool) -> list:
         groups: dict = {}
         for idx, item in enumerate(items):
             q, card, cost, tag, seed = _unpack(item)

@@ -19,11 +19,18 @@ Request lifecycle, as in the reference:
    plan cache in canonical space, exact ones feed the layer cache, and
    trees are relabeled back.
 
-``plan_one`` and the micro-batch seam ``_process`` are ported.  Stream
-serving and the awaitable front end need the serving runtime, and the
-prewarm calls need the ahead-of-time compiled buckets of the reference;
-those methods raise ``NotImplementedError`` until a later slice ports
-them.
+``serve`` drives a whole request stream to completion as a thin
+synchronous loop over the event-driven scheduler
+(``service.runtime.ServingRuntime``) on a ``VirtualClock``: requests are
+admitted in arrival order, buckets of same-``(n, cost)`` misses close on
+size or an adaptive timeout, cache hits answer at admission, and
+completion times play out on the discrete-event clock (arrivals from the
+stream, solve durations measured on the wall clock).  The awaitable
+front end (``plan_async``) shares the scheduler on a ``WallClock`` with
+a worker-thread executor that solves on the server's device, so sync
+and async answers are bit-identical.  ``prewarm`` builds and first-
+touches the program buckets the server can hit before traffic arrives
+(and, on a card, the kernel library).
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from repro_torch.core import engine as engine_mod
 from repro_torch.core.dpconv import optimize
 from repro_torch.core.querygraph import QueryGraph
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.service import faults
 from repro_torch.service import router as router_mod
 from repro_torch.service.batch import BatchedSolver, BatchPolicy
 from repro_torch.service.cache import CachedPlan, PlanCache
@@ -44,10 +52,6 @@ from repro_torch.service.canon import (CanonicalForm, canonicalize,
                                        relabel_tree)
 from repro_torch.service.layercache import LayerCache
 from repro_torch.service.router import Route, Router
-
-_RUNTIME_SLICE = ("needs the serving runtime (service.runtime), which is "
-                  "not ported yet")
-
 
 # ---------------------------------------------------------------- requests
 @dataclasses.dataclass
@@ -146,21 +150,30 @@ class PlanServer:
     """Plan cache, router, layer cache and batched solver on ``device``
     (CUDA unless given; without a card ``device=None`` raises).
 
-    The reference's ``max_wait``, ``trace``, ``lanes`` and ``replica_id``
-    configure the serving runtime and the cluster; they are not accepted
-    here until those are ported."""
+    ``max_wait`` caps the runtime's batch-forming wait, ``trace`` turns
+    its span trees on, ``lanes`` is its number of solve lanes, and
+    ``replica_id`` names the server in a cluster ("" standalone)."""
 
     def __init__(self,
                  cache_capacity: int = 4096,
                  max_batch: int = 16,
+                 max_wait: float = 0.005,
                  router: "Router | None" = None,
                  batch_policy: "BatchPolicy | None" = None,
                  enable_cache: bool = True,
                  enable_batch: bool = True,
                  enable_layer_cache: bool = True,
                  registry: "MetricsRegistry | None" = None,
+                 trace: bool = True,
+                 lanes: int = 1,
+                 replica_id: str = "",
                  device=None):
         self.cache = PlanCache(cache_capacity)
+        self.replica_id = replica_id
+        # the bucket list of the prewarm calls so far (list of {"n",
+        # "cost", "max_batch", "backend"}), what a peer replica replays
+        # through ``prewarm_from_manifest``
+        self.prewarm_manifest: "list[dict]" = []
         # the layer-granular fragment tier, independent of the plan cache
         self.layers = LayerCache()
         self.enable_layer_cache = enable_layer_cache
@@ -173,13 +186,16 @@ class PlanServer:
         self.router.engine_hint["dpconv"] = self.solver.policy.engine
         self.router.engine_hint["dpccp"] = self.solver.policy.engine
         self.max_batch = max_batch
+        self.max_wait = max_wait
+        self.lanes = max(1, int(lanes))   # serving runtime solve lanes
         self.enable_cache = enable_cache
         self.enable_batch = enable_batch
         self.stats = ServeStats()
         # one registry per server; every layer's stats object shows up in
-        # snapshots as a provider
+        # snapshots as a provider, and runtimes bind their tracers to it
         self.registry = registry if registry is not None \
             else MetricsRegistry()
+        self.trace = trace
         self.registry.register_provider("cache", self.cache.stats.as_dict)
         self.registry.register_provider(
             "layercache", lambda: self.layers.stats.as_dict())
@@ -203,32 +219,84 @@ class PlanServer:
         self.registry.register_provider(
             "engine", lambda: engine_mod.stats().as_dict())
 
-    # ------------------------------------------------ later slice: runtime
+    # ------------------------------------------------------------ prewarm
     def prewarm(self, ns, costs=("max", "cap", "out")) -> dict:
-        raise NotImplementedError(
-            "prewarm compiles the reference's ahead-of-time buckets; the "
-            "port builds its programs at first use (not ported yet)")
+        """Build and first-touch the program buckets this server's policy
+        can hit for relation counts ``ns`` before traffic arrives (and,
+        on a card, the kernel library), so the first requests pay no
+        build.  Respects the router's lane ceilings (tiny-``n`` and
+        past-ceiling requests never reach the fused engine).  Builds
+        nothing for a host-engine server, but the manifest still records
+        the requested buckets.
+
+        Every call appends the buckets it covered to
+        ``self.prewarm_manifest`` (dedup by ``(n, cost)``); ``backend``
+        there is the port's tier, ``"cuda"`` or ``"f64"``."""
+        pol = self.solver.policy
+        cfg = self.router.config
+        total = {"compiled": 0, "seconds": 0.0}
+        seen = {(e["n"], e["cost"]) for e in self.prewarm_manifest}
+        for cost in costs:
+            for n in sorted(set(ns)):
+                if n < 2:
+                    continue
+                if cost == "max":
+                    if n <= cfg.small_n:      # routed to numpy DPsub
+                        continue
+                    max_b = pol.max_batch     # batch lane: all buckets
+                elif cost == "out":
+                    # the fused connected-C_out lane serves only the
+                    # batch-lane window; outside it the host enumerator
+                    # runs and there is nothing to build
+                    if not (cfg.small_n < n <= cfg.fused_out_max_n):
+                        continue
+                    max_b = pol.max_batch
+                elif n > cfg.fused_cap_max_n:  # host pipeline past ceiling
+                    continue
+                else:
+                    # cap below small_n stays single-lane but still runs
+                    # the fused program: warm the chunk-1 bucket only
+                    max_b = pol.max_batch if n > cfg.small_n else 1
+                # the tier the solver will pick for this n: the kernel
+                # tier serves mid-size max chunks; cap's pass 1 and the
+                # (min,+) sweeps run on the f64 tier
+                backend = "cuda" if (cost == "max"
+                                     and self.solver.use_kernels(n)) \
+                    else "f64"
+                if (n, cost) not in seen:
+                    seen.add((n, cost))
+                    self.prewarm_manifest.append(
+                        {"n": int(n), "cost": cost,
+                         "max_batch": int(max_b), "backend": backend})
+                if pol.engine != "fused":
+                    continue                  # manifest only, no build
+                warm_costs = (cost,)
+                if self.enable_layer_cache and cost in ("max", "cap"):
+                    # seed-carrying solves run the ``<cost>_seeded``
+                    # programs, in buckets of their own: warm them too
+                    warm_costs = (cost, cost + "_seeded")
+                r = engine_mod.prewarm([n], max_batch=max_b,
+                                       backend=backend, direct_layers=4,
+                                       costs=warm_costs,
+                                       gamma_batch=pol.gamma_batch,
+                                       device=self.device)
+                total["compiled"] += r["compiled"]
+                total["seconds"] += r["seconds"]
+        return total
 
     def prewarm_from_manifest(self, manifest: "list[dict]") -> dict:
-        raise NotImplementedError("prewarm_from_manifest " + _RUNTIME_SLICE)
-
-    def serve(self, requests: "list[PlanRequest]",
-              closed_loop: bool = False):
-        raise NotImplementedError("serve " + _RUNTIME_SLICE)
-
-    def make_runtime(self, clock=None, config=None, duration_fn=None,
-                     executor: str = "inline", injector=None):
-        raise NotImplementedError("make_runtime " + _RUNTIME_SLICE)
-
-    def async_runtime(self):
-        raise NotImplementedError("async_runtime " + _RUNTIME_SLICE)
-
-    async def plan_async(self, q: QueryGraph, card: np.ndarray,
-                         cost: str = "max", **kw) -> PlanResponse:
-        raise NotImplementedError("plan_async " + _RUNTIME_SLICE)
-
-    async def plan_request_async(self, req: PlanRequest) -> PlanResponse:
-        raise NotImplementedError("plan_request_async " + _RUNTIME_SLICE)
+        """Prewarm from a peer replica's ``prewarm_manifest``: group the
+        shipped buckets by cost and replay them through ``prewarm`` (the
+        local policy re-derives batch sizes and tiers)."""
+        by_cost: "dict[str, list[int]]" = {}
+        for e in manifest:
+            by_cost.setdefault(str(e["cost"]), []).append(int(e["n"]))
+        total = {"compiled": 0, "seconds": 0.0}
+        for cost, ns in sorted(by_cost.items()):
+            r = self.prewarm(ns, costs=(cost,))
+            total["compiled"] += r["compiled"]
+            total["seconds"] += r["seconds"]
+        return total
 
     # ------------------------------------------------------- single entry
     def plan_one(self, q: QueryGraph, card: np.ndarray, cost: str = "max",
@@ -242,6 +310,148 @@ class PlanServer:
         resp = self._process([req])[0]
         self.stats.served += 1
         return resp
+
+    # ------------------------------------------------------ stream serving
+    def serve(self, requests: "list[PlanRequest]",
+              closed_loop: bool = False
+              ) -> "tuple[list[PlanResponse], ServeStats]":
+        """Drive a request stream to completion over the serving runtime
+        on a ``VirtualClock`` (the sync and async front ends share one
+        code path, so their answers are bit-identical).
+
+        ``closed_loop=True`` ignores arrival times: windows of
+        ``max_batch`` requests are admitted and drained back to back.
+        The default honors arrivals on the runtime's discrete-event
+        clock: batch wait and executor queueing play out in virtual time,
+        solve durations come from the wall clock.  A request that cannot
+        be answered comes back as a typed error response, never a raise.
+        """
+        from repro_torch.service.runtime import (RuntimeConfig,
+                                                 ServingRuntime,
+                                                 VirtualClock)
+
+        reqs = sorted(requests, key=lambda r: r.arrival)
+        t_wall = time.perf_counter()   # timing: measured-duration (serve)
+        rt = ServingRuntime(
+            self, clock=VirtualClock(),
+            config=RuntimeConfig(max_batch=self.max_batch,
+                                 max_wait=self.max_wait,
+                                 trace=self.trace,
+                                 lanes=self.lanes))
+        tickets: dict = {}
+        if closed_loop:
+            for i in range(0, len(reqs), self.max_batch):
+                for r in reqs[i:i + self.max_batch]:
+                    tickets[id(r)] = rt.submit(r)
+                rt.drain()
+        else:
+            for r in reqs:
+                rt.run_until(r.arrival)
+                tickets[id(r)] = rt.submit(r)
+            rt.drain()
+        self.stats.wall_s += time.perf_counter() - t_wall  # timing: measured-duration
+        self.stats.batches += rt.stats.batches
+        # served counts answered requests only; refusals are explicit
+        # error responses below, not throughput
+        self.stats.served += rt.stats.served
+        out = []
+        for r in requests:
+            ticket = tickets[id(r)]
+            resp = ticket.response
+            if resp is None:
+                # refused: shed-class SLO, quarantine, or a solve that
+                # exhausted the failure ladder
+                err = ticket.error if ticket.error is not None \
+                    else faults.ShedError(ticket.refuse_reason)
+                resp = PlanResponse(
+                    req_id=r.req_id, cost=float("inf"), tree=None,
+                    meta={"shed": ticket.refuse_reason,
+                          "error": repr(err)},
+                    route=ticket.route, cache_hit=False,
+                    latency=ticket.latency,
+                    status="error", error=err)
+            else:
+                self.stats.latency.record(resp.latency)
+            out.append(resp)
+        self.last_runtime = rt
+        return out, self.stats
+
+    # --------------------------------------------------- async front end
+    def make_runtime(self, clock=None, config=None, duration_fn=None,
+                     executor: str = "inline", injector=None):
+        """A ``ServingRuntime`` scheduling into this server's cache,
+        router and solver.  ``injector`` wires a seeded
+        ``faults.FaultInjector`` into the runtime's fault seams."""
+        from repro_torch.service.runtime import (RuntimeConfig,
+                                                 ServingRuntime)
+        if config is None:
+            config = RuntimeConfig(max_batch=self.max_batch,
+                                   max_wait=self.max_wait,
+                                   lanes=self.lanes)
+        return ServingRuntime(self, clock=clock, config=config,
+                              duration_fn=duration_fn, executor=executor,
+                              injector=injector)
+
+    def async_runtime(self):
+        """The server's shared ``WallClock`` runtime with a worker-thread
+        executor: the front end keeps admitting (and answering cache
+        hits) while a batched dispatch executes on the server's
+        device."""
+        rt = getattr(self, "_async_rt", None)
+        if rt is None:
+            from repro_torch.service.runtime import (RuntimeConfig,
+                                                     ServingRuntime,
+                                                     WallClock)
+            rt = self._async_rt = ServingRuntime(
+                self, clock=WallClock(),
+                config=RuntimeConfig(max_batch=self.max_batch,
+                                     max_wait=self.max_wait,
+                                     lanes=self.lanes),
+                executor="thread")
+        return rt
+
+    async def plan_async(self, q: QueryGraph, card: np.ndarray,
+                         cost: str = "max",
+                         latency_budget: "float | None" = None,
+                         slo: "str | None" = None,
+                         connected: bool = False,
+                         explain: bool = False,
+                         tenant: "str | None" = None,
+                         req_id: int = 0) -> PlanResponse:
+        """Awaitable single-request entry over the async runtime.
+        Concurrent callers share the scheduler: their misses batch
+        together, duplicates coalesce, and cache hits overtake in-flight
+        solves.  Raises a typed ``faults.PlanError`` (``ShedError``,
+        ``QuarantinedError``, ``EngineError``...) if the request cannot
+        be answered."""
+        req = PlanRequest(q=q, card=np.asarray(card, np.float64),
+                          cost=cost, latency_budget=latency_budget,
+                          slo=slo, connected=connected, explain=explain,
+                          tenant=tenant, req_id=req_id)
+        return await self.plan_request_async(req)
+
+    async def plan_request_async(self, req: PlanRequest) -> PlanResponse:
+        """``plan_async`` over an already-built ``PlanRequest``."""
+        import asyncio
+
+        rt = self.async_runtime()
+        ticket = rt.submit(req)
+        while not ticket.done:
+            rt.poll()
+            if ticket.done:
+                break
+            nxt = rt.next_event_time()
+            delay = 2e-4 if nxt is None else \
+                min(max(nxt - rt.clock.now(), 0.0), 2e-3)
+            await asyncio.sleep(delay)
+        if ticket.refused:
+            if ticket.error is not None:
+                raise faults.as_plan_error(ticket.error)
+            raise faults.ShedError(
+                f"request shed: {ticket.refuse_reason}")
+        self.stats.served += 1
+        self.stats.latency.record(ticket.latency)
+        return ticket.response
 
     # ---------------------------------------------------------- internals
     def _lookup(self, req: PlanRequest, form: CanonicalForm,

@@ -20,6 +20,7 @@ from repro_torch.core import bitset, jointree
 from repro_torch.core import querygraph as qg
 from repro_torch.core.engine import fused_dpconv_max
 from repro_torch.service.batch import BatchedSolver
+from repro_torch.service.server import PlanServer
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
@@ -126,4 +127,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         fused_dpconv_max(card[None, :], 4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert.from_reference(4, qg.chain(4).edges, (), card)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PlanServer()
     assert BatchedSolver(device="cpu").device.type == "cpu"
+    assert PlanServer(device="cpu").solver.device.type == "cpu"

@@ -19,6 +19,9 @@ import torch
 from repro.core.querygraph import (chain, clique, cycle, grid,
                                    make_cardinalities, permute_card,
                                    random_sparse, relabel, star)
+from repro import service as ref_service
+from repro.core import engine as ref_engine
+from repro.core import querygraph as ref_querygraph
 from repro.service import PlanServer as RefServer
 from repro.service import Router as RefRouter
 from repro.service import WorkloadSpec as RefSpec
@@ -26,7 +29,8 @@ from repro.service import make_workload as ref_make_workload
 from repro.service.canon import canonicalize as ref_canonicalize
 from repro.service.canon import subset_signature as ref_subset_signature
 from repro.service.canon import topology_signature as ref_topology
-from repro_torch.core import querygraph
+from repro_torch import service as port_service
+from repro_torch.core import engine, querygraph
 from repro_torch.kernels import ops
 from repro_torch.service import (LatencyHistogram, PlanServer, Router,
                                  WorkloadSpec, make_workload, workload)
@@ -283,34 +287,129 @@ def test_dp_table_never_reaches_a_response_or_the_cache():
     assert srv.layers.stats.value_inserts > 0
 
 
-UNPORTED = ["serve", "make_runtime", "async_runtime", "plan_async",
-            "plan_request_async", "prewarm", "prewarm_from_manifest"]
-
-
-@pytest.mark.parametrize("name", UNPORTED)
-def test_unported_methods_raise(name):
-    srv = PlanServer(device=CPU)
-    args = {"serve": ([],), "plan_async": (_pq(chain(3)), np.ones(8)),
-            "plan_request_async": (None,), "prewarm": ([6],),
-            "prewarm_from_manifest": ([],)}.get(name, ())
-    with pytest.raises(NotImplementedError):
-        out = getattr(srv, name)(*args)
-        if asyncio.iscoroutine(out):
-            asyncio.run(out)
+def test_einsum_workload_is_not_ported():
+    """The einsum replay lane needs the planner, which the port does not
+    carry yet: both entry points raise."""
     with pytest.raises(NotImplementedError):
         workload.make_einsum_workload()
     with pytest.raises(NotImplementedError):
         workload.einsum_replay_pool()
 
 
-@pytest.mark.parametrize("setting", [{"max_wait": 0.001}, {"trace": False},
-                                     {"lanes": 4}, {"replica_id": "r1"}],
-                         ids=["max_wait", "trace", "lanes", "replica_id"])
-def test_runtime_settings_are_refused(setting):
-    """Settings that only the serving runtime or the cluster reads are
-    refused, never stored without effect."""
-    with pytest.raises(TypeError):
-        PlanServer(device=CPU, **setting)
+SETTINGS = {"max_wait": 0.001, "trace": False, "lanes": 4,
+            "replica_id": "r1"}
+
+
+@pytest.mark.parametrize("name", sorted(SETTINGS))
+def test_runtime_settings_are_stored_as_in_the_reference(name):
+    """The runtime's and the cluster's settings are stored as the
+    reference stores them and reach the runtime ``make_runtime`` and
+    ``serve`` build."""
+    setting = {name: SETTINGS[name]}
+    srv, ref = PlanServer(device=CPU, **setting), RefServer(**setting)
+    assert getattr(srv, name) == getattr(ref, name) == SETTINGS[name]
+    for attr in ("max_batch", "max_wait", "lanes", "trace", "replica_id"):
+        assert getattr(srv, attr) == getattr(ref, attr)
+    got, want = srv.make_runtime().config, ref.make_runtime().config
+    assert (got.max_batch, got.max_wait, got.lanes) == \
+        (want.max_batch, want.max_wait, want.lanes)
+    reqs = [PlanRequest(q=_pq(chain(6)), card=make_cardinalities(
+        chain(6), seed=1))]
+    srv.serve(reqs, closed_loop=True)
+    rt = srv.last_runtime
+    assert (rt.config.max_wait, rt.config.lanes, rt.config.trace) == \
+        (srv.max_wait, srv.lanes, srv.trace)
+    assert rt.tracer.enabled == srv.trace
+
+
+ENTRY_POINTS = ["serve", "make_runtime", "async_runtime", "plan_async",
+                "plan_request_async", "prewarm", "prewarm_from_manifest"]
+
+
+def _answer(r):
+    return (r.req_id, float(r.cost).hex(), repr(r.tree), r.status,
+            _route(r.route))
+
+
+def _entry_point(name, srv, pkg):
+    """Drive one entry point of a server of ``pkg`` (the reference's or
+    the port's service package): comparable results."""
+    qg = querygraph if pkg is port_service else ref_querygraph
+    q = qg.clique(6)
+    card = qg.make_cardinalities(q, seed=21)
+    if name == "serve":
+        reqs = pkg.make_workload(pkg.WorkloadSpec(
+            n_requests=12, seed=4, n_range=(5, 7), pool_size=4))
+        resps, stats = srv.serve(reqs, closed_loop=True)
+        return [_answer(r) for r in resps], stats.served
+    if name == "make_runtime":
+        rt = srv.make_runtime(clock=pkg.VirtualClock(),
+                              duration_fn=lambda kind, info: 0.5)
+        t = rt.submit(pkg.PlanRequest(q=q, card=card, req_id=5))
+        rt.drain()
+        return _answer(t.response), t.completed_at, t.span.shape()
+    if name == "async_runtime":
+        rt = srv.async_runtime()
+        try:
+            assert rt is srv.async_runtime()
+            return (rt.executor, type(rt.clock).__name__,
+                    rt.config.max_batch, rt.config.max_wait,
+                    rt.config.lanes)
+        finally:
+            rt.close()
+    if name in ("plan_async", "plan_request_async"):
+        async def main():
+            if name == "plan_async":
+                return await asyncio.gather(
+                    srv.plan_async(q, card, cost="max", req_id=1),
+                    srv.plan_async(q, card, cost="out", req_id=2))
+            return await asyncio.gather(*(
+                srv.plan_request_async(pkg.PlanRequest(
+                    q=q, card=card, cost=c, req_id=i, tenant="t"))
+                for i, c in enumerate(("cap", "max"))))
+        try:
+            resps = asyncio.run(main())
+        finally:
+            srv.async_runtime().close()
+        return [_answer(r) for r in resps], srv.stats.served
+    if name == "prewarm":
+        first = srv.prewarm([6], costs=("max",))
+        again = srv.prewarm([6], costs=("max",))
+        return first["compiled"], again["compiled"], srv.prewarm_manifest
+    manifest = [{"n": 6, "cost": "out", "max_batch": 2, "backend": "xla"},
+                {"n": 3, "cost": "max", "max_batch": 2, "backend": "xla"}]
+    got = srv.prewarm_from_manifest(manifest)
+    return got["compiled"], srv.prewarm_manifest
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_runtime_entry_points_match_reference(name):
+    """Each stream-serving, async and prewarm entry point runs in the
+    port and answers as the reference's; prewarm builds the buckets the
+    reference compiles (manifest ``backend``: the port's tier), after
+    which a solve of a prewarmed bucket is a program-cache hit."""
+    if name.startswith("prewarm"):
+        ref_engine.clear_executable_cache()
+        engine.clear_executable_cache()
+    srv = PlanServer(max_batch=2, device=CPU)
+    ref = RefServer(max_batch=2)
+    got = _entry_point(name, srv, port_service)
+    want = _entry_point(name, ref, ref_service)
+    if name == "prewarm":
+        assert got[:2] == want[:2] and got[0] > 0 and got[1] == 0
+        assert got[2] == [dict(e, backend={"xla": "f64"}[e["backend"]])
+                          for e in want[2]]
+        mark = engine.dispatch_mark()
+        q = querygraph.clique(6)
+        srv.solver.solve([(q, querygraph.make_cardinalities(q, seed=2))])
+        recs = engine.dispatches_since(mark)
+        assert recs and all(r.aot_cache_hit for r in recs)
+    elif name == "prewarm_from_manifest":
+        assert got[0] == want[0] > 0
+        assert got[1] == [dict(e, backend={"xla": "f64"}[e["backend"]])
+                          for e in want[1]]
+    else:
+        assert got == want
 
 
 def test_server_runs_on_the_card_unless_asked():
