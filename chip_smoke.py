@@ -70,7 +70,34 @@ Phases (any failed check exits non-zero; nothing is caught):
                (g) ``FaultPlan.chaos`` on a ``VirtualClock``, run twice:
                identical tickets, every exact answer equal to
                ``plan_one``'s, every degraded one certified;
-12. times    — each kernel at the path's shapes: device time per launch
+12. early exit — the paper's Fig. 6 path: ``paper_clique_instance(n, n)``
+               at n = 14..19 through ``dpconv_max`` with ``early_exit``
+               (the host loop's dyadic-window abort), the host loop's
+               (G+1)-ary search (G = 3) and the fused engine (f64, and
+               the kernel tier at n <= 15); optima (``float.hex``) and
+               trees equal across variants, the host loops' passes equal
+               the reference's search replayed on the candidate table,
+               n = 14, 15 equal numpy DPsub;
+13. planner  — ``model_planner_trace`` of the ten configs at full width
+               as max, out (fused DPccp) and cap by ``optimize`` on the
+               card (against DPsub and the host C_cap pipeline) and
+               through one ``PlanServer`` (a second pass all plan-cache
+               hits); ``execute_plan`` in float64 on the card against
+               one ``torch.einsum`` (relative error <= 1e-10 of the
+               result's largest magnitude) for reduced qwen2-0.5b and the
+               demo's contraction; the demo's data-join pipeline planned
+               on the card and executed (numpy) in three orders; the
+               einsum replay lane (96 requests, seed 2) through ``serve``,
+               each answer against ``optimize`` with the route's method;
+14. cluster  — three ``LoopbackTransport`` replicas on the card (fused
+               engine, batch lane) serving phase 11's stream, every
+               answer equal to ``plan_one``; a spread client publishing
+               to the owners, replayed through them; the seeded loopback
+               chaos run twice, identical; ``ReplicaCluster(2)`` over TCP
+               as spawned processes on the card with replica 0's prewarm
+               manifest shipped to the peer, 24 requests, and the two
+               flight-recorder dumps merged by ``scripts/obs_tail.py``;
+15. times    — each kernel at the path's shapes: device time per launch
                (torch.profiler) warm and with L2 cold, the host-launched
                call (CUDA events around 50 calls from Python), the host's
                cost per launch, its bound and its plain version; one
@@ -83,10 +110,13 @@ requests per second, cache hits, seeded solves, rounds, host syncs and
 launches; phase 11 prints each pass's wall time, requests per second,
 p50/p99 latency, batches, batch occupancy, coalesced joins, fast-path
 and plan-cache hits, the engine's dispatch records (count, execute and
-build seconds, program-cache hits) and launches.  Launch counters are
-set to 0 just before each main-path phase (5, 6, 8, 9), each server
-pass and each runtime pass, and read just after.  Data comes from fixed seeds through numpy.  The
-second-to-last line is the kernel table as JSON; the last line is
+build seconds, program-cache hits) and launches; phases 12-14 print
+wall time, passes or requests per second and launches per variant.
+Launch counters are set to 0 just before each main-path phase (5, 6, 8,
+9, 12, 13, 14's loopback passes), each server pass and each runtime
+pass, and read just after; spawned replicas count in their own
+processes, which the table does not read.  Data comes from fixed seeds
+through numpy.  The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a card, and
 in a directory without the port.
 """
@@ -1145,7 +1175,450 @@ def main() -> int:
           f"launches over the warm passes {runtime_launches} {card}",
           flush=True)
 
-    # ----------------------------------------------------------- 12. times
+    # ----------------------------------------------------- 12. early exit
+    # The paper's Fig. 6 path: clique instances at n = 14..19 through the
+    # host loop's early-exit binary search, the host loop's (G+1)-ary
+    # search (G = 3) and the fused engine (f64; also the kernel tier at
+    # n <= 15).  Optima, trees and pass counts are held as in the
+    # reference: passes against the search replayed on the candidate
+    # table with the optimum as oracle.
+    from repro_torch.core.dpconv_max import dpconv_max
+
+    def host_passes(cand, opt, G):
+        """The host loop's pass count (the reference's definition): one
+        per search round, binary (G = 1) or (G+1)-ary, plus the
+        extraction pass; feasibility is ``cand[i] >= opt``."""
+        lo, hi, passes = 0, len(cand) - 1, 0
+        while lo < hi:
+            passes += 1
+            if G <= 1:
+                mid = (lo + hi) // 2
+                if cand[mid] >= opt:
+                    hi = mid
+                else:
+                    lo = mid + 1
+                continue
+            piv = np.unique(np.linspace(lo, hi, G + 2)[1:-1]
+                            .astype(np.int64))
+            ok = cand[piv] >= opt
+            if ok.any():
+                hi = int(piv[np.nonzero(ok)[0][0]])
+            if (~ok).any():
+                lo = max(lo, int(piv[np.nonzero(~ok)[0][-1]]) + 1)
+        return passes + 1
+
+    ee_rows = []
+    ops.reset_launch_counts()
+    for n in range(14, 20):
+        q, c = qg.paper_clique_instance(n, seed=n)
+        cand = engine.candidate_table(c, n)
+        variants = [("early exit", {"early_exit": True}),
+                    ("host G=3", {"engine": "host", "gamma_batch": 3}),
+                    ("fused f64", {"engine": "fused"})]
+        if n <= 15:
+            variants.append(("fused cuda", {"engine": "fused",
+                                            "backend": "cuda"}))
+        res = {}
+        for label, kw in variants:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = dpconv_max(q, c, device=dev, **kw)
+            torch.cuda.synchronize()
+            res[label] = (r, time.perf_counter() - t0)
+        base = res["early exit"][0]
+        check(base.engine == "host" and res["fused f64"][0].engine
+              == "fused", f"early exit n={n}: engines {base.engine}")
+        for label, (r, _) in res.items():
+            check(r.optimum.hex() == base.optimum.hex(),
+                  f"early exit n={n}: {label} {r.optimum!r} != "
+                  f"{base.optimum!r}")
+            check(str(r.tree) == str(base.tree),
+                  f"early exit n={n}: {label} tree differs")
+        check(base.tree.validate() and base.tree.cost_max(c) == base.optimum,
+              f"early exit n={n}: tree does not realize its optimum")
+        for label, G in (("early exit", 1), ("host G=3", 3)):
+            want_p = host_passes(cand, base.optimum, G)
+            check(res[label][0].feasibility_passes == want_p,
+                  f"early exit n={n}: {label} took "
+                  f"{res[label][0].feasibility_passes} passes, the "
+                  f"reference's search takes {want_p}")
+        if n <= 15:
+            oracle_n = dpsub(c, n, mode="max")[-1]
+            check(base.optimum.hex() == float(oracle_n).hex(),
+                  f"early exit n={n}: {base.optimum!r} != DPsub "
+                  f"{oracle_n!r}")
+        ee_rows.append((n, {k: (v[1], v[0].feasibility_passes)
+                            for k, v in res.items()}))
+        print(f"early exit n={n}: optimum {base.optimum!r}, "
+              + ", ".join(f"{k} {v[1]:.4f} s / {v[0].feasibility_passes} "
+                          f"passes" for k, v in res.items())
+              + f"{'; == DPsub' if n <= 15 else ''} {card}", flush=True)
+    counts12 = ops.launch_counts()
+    check(counts12["zeta_cluster"] > 0,
+          f"the early-exit phase's kernel tier launched {counts12}")
+    print(f"early exit: optima, trees and passes == the reference's at "
+          f"n = 14..19, launches {counts12} {card}", flush=True)
+
+    # --------------------------------------------------------- 13. planner
+    # The einsum planner at the ten configs' published widths (max, out,
+    # cap), by optimize on the card and through one PlanServer; the
+    # replay lane; execute_plan on the card; the data-join planner.
+    from repro_torch import configs
+    from repro_torch.core.baselines import dpsub_out
+    from repro_torch.core.dpconv import optimize
+    from repro_torch.planner import datajoin as dj
+    from repro_torch.planner import einsum_path as ep
+    from repro_torch.service.workload import make_einsum_workload
+
+    PLAN_KW = {"max": {}, "cap": {},
+               "out": {"method": "dpccp", "engine": "fused"}}
+    ops.reset_launch_counts()
+    engine.reset_stats()
+    t0 = time.perf_counter()
+    plan_srv = PlanServer()
+    n_contractions = n_unique = 0
+    trace_reqs = []
+    for arch in sorted(configs.ARCHS):
+        trace = ep.model_planner_trace(configs.get_config(arch))
+        n_contractions += len(trace)
+        solved = {}
+        for ctr in trace:
+            key = (ctr.operands, ctr.output, tuple(sorted(ctr.sizes.items())))
+            qc, cc = ep.query_graph(ctr), ep.cardinalities(ctr)
+            if key not in solved:
+                n_unique += 1
+                want_max = dpsub(cc, ctr.n, mode="max")[-1]
+                want_out = dpsub_out(cc, ctr.n)[-1]
+                got = {cost: optimize(qc, cc, cost=cost, device=dev, **kw)
+                       for cost, kw in PLAN_KW.items()}
+                check(got["max"].cost == want_max
+                      and got["max"].tree.cost_max(cc) == want_max,
+                      f"{arch} {ctr.operands}: C_max {got['max'].cost!r} "
+                      f"!= DPsub {want_max!r}")
+                check(got["out"].cost == want_out
+                      and got["out"].tree.cost_out(cc) == want_out,
+                      f"{arch} {ctr.operands}: C_out {got['out'].cost!r} "
+                      f"!= DPsub {want_out!r}")
+                h = ccap(qc, cc, engine="host")
+                same_plan(f"{arch} {ctr.operands} cap", got["cap"], h.cout,
+                          h.tree, h.gamma)
+                solved[key] = got
+            for cost in PLAN_KW:
+                trace_reqs.append((qc, cc, cost, solved[key][cost]))
+    t_opt = time.perf_counter() - t0
+
+    def serve_trace(tag):
+        hits0 = plan_srv.cache.stats.hits
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resps = [plan_srv.plan_one(qc, cc, cost=cost)
+                 for qc, cc, cost, _ in trace_reqs]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        for (qc, cc, cost, want), r in zip(trace_reqs, resps):
+            check(r.status == "exact"
+                  and float(r.cost).hex() == float(want.cost).hex(),
+                  f"planner server {tag}: {cost} {r.cost!r} != optimize "
+                  f"{want.cost!r}")
+        hits = plan_srv.cache.stats.hits - hits0
+        print(f"planner server {tag}: {len(resps)} requests in {dt:.4f} s, "
+              f"{len(resps) / dt:.1f} requests/s, plan-cache hits {hits} "
+              f"{card}", flush=True)
+        return hits, dt
+
+    serve_trace("first pass")
+    hits2, _ = serve_trace("second pass")
+    check(hits2 == len(trace_reqs),
+          f"the second trace pass had {hits2} of {len(trace_reqs)} hits")
+    print(f"planner: {n_contractions} contractions of the ten configs at "
+          f"full width ({n_unique} distinct within their configs) planned as "
+          f"max, out and cap by optimize in {t_opt:.3f} s: C_max == DPsub, "
+          f"C_out (fused DPccp) == DPsub, C_cap == the host pipeline; "
+          f"the server's answers == optimize's {card}", flush=True)
+
+    # execute_plan on the card in float64 against one torch.einsum of the
+    # whole expression
+    EXEC_RTOL = 1e-10
+    exec_cases = ep.model_planner_trace(
+        configs.reduced(configs.get_config("qwen2-0.5b")))
+    exec_cases = list({(x.operands, x.output): x for x in exec_cases}
+                      .values())
+    demo_c = ep.Contraction(
+        operands=("ab", "bc", "ad", "be", "ef", "eg"), output="a",
+        sizes={"a": 21, "b": 6, "c": 149, "d": 87, "e": 143, "f": 178,
+               "g": 151})
+    worst = 0.0
+    for i, ctr in enumerate(exec_cases + [demo_c]):
+        tree = optimize(ep.query_graph(ctr), ep.cardinalities(ctr),
+                        cost="max", device=dev).tree
+        xs = [on_card(rng.normal(size=tuple(ctr.sizes[a] for a in op)))
+              for op in ctr.operands]
+        got = ep.execute_plan(ctr, tree, xs)
+        want_t = torch.einsum(",".join(ctr.operands) + "->" + ctr.output,
+                              *xs)
+        check(got.device == dev and got.dtype == torch.float64
+              and got.shape == want_t.shape,
+              f"execute_plan {ctr.operands}: {got.device} {got.shape}")
+        scale = float(want_t.abs().max())
+        e = float((got - want_t).abs().max()) / max(scale, 1e-300)
+        worst = max(worst, e)
+        check(e <= EXEC_RTOL,
+              f"execute_plan {ctr.operands}: relative error {e:.3e}")
+    print(f"planner execute_plan: {len(exec_cases)} distinct contractions "
+          f"of reduced qwen2-0.5b and the demo's, float64 on the card, max "
+          f"|plan - einsum| / max |einsum| = {worst:.3e} <= {EXEC_RTOL:g}",
+          flush=True)
+
+    # the demo's data-join pipeline: planned on the card and through the
+    # server, executed on the host (numpy) in every order
+    tables = [dj.Table("examples", ("doc",), 2_000_000),
+              dj.Table("docs", ("doc", "src"), 500_000),
+              dj.Table("sources", ("src",), 2_000),
+              dj.Table("quality", ("doc",), 480_000),
+              dj.Table("dedup", ("doc",), 450_000)]
+    joins = [dj.JoinSpec(0, 1, "doc", 1 / 500_000),
+             dj.JoinSpec(1, 2, "src", 1 / 2_000),
+             dj.JoinSpec(1, 3, "doc", 1 / 490_000),
+             dj.JoinSpec(1, 4, "doc", 1 / 470_000)]
+    jq, jcard = dj.build_graph(tables, joins)
+    jplans = {"cap": dj.plan_joins(tables, joins, "cap", device=dev)[0],
+              "max": dj.plan_joins(tables, joins, "max", device=dev)[0],
+              "server": dj.plan_joins(tables, joins, "cap",
+                                      server=plan_srv)[0]}
+    hj = ccap(jq, jcard, engine="host")
+    same_plan("datajoin cap", jplans["cap"], hj.cout, hj.tree, hj.gamma)
+    check(float(jplans["server"].cost).hex() == float(hj.cout).hex(),
+          "datajoin: the server's plan differs from the host pipeline")
+    drng = np.random.default_rng(7)
+    ex = np.zeros(2000, dtype=[("doc", "i8"), ("w", "f8")])
+    ex["doc"], ex["w"] = drng.integers(0, 500, 2000), drng.random(2000)
+    dc = np.zeros(500, dtype=[("doc", "i8"), ("src", "i8")])
+    dc["doc"], dc["src"] = np.arange(500), drng.integers(0, 20, 500)
+    sr = np.zeros(20, dtype=[("src", "i8"), ("lic", "i8")])
+    sr["src"] = np.arange(20)
+    qu = np.zeros(480, dtype=[("doc", "i8"), ("q", "f8")])
+    qu["doc"] = np.arange(480)
+    dd = np.zeros(450, dtype=[("doc", "i8"), ("cl", "i8")])
+    dd["doc"] = np.arange(450)
+    jdata = [ex, dc, sr, qu, dd]
+    def join_rows(tree):
+        res = dj.execute(jdata, joins, tree)
+        names = sorted(res.dtype.names)       # column order follows the tree
+        return sorted(zip(*(res[k].tolist() for k in names)))
+
+    jrows = [join_rows(p.tree) for p in jplans.values()]
+    check(all(r == jrows[0] for r in jrows[1:])
+          and len(jrows[0]) == int((ex["doc"] < 450).sum()),
+          "datajoin: join orders return different rows")
+    print(f"planner datajoin: the demo pipeline's cap plan == the host "
+          f"pipeline (gamma {hj.gamma!r}, C_out {hj.cout!r}), three plans "
+          f"execute to the same {len(jrows[0])} rows", flush=True)
+
+    # the replay lane served by serve; each answer against optimize with
+    # the route's method (the host loop for max and cap), as the lattice
+    # parity test holds it
+    ereqs = make_einsum_workload(WorkloadSpec(n_requests=96, seed=2))
+    esrv = PlanServer()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eresps, _ = esrv.serve(list(ereqs), closed_loop=True)
+    torch.cuda.synchronize()
+    t_replay = time.perf_counter() - t0
+    held = 0
+    for req, resp in zip(ereqs, eresps):
+        if resp.route.method in ("goo", "approx"):
+            continue
+        if req.cost == "cap":
+            want_r = optimize(req.q, req.card, cost="cap", engine="host",
+                              device=dev)
+        else:
+            kw = dict(resp.route.kw())
+            if resp.route.method == "dpconv" and req.cost == "max":
+                kw["engine"] = "host"
+            want_r = optimize(req.q, req.card, cost=req.cost,
+                              method=resp.route.method, device=dev, **kw)
+        check(float(resp.cost).hex() == float(want_r.cost).hex(),
+              f"replay #{req.req_id}: {resp.cost!r} != optimize "
+              f"{want_r.cost!r} ({resp.route.method})")
+        held += 1
+    check(held > 0, "the replay lane held no answer")
+    counts13 = ops.launch_counts()
+    print(f"planner replay lane: make_einsum_workload(96, seed 2) served in "
+          f"{t_replay:.4f} s, {len(ereqs) / t_replay:.2f} requests/s; "
+          f"{held} answers == optimize with the route's method, "
+          f"{len(ereqs) - held} goo/approx; launches over the planner "
+          f"phase {counts13} (no plan reaches n = 12) {card}", flush=True)
+
+    # --------------------------------------------------------- 14. cluster
+    # Three loopback replicas on the card (fused engine, batch lane) on
+    # phase 11's stream; the loopback chaos run twice; two spawned TCP
+    # replicas on the same card with cross-replica prewarm and dumps.
+    import importlib.util
+    import tempfile
+
+    from repro_torch.service import cluster as cluster_mod
+    from repro_torch.service import net as net_mod
+
+    def loopback(plan=None):
+        clk = VirtualClock()
+        states = {}
+        for i in range(3):
+            srv = PlanServer(batch_policy=BatchPolicy(engine="fused"))
+            observe = srv._observe_batch
+            srv._observe_batch = (
+                lambda timings, observe=observe: observe(
+                    [(n, cnt, 1e-3 * cnt, eng, cost, tags)
+                     for n, cnt, _, eng, cost, tags in timings]))
+            rt = srv.make_runtime(clock=clk,
+                                  config=RuntimeConfig(max_batch=1),
+                                  duration_fn=lambda kind, info: 1e-3)
+            states[f"r{i}"] = net_mod.ReplicaState(srv, replica_id=f"r{i}",
+                                                   runtime=rt)
+        inj = None if plan is None else faults.FaultInjector(plan)
+        transport = cluster_mod.LoopbackTransport(states, clock=clk,
+                                                  injector=inj)
+        return clk, states, transport, cluster_mod.ClusterClient(
+            transport, sorted(states))
+
+    def cluster_run(plan=None):
+        clk, states, transport, client = loopback(plan)
+        out = []
+        for r in stream:
+            try:
+                out.append(client.plan_request(r))
+            except faults.NetworkError as e:
+                out.append(e)
+        return out, client, states, transport, clk
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    lb_resps, lb_client, lb_states, lb_tr, _ = cluster_run()
+    torch.cuda.synchronize()
+    t_lb = time.perf_counter() - t0
+    counts14 = ops.launch_counts()
+    same_as_plan_one("cluster loopback", stream, lb_resps, want)
+    owner_hits = sum(s.server.cache.stats.hits for s in lb_states.values())
+    cross = sum(s.server.cache.stats.cross_hits for s in lb_states.values())
+    check(counts14["zeta_cluster"] > 0,
+          f"the loopback cluster launched {counts14}")
+    print(f"cluster loopback: 3 replicas on the card, {len(stream)} requests "
+          f"in {t_lb:.4f} s, {len(stream) / t_lb:.2f} requests/s, owner "
+          f"cache hits {owner_hits}, publishes "
+          f"{lb_client.stats['publishes']}, isomorph (cross) hits {cross}, "
+          f"transport calls {lb_tr.calls}, launches {counts14}; every "
+          f"answer == plan_one {card}", flush=True)
+
+    # the shared plan-cache tier: a spread client (round robin, no
+    # affinity) has non-owners solve and publish to the key's owner; an
+    # affinity client then replays the stream through the owners
+    _, sp_states, sp_tr, aff_client = loopback()
+    sp_client = cluster_mod.ClusterClient(sp_tr, sorted(sp_states),
+                                          affinity=False)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sp_resps = [sp_client.plan_request(r) for r in stream]
+    hits0 = sum(s.server.cache.stats.hits for s in sp_states.values())
+    rp_resps = [aff_client.plan_request(r) for r in stream]
+    torch.cuda.synchronize()
+    t_sp = time.perf_counter() - t0
+    counts14s = ops.launch_counts()
+    same_as_plan_one("cluster spread", stream, sp_resps, want)
+    same_as_plan_one("cluster replay", stream, rp_resps, want)
+    rp_hits = sum(r.cache_hit for r in rp_resps)
+    remote = sum(s.server.cache.stats.remote_inserts
+                 for s in sp_states.values())
+    cross_sp = sum(s.server.cache.stats.cross_hits
+                   for s in sp_states.values())
+    check(sp_client.stats["publishes"] >= remote > 0 and rp_hits > 0,
+          f"cluster spread: publishes {sp_client.stats['publishes']}, "
+          f"remote inserts {remote}, replay hits {rp_hits}")
+    counts14 = {k: counts14[k] + counts14s[k] for k in counts14}
+    print(f"cluster spread + replay: {2 * len(stream)} requests in "
+          f"{t_sp:.4f} s, {2 * len(stream) / t_sp:.2f} requests/s; the "
+          f"spread client published {sp_client.stats['publishes']} plans "
+          f"to their owners ({remote} inserted), the affinity replay hit "
+          f"{rp_hits} of {len(stream)} (cross-relabeling hits {cross_sp}, "
+          f"cache hits "
+          f"over both passes "
+          f"{sum(s.server.cache.stats.hits for s in sp_states.values())}, "
+          f"{hits0} of them in the spread pass), launches {counts14s}; "
+          f"every answer == plan_one {card}", flush=True)
+
+    chaos_plan = faults.FaultPlan(seed=13, specs=(
+        faults.FaultSpec("net", "raise", rate=0.3),
+        faults.FaultSpec("net", "hang", rate=0.1, hang_s=0.2)))
+
+    def chaos_key(out, client, clk):
+        return ([repr(x) if isinstance(x, Exception) else
+                 (x.req_id, x.status, float(x.cost).hex(), str(x.tree),
+                  x.cache_hit, x.latency) for x in out],
+                dict(client.stats), sorted(client.dead), clk.now())
+
+    t0 = time.perf_counter()
+    ca, cl_a, _, _, clk_a = cluster_run(chaos_plan)
+    cb, cl_b, _, _, clk_b = cluster_run(chaos_plan)
+    t_cc = time.perf_counter() - t0
+    check(chaos_key(ca, cl_a, clk_a) == chaos_key(cb, cl_b, clk_b),
+          "cluster chaos: the two runs differ")
+    check(cl_a.stats["net_errors"] > 0, "cluster chaos: no fault fired")
+    exact = [(r, x) for r, x in zip(stream, ca)
+             if not isinstance(x, Exception) and x.status == "exact"]
+    same_as_plan_one("cluster chaos", [r for r, _ in exact],
+                     [x for _, x in exact], want)
+    print(f"cluster chaos: two runs identical ({t_cc:.2f} s for both), "
+          f"{len(exact)} exact answers == plan_one, "
+          f"{sum(isinstance(x, Exception) for x in ca)} raised, client "
+          f"{ {k: v for k, v in cl_a.stats.items() if v} }", flush=True)
+
+    # two spawned TCP replicas on the same card
+    tcp_reqs = [r for r in stream if r.q.n in (12, 13)][:24]
+    spec_ot = importlib.util.spec_from_file_location(
+        "obs_tail", ROOT / "scripts" / "obs_tail.py")
+    obs_tail = importlib.util.module_from_spec(spec_ot)
+    spec_ot.loader.exec_module(obs_tail)
+    t0 = time.perf_counter()
+    rc = cluster_mod.ReplicaCluster(2, config={
+        "engine": "fused", "enable_batch": True,
+        "prewarm_ns": (12, 13), "prewarm_costs": ("max",)},
+        startup_timeout_s=300.0)
+    procs = []
+    try:
+        tcp_client = rc.start()
+        procs = list(rc.procs)
+        t_start = time.perf_counter() - t0
+        check(rc.manifest, "TCP cluster: replica 0 recorded no manifest")
+        for rid in rc.replica_ids:
+            check(tcp_client.transport.call(rid, {"op": "manifest"})
+                  ["manifest"] == rc.manifest,
+                  f"TCP cluster: {rid} did not take the manifest")
+        t1 = time.perf_counter()
+        tcp_resps = tcp_client.plan_many(tcp_reqs, threads=4)
+        t_tcp = time.perf_counter() - t1
+        same_as_plan_one("cluster TCP", tcp_reqs, tcp_resps, want)
+        with tempfile.TemporaryDirectory() as tmp:
+            dumps = rc.dump_recorders(tmp)
+            check(all(v["ok"] for v in dumps.values()),
+                  f"TCP cluster dumps {dumps}")
+            recs = obs_tail.merge_records(
+                [str(Path(tmp) / f"flight_{rid}.jsonl")
+                 for rid in rc.replica_ids])
+        summary = obs_tail.summarize(recs)
+        check(summary["kinds"].get("completed", 0) == len(tcp_reqs),
+              f"TCP cluster: obs_tail summary {summary['kinds']}")
+    finally:
+        rc.stop()
+    check(procs and all(not p.is_alive() for p in procs),
+          "TCP cluster: a replica process outlived stop()")
+    print(f"cluster TCP: 2 spawned replicas on the card up in "
+          f"{t_start:.2f} s (replica 0 prewarmed n = 12, 13, its manifest "
+          f"{len(rc.manifest)} buckets shipped to r1), {len(tcp_reqs)} "
+          f"requests in {t_tcp:.4f} s, {len(tcp_reqs) / t_tcp:.2f} "
+          f"requests/s, every answer == plan_one; obs_tail merged "
+          f"{summary['records']} records, by replica "
+          f"{summary['replicas']} {card}", flush=True)
+
+    # ----------------------------------------------------------- 15. times
     # Device time per launch from torch.profiler (self device time of the
     # kernel, by name), warm and after a 64 MB write (L2 cold);
     # "host-launched call" = CUDA events around 50 calls issued back to
@@ -1188,6 +1661,7 @@ def main() -> int:
 
     launches = {k: counts5[k] + counts6[k] + counts8[k] + counts8k[k]
                 + counts9[k] + server_launches[k] + runtime_launches[k]
+                + counts12[k] + counts13[k] + counts14[k]
                 for k in build.KERNELS}
     row("zeta_cluster", ("zeta_cluster_kernel",),
         "src/repro_torch/csrc/zeta.cu",

@@ -19,7 +19,11 @@ lanes, the failure ladder of ``service.faults`` and the tenant quotas of
 routing, the plan cache and the layer cache's warm starts; the batch
 lane's four costs (``max``, ``cap``, ``cap_conn``, ``out``) from
 ``service.batch.BatchedSolver`` down to the zeta/Moebius and
-ranked-convolution kernels; and every (cost, method) pair of
-``core.dpconv.optimize``.  ``shards > 1`` raises
-``NotImplementedError``.
+ranked-convolution kernels; every (cost, method) pair of
+``core.dpconv.optimize`` with the host loop's early-exit and (G+1)-ary
+searches; the einsum and data-join planners (``planner``) with the
+model configs they plan at (``configs``, ``models.common.ModelConfig``)
+and the einsum replay lane; and the replica cluster
+(``service.net``, ``service.cluster``).  ``shards > 1`` raises
+``NotImplementedError``; the LM model side is not ported.
 """

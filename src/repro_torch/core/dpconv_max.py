@@ -14,8 +14,11 @@ the parity reference and the ``dp_fn`` hook that the kernel tier's
 ranked convolution runs through).  ``seed_opt`` (a cached optimum from
 the layer cache) warm-starts the fused search and is ignored by the host
 loop, as in the reference: a seed is a perf hint, never an input to the
-result.  Held over: the host loop's ``gamma_batch > 1`` and
-``early_exit`` variants.
+result.  The single-query host loop carries the reference's two
+variants: ``gamma_batch > 1`` ((G+1)-ary search, G gates per pass on a
+leading axis) and ``early_exit`` (each binary-search probe runs the
+layer-by-layer pass of ``core.layered`` that stops at the first empty
+dyadic window).
 """
 from __future__ import annotations
 
@@ -29,7 +32,8 @@ from repro_torch.core.bitset import popcounts
 from repro_torch.core.engine import (candidate_table, fused_dpconv_max,
                                      host_cards)
 from repro_torch.core.lattice import popcounts_on
-from repro_torch.core.layered import layered_feasibility_dp
+from repro_torch.core.layered import (layered_feasibility_dp,
+                                      layered_feasibility_early_exit)
 from repro_torch.core.querygraph import QueryGraph
 from repro_torch.device import resolve_device
 
@@ -48,12 +52,32 @@ def _check_engine(engine: str) -> None:
         raise ValueError(f"unknown engine {engine!r}")
 
 
+def _gate_for(card: torch.Tensor, gamma, pc: torch.Tensor) -> torch.Tensor:
+    """gate(S) = [c(S) <= gamma] for |S| >= 2; singletons and the empty
+    set do not gate.  ``gamma`` may be a scalar or (G,): the gate is then
+    (G, 2^n)."""
+    gamma = torch.as_tensor(gamma, dtype=torch.float64, device=card.device)
+    g = card[None, :] <= gamma[..., None] if gamma.ndim else card <= gamma
+    return torch.where(pc >= 2, g.to(torch.float64), 1.0)
+
+
+def feasible(card, gamma, n: int, direct_layers: int = 4,
+             device=None) -> bool:
+    """One feasibility probe (single gamma)."""
+    dev = resolve_device(device)
+    gate = _gate_for(torch.as_tensor(host_cards(card), device=dev), gamma,
+                     popcounts_on(n, dev))
+    dp = layered_feasibility_dp(gate, n, direct_layers, True)
+    return bool(dp[..., -1] > 0.5)
+
+
 def dpconv_max(
     q: QueryGraph,
     card,
     gamma_batch: int = 1,
     direct_layers: int = 4,
     extract_tree: bool = True,
+    early_exit: bool = False,
     engine: str = "auto",
     backend: str = "f64",
     shards: int = 1,
@@ -64,27 +88,83 @@ def dpconv_max(
     dense cardinality table ``card`` (2^n,).  Clique semantics: every
     split is allowed, cross products priced by ``card``.
 
-    ``engine`` ``"auto"``/``"fused"`` runs the fused engine (``backend``
-    selects its tier, ``gamma_batch`` its probe width); ``"host"`` runs
-    the per-round host loop on the f64 tier.  ``seed_opt`` warm-starts the
-    fused search (bit-identical results; the host loop ignores it)."""
+    ``engine`` ``"fused"`` runs the fused engine (``backend`` selects its
+    tier, ``gamma_batch`` its probe width); ``"host"`` runs the per-round
+    host loop on the f64 tier: binary search, ``early_exit`` probes, or
+    (G+1)-ary search for ``gamma_batch`` = G > 1.  ``"auto"`` is the
+    fused engine unless ``early_exit`` asks for the host loop (its layer
+    abort is a host decision by construction).  ``seed_opt`` warm-starts
+    the fused search (bit-identical results; the host loop ignores it)."""
     _check_engine(engine)
     card = host_cards(card)
-    if engine == "host":
-        if shards != 1:
-            raise ValueError("shards > 1 is a fused-engine concept")
-        return dpconv_max_batch(card[None, :], q.n,
+    n = q.n
+    if engine == "fused" or (engine == "auto" and not early_exit):
+        if early_exit:
+            raise ValueError("early_exit is a host-loop variant; "
+                             "use engine='host' or 'auto'")
+        fs = fused_dpconv_max(card[None, :], n, direct_layers=direct_layers,
+                              extract_tree=extract_tree, backend=backend,
+                              gamma_batch=gamma_batch, shards=shards,
+                              seed_opt=None if seed_opt is None
+                              else [seed_opt], device=device)
+        return CmaxResult(optimum=float(fs.optima[0]), tree=fs.trees[0],
+                          feasibility_passes=fs.passes, engine="fused",
+                          dispatches=fs.dispatches)
+    if shards != 1:
+        raise ValueError("shards > 1 is a fused-engine concept; the "
+                         "host loop runs on one device")
+    if gamma_batch <= 1 and not early_exit:    # the plain binary search
+        return dpconv_max_batch(card[None, :], n,
                                 direct_layers=direct_layers,
                                 extract_tree=extract_tree, engine="host",
-                                gamma_batch=gamma_batch, device=device)[0]
-    fs = fused_dpconv_max(card[None, :], q.n, direct_layers=direct_layers,
-                          extract_tree=extract_tree, backend=backend,
-                          gamma_batch=gamma_batch, shards=shards,
-                          seed_opt=None if seed_opt is None else [seed_opt],
-                          device=device)
-    return CmaxResult(optimum=float(fs.optima[0]), tree=fs.trees[0],
-                      feasibility_passes=fs.passes, engine="fused",
-                      dispatches=fs.dispatches)
+                                device=device)[0]
+    if card.shape != (1 << n,):
+        raise ValueError(f"card of shape {card.shape} does not fit n={n}")
+    dev = resolve_device(device)
+    pc = popcounts_on(n, dev)
+    cj = torch.as_tensor(card, device=dev)
+
+    # the candidate thresholds, shared with the fused engine: identical
+    # arrays keep the two pivot sequences aligned
+    cand = candidate_table(card, n)             # ascending, unique
+    lo, hi = 0, len(cand) - 1                   # invariant: cand[hi] feasible
+    passes = 0
+    if gamma_batch <= 1:                        # binary, early-exit probes
+        while lo < hi:
+            mid = (lo + hi) // 2
+            passes += 1
+            gate = _gate_for(cj, float(cand[mid]), pc)
+            if layered_feasibility_early_exit(gate, n, direct_layers):
+                hi = mid
+            else:
+                lo = mid + 1
+    else:
+        G = gamma_batch
+        while lo < hi:
+            # G interior pivots split [lo, hi] into G+1 parts
+            pivots = np.unique(
+                np.linspace(lo, hi, G + 2)[1:-1].astype(np.int64))
+            gate = _gate_for(cj, cand[pivots], pc)
+            dp = layered_feasibility_dp(gate, n, direct_layers, True)
+            ok = (dp[..., -1] > 0.5).cpu().numpy().reshape(-1)
+            passes += 1
+            # feasibility is monotone in gamma: ok = [F..F, T..T]
+            good = np.nonzero(ok)[0]
+            bad = np.nonzero(~ok)[0]
+            if good.size:                       # smallest feasible pivot
+                hi = int(pivots[good[0]])
+            if bad.size:                        # largest infeasible pivot
+                lo = max(lo, int(pivots[bad[-1]]) + 1)
+
+    opt = float(cand[hi])
+    tree = None
+    if extract_tree:
+        gate = _gate_for(cj, opt, pc)
+        dp = layered_feasibility_dp(gate, n, direct_layers, False)
+        passes += 1
+        tree = jointree.extract_tree_feasibility(dp.cpu().numpy(), card, n)
+    return CmaxResult(optimum=opt, tree=tree, feasibility_passes=passes,
+                      dispatches=passes)
 
 
 # --------------------------------------------------------- batched queries
@@ -133,8 +213,9 @@ def dpconv_max_batch(
         raise ValueError("shards > 1 is a fused-engine concept; the "
                          "host loop runs on one device")
     if gamma_batch > 1:
-        raise NotImplementedError("the host loop's gamma_batch > 1 "
-                                  "variant is not ported yet")
+        raise ValueError("the host batch loop is binary-search only; "
+                         "gamma_batch > 1 runs on the fused engine or "
+                         "the single-query dpconv_max")
     dev = resolve_device(device)
     pc = popcounts_on(n, dev)
     cj = torch.as_tensor(cards, device=dev)

@@ -20,9 +20,14 @@ exactly that:
   that exercise the router's deadline fallback;
 * **Poisson arrivals** at ``rate`` requests/second.
 
-The **replay lane** (``einsum_replay_pool``, ``make_einsum_workload``)
-drives the same model with contraction logs of the einsum planner, which
-the port does not carry yet: both raise ``NotImplementedError``.
+Next to the synthetic generator sits the **replay lane**
+(``make_einsum_workload``): the same popularity/relabel/arrival model
+driven by *real contraction logs* from ``repro_torch.planner.einsum_path``
+(``ContractionLog``, or its canned model-stack trace) instead of
+synthetic templates — einsum traffic has systematically different
+cardinality structure (heavily repeated index sizes, star/chain tensor
+networks), which is exactly what the cache keys, candidate tables and
+the router's topology buckets should be exercised with.
 """
 from __future__ import annotations
 
@@ -156,14 +161,96 @@ def _draw_slo(rng, slos, slo_p):
 # ------------------------------------------------------------ replay lane
 def einsum_replay_pool(include_model_traces: bool = True,
                        logger=None) -> list:
-    """The replay lane's contraction pool: needs the einsum planner."""
-    raise NotImplementedError("the einsum replay lane needs the planner "
-                              "(planner/einsum_path), not ported yet")
+    """The replay lane's contraction pool.
+
+    The canned model-stack trace (``einsum_path.builtin_trace``) plus
+    traces logged from the ``train/steps`` model planners for one config
+    per family (dense, MoE, SSM) — per-layer attention cores,
+    attention+projection chains, gated MLPs, chunked-CE, decode-step
+    attention, MoE routing, SSM scans (``model_planner_trace``).  The
+    model traces are deliberately repetitive with shared sub-structure
+    across templates, which is exactly the traffic the layer-fragment
+    cache exists for; the replay benchmark's ``reuse`` row is measured
+    on this pool.
+    """
+    from repro_torch.models.common import ModelConfig
+    from repro_torch.planner.einsum_path import builtin_trace, \
+        model_planner_trace
+
+    cs = list(builtin_trace())
+    if not include_model_traces:
+        return cs
+    for cfg in (
+        ModelConfig(name="replay-dense", family="dense", n_layers=2,
+                    d_model=256, n_heads=4, n_kv_heads=4, d_ff=512,
+                    vocab_size=4096),
+        ModelConfig(name="replay-moe", family="moe", n_layers=2,
+                    d_model=256, n_heads=4, n_kv_heads=4, d_ff=512,
+                    vocab_size=4096, n_experts=8, top_k=2),
+        ModelConfig(name="replay-ssm", family="ssm", n_layers=2,
+                    d_model=256, n_heads=0, n_kv_heads=0, d_ff=512,
+                    vocab_size=4096, ssm_state=16, head_dim=64),
+    ):
+        cs.extend(model_planner_trace(cfg, logger=logger))
+    return cs
 
 
 def make_einsum_workload(spec: "WorkloadSpec | None" = None,
                          contractions=None) -> "list[PlanRequest]":
-    """Request stream replayed from einsum contraction logs: needs the
-    einsum planner."""
-    raise NotImplementedError("the einsum replay lane needs the planner "
-                              "(planner/einsum_path), not ported yet")
+    """Request stream replayed from einsum contraction logs.
+
+    ``contractions`` is a list of ``einsum_path.Contraction`` (e.g. a
+    loaded ``ContractionLog.records``); default is the canned model-stack
+    trace (``einsum_path.builtin_trace``).  The stream model matches the
+    synthetic generator — Zipf template popularity, ``relabel_frac``
+    repeats under random operand relabelings (the same contraction with
+    tensors registered in another order), a ``fresh_frac`` of
+    size-jittered variants (the same template at a different model
+    scale), cost mix, budgets and Poisson arrivals — but every template
+    is a real contraction, so cardinality tables carry the repeated
+    index products and tensor-network topologies of real traffic.
+    """
+    from repro_torch.planner.einsum_path import (builtin_trace, cardinalities,
+                                           query_graph)
+
+    spec = spec or WorkloadSpec()
+    rng = np.random.default_rng(spec.seed)
+    cs = list(contractions) if contractions is not None else \
+        builtin_trace()
+    cs = [c for c in cs if c.n >= 2]
+    pool = [(c, query_graph(c), cardinalities(c)) for c in cs]
+    weights = 1.0 / np.arange(1, len(pool) + 1) ** spec.zipf_a
+    weights /= weights.sum()
+    costs = [c for c, _ in spec.cost_mix]
+    cost_p = np.array([p for _, p in spec.cost_mix])
+    cost_p /= cost_p.sum()
+    slos, slo_p = _slo_dist(spec)
+
+    def fresh_variant(c):
+        """The same template at a jittered scale: one index dim scaled
+        by a power of two — a new cardinality table, same topology."""
+        ix = str(rng.choice(sorted(c.sizes)))
+        factor = int(rng.choice([2, 4]))
+        sizes = {**c.sizes, ix: max(c.sizes[ix] * factor, 2)}
+        c2 = dataclasses.replace(c, sizes=sizes)
+        return query_graph(c2), cardinalities(c2)
+
+    reqs: list = []
+    clock = 0.0
+    for i in range(spec.n_requests):
+        clock += float(rng.exponential(1.0 / spec.rate))
+        c, q, card = pool[int(rng.choice(len(pool), p=weights))]
+        if rng.random() < spec.fresh_frac:
+            q, card = fresh_variant(c)
+        elif rng.random() < spec.relabel_frac:
+            perm = rng.permutation(q.n)
+            q = relabel(q, perm)
+            card = permute_card(card, q.n, perm)
+        cost = str(rng.choice(costs, p=cost_p))
+        budget = (spec.budget_s if rng.random() < spec.budget_frac
+                  else None)
+        reqs.append(PlanRequest(q=q, card=card, cost=cost,
+                                latency_budget=budget, arrival=clock,
+                                req_id=i,
+                                slo=_draw_slo(rng, slos, slo_p)))
+    return reqs

@@ -228,8 +228,10 @@ def test_convert_round_trip_and_oracle():
 
 
 def test_unported_paths_raise():
-    """What stays unported raises: ``shards > 1`` and the host loop's
-    ``gamma_batch > 1``."""
+    """What stays unported raises ``NotImplementedError``: ``shards > 1``.
+    The host batch loop's ``gamma_batch > 1`` raises ``ValueError``, as
+    the reference does (the (G+1)-ary search is the single-query host
+    loop's and the fused engine's)."""
     qs, cards = _queries(5, 2, seed=1)
     items = [_port_query(q, c) for q, c in zip(qs, cards)]
     q0, c0 = items[0]
@@ -244,7 +246,7 @@ def test_unported_paths_raise():
         engine.fused_ccap(cards, 5, shards=2, device=CPU)
     with pytest.raises(NotImplementedError):
         engine.fused_out([q0, items[1][0]], cards, 5, shards=2, device=CPU)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         dpconv_max_batch(cards, 5, engine="host", gamma_batch=3,
                          device=CPU)
     mixed = optimize_batch([items[0][0], querygraph.chain(6)],

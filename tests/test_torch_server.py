@@ -288,12 +288,28 @@ def test_dp_table_never_reaches_a_response_or_the_cache():
 
 
 def test_einsum_workload_is_not_ported():
-    """The einsum replay lane needs the planner, which the port does not
-    carry yet: both entry points raise."""
-    with pytest.raises(NotImplementedError):
-        workload.make_einsum_workload()
-    with pytest.raises(NotImplementedError):
-        workload.einsum_replay_pool()
+    """The einsum replay lane, which this test once pinned as not
+    ported, now is: ``einsum_replay_pool`` and ``make_einsum_workload``
+    draw the reference's streams request by request (graph, card bytes,
+    cost, budget, arrival, tenant, SLO)."""
+    from repro.service.workload import einsum_replay_pool as ref_pool
+    from repro.service.workload import make_einsum_workload as ref_einsum
+    pool, want_pool = workload.einsum_replay_pool(), ref_pool()
+    assert [(c.operands, c.output, c.sizes) for c in pool] == \
+        [(c.operands, c.output, c.sizes) for c in want_pool]
+    spec = dict(n_requests=48, seed=5, fresh_frac=0.2, relabel_frac=0.5,
+                slo_mix=(("interactive", 1.0), ("batch", 2.0)))
+    got = workload.make_einsum_workload(WorkloadSpec(**spec),
+                                        contractions=pool)
+    want = ref_einsum(RefSpec(**spec), contractions=want_pool)
+    assert len(got) == len(want) == 48
+    for a, b in zip(got, want):
+        assert (a.q.n, a.q.edges, a.q.hyperedges) == \
+            (b.q.n, b.q.edges, b.q.hyperedges)
+        assert a.card.tobytes() == b.card.tobytes()
+        assert (a.cost, a.latency_budget, a.arrival, a.req_id, a.tenant,
+                a.slo) == (b.cost, b.latency_budget, b.arrival, b.req_id,
+                           b.tenant, b.slo)
 
 
 SETTINGS = {"max_wait": 0.001, "trace": False, "lanes": 4,
