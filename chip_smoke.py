@@ -102,7 +102,22 @@ Phases (any failed check exits non-zero; nothing is caught):
                call (CUDA events around 50 calls from Python), the host's
                cost per launch, its bound and its plain version; one
                whole transform warm and with L2 cold; launches per solve,
-               solved queries per second.
+               solved queries per second;
+16. sharded  — the sharded lattice solve with ``force_device_count(4)``
+               (cuda:0 fills four solve-mesh slots) and, when more than
+               one card is visible, on a mesh of distinct cards:
+               ``paper_clique_instance(n, n)`` at n = 14, 15 as max
+               (kernel tier), cap and out (fused DPccp), and a cycle as
+               connected cap, on D = 1, 2, 4, each built once and then
+               timed three times, held bitwise against the unsharded
+               fused solve and the host pipelines (DPsub for out), with
+               the median wall per solve and device memory; then a
+               ``BatchPolicy(solve_shards=4)`` server (cap/out ceilings
+               lifted to 15) on the repeated card, prewarmed and serving
+               phase 11's stream, every answer equal to an unsharded
+               server's ``plan_one``, n >= 14 cap/out on the batch lane
+               over the 4-slot mesh.  It runs after phase 15; its
+               launches join the kernel table.
 
 Phases 8 and 9 print wall time, solved queries per second, peak device
 memory and host syncs per solve; phase 10 prints each pass's wall time,
@@ -113,16 +128,18 @@ and plan-cache hits, the engine's dispatch records (count, execute and
 build seconds, program-cache hits) and launches; phases 12-14 print
 wall time, passes or requests per second and launches per variant.
 Launch counters are set to 0 just before each main-path phase (5, 6, 8,
-9, 12, 13, 14's loopback passes), each server pass and each runtime
-pass, and read just after; spawned replicas count in their own
-processes, which the table does not read.  Data comes from fixed seeds
-through numpy.  The second-to-last line is the kernel table as JSON; the last line is
+9, 12, 13, 14's loopback passes, 16's direct solves and its server
+pass), each server pass and each runtime pass, and read just after;
+spawned replicas count in their own processes, which the table does not
+read.  Data comes from fixed seeds through numpy.  The second-to-last
+line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a card, and
 in a directory without the port.
 """
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -1714,6 +1731,167 @@ def main() -> int:
           f"{qps9:.3f} queries/s, server max n=15 cold / seeded "
           f"(phase 10) {n_cold['requests_per_s']:.3f} / "
           f"{n_warm['requests_per_s']:.3f} requests/s {card}", flush=True)
+
+    # --------------------------------------------------------- 16. sharded
+    # The sharded lattice solve: force_device_count(4) lets cuda:0 fill
+    # four solve-mesh slots; with more than one card visible, a mesh of
+    # distinct cards (cuda:0..D-1) runs the same solves after it.
+    # Direct solves of paper_clique_instance(n, n) (and a cycle for the
+    # connected cap) at n = 14, 15 over each D, once to build the
+    # program and then timed three times, held bitwise against the
+    # unsharded fused solve (D = 1) and the host pipelines; then a
+    # solve_shards=4 server over phase 11's stream on the repeated card,
+    # held against a fresh unsharded server's plan_one.
+    from repro_torch.launch import mesh as mesh_mod
+
+    def sharded_solve(cost, q, c, D):
+        """One direct solve on a D-slot mesh: (value(s), tree, dp)."""
+        if cost == "max":
+            r = dpconv_max(q, c, engine="fused", backend="cuda", shards=D,
+                           device=dev)
+            return (r.optimum,), r.tree, None
+        if cost in ("cap", "cap_conn"):
+            r = ccap(q, c, engine="fused", connected=cost == "cap_conn",
+                     shards=D, device=dev)
+            return (r.gamma, r.cout), r.tree, None
+        r = optimize(q, c, cost="out", method="dpccp", engine="fused",
+                     shards=D, device=dev)
+        return (r.cost,), r.tree, r.meta["dp_table"]
+
+    n_cards = torch.cuda.device_count()
+    meshes16 = [("repeated card", 4, (1, 2, 4))]
+    if n_cards > 1:
+        meshes16.append(("distinct cards", None,
+                         tuple(D for D in (1, 2, 4) if D <= n_cards)))
+    peak16: dict = {}        # (mesh, n, D) -> most bytes above those held
+    ops.reset_launch_counts()
+    t16 = time.perf_counter()
+    for n in (14, 15):
+        q, c = qg.paper_clique_instance(n, seed=n)
+        qc = qg.cycle(n)
+        cc = qg.make_cardinalities(qc, seed=500 + n)
+        hm = dpconv_max(q, c, engine="host", device=dev)
+        hc = ccap(q, c, engine="host", device=dev)
+        hn = ccap(qc, cc, engine="host", connected=True, device=dev)
+        dpo = dpsub(c, n, mode="out")
+        host = {"max": ((hm.optimum,), hm.tree, None),
+                "cap": ((hc.gamma, hc.cout), hc.tree, None),
+                "cap_conn": ((hn.gamma, hn.cout), hn.tree, None),
+                "out": ((dpo[-1],), jointree.extract_tree_out(dpo, c, n),
+                        dpo)}
+        for mesh_kind, forced, shard_widths in meshes16:
+            mesh_mod.force_device_count(forced)
+            for cost in ("max", "cap", "cap_conn", "out"):
+                qq, cq = (qc, cc) if cost == "cap_conn" else (q, c)
+                base = None
+                for D in shard_widths:
+                    slots = engine.solve_mesh(D, dev)
+                    devs = sorted(set(slots), key=str)
+                    names = (("cuda:0",) * D if forced
+                             else tuple(f"cuda:{i}" for i in range(D)))
+                    at = f"sharded {cost} n={n} D={D} on {mesh_kind}"
+                    check(mesh_mod.mesh_fingerprint(slots) == names,
+                          f"{at}: mesh {slots}")
+                    sharded_solve(cost, qq, cq, D)    # builds the program
+                    walls, above, peak = [], 0, 0
+                    for _ in range(3):
+                        held = {}
+                        for d in devs:
+                            torch.cuda.synchronize(d)
+                            torch.cuda.reset_peak_memory_stats(d)
+                            held[d] = torch.cuda.memory_allocated(d)
+                        mark = engine.dispatch_mark()
+                        t0 = time.perf_counter()
+                        got = sharded_solve(cost, qq, cq, D)
+                        for d in devs:
+                            torch.cuda.synchronize(d)
+                        walls.append(time.perf_counter() - t0)
+                        for d in devs:
+                            p = torch.cuda.max_memory_allocated(d)
+                            above = max(above, p - held[d])
+                            peak = max(peak, p)
+                        (rec,) = engine.dispatches_since(mark)
+                        check(rec.shards == D and rec.devices == names,
+                              f"{at}: record {rec}")
+                        for label, want16 in (("unsharded fused", base),
+                                              ("host pipeline",
+                                               host[cost])):
+                            if want16 is None:
+                                continue
+                            check([float(v).hex() for v in got[0]]
+                                  == [float(v).hex() for v in want16[0]]
+                                  and str(got[1]) == str(want16[1]),
+                                  f"{at}: {got[0]} {got[1]} != {label} "
+                                  f"{want16[0]} {want16[1]}")
+                            if got[2] is not None:
+                                check(got[2].tobytes()
+                                      == want16[2].tobytes(),
+                                      f"{at}: DP table != {label}")
+                    if D == 1:
+                        base = got
+                    key16 = (mesh_kind, n, D)
+                    peak16[key16] = max(peak16.get(key16, 0), above)
+                    print(f"{at} ({','.join(names)}): median "
+                          f"{statistics.median(walls):.4f} s per solve of "
+                          f"{', '.join(f'{w:.4f}' for w in walls)}, peak "
+                          f"device memory {peak / 2**20:.1f} MiB on a "
+                          f"card, at most {above / 2**20:.1f} MiB above "
+                          f"what it held before the solve; == unsharded "
+                          f"fused and host pipeline {card}", flush=True)
+    counts16 = ops.launch_counts()
+    check(counts16["zeta_cluster"] > 0 and counts16["zeta_pair"] == 0,
+          f"the sharded max solves launched {counts16}")
+    print(f"sharded: max (kernel tier), cap, connected cap and out at "
+          f"n = 14, 15 on {', '.join(f'{k} D = {w}' for k, _, w in meshes16)}"
+          f" == the unsharded fused solve and the host pipelines in "
+          f"{time.perf_counter() - t16:.2f} s; most device memory a solve "
+          f"took above what a card held, per (mesh, n, D): "
+          f"{ {k: round(v / 2**20, 1) for k, v in peak16.items()} } MiB; "
+          f"launches {counts16} {card}", flush=True)
+
+    mesh_mod.force_device_count(4)
+    ops.reset_launch_counts()
+    srv16 = PlanServer(batch_policy=BatchPolicy(solve_shards=4))
+    cfg16 = srv16.router.config
+    check((cfg16.fused_cap_max_n, cfg16.fused_out_max_n) == (15, 15)
+          and srv16.solver._shards(15) == 4
+          and srv16.solver._shards(13) == 1,
+          f"solve_shards=4: ceilings {cfg16.fused_cap_max_n}/"
+          f"{cfg16.fused_out_max_n}, shards {srv16.solver._shards(15)}")
+    pw16 = srv16.prewarm(range(12, 16))
+    mark = engine.dispatch_mark()
+    t0 = time.perf_counter()
+    resps16, _ = srv16.serve(list(stream), closed_loop=True)
+    torch.cuda.synchronize()
+    t_srv16 = time.perf_counter() - t0
+    recs16 = engine.dispatches_since(mark)
+    server16 = ops.launch_counts()
+    same_as_plan_one("sharded server", stream, resps16, want)
+    no_faults("sharded server", srv16.last_runtime)
+    lanes16 = Counter(f"n={r.q.n} {r.cost} {resp.route.lane}"
+                      for r, resp in zip(stream, resps16)
+                      if r.q.n >= 14 and r.cost in ("cap", "out"))
+    check(lanes16 and all(k.endswith(" batch") for k in lanes16),
+          f"sharded server: n >= 14 cap/out lanes {dict(lanes16)}")
+    big16 = [r for r in recs16 if r.n >= 14]
+    check(big16 and all(r.shards == 4 for r in big16)
+          and all(r.shards == 1 for r in recs16 if r.n < 14),
+          "sharded server: records "
+          f"{[(r.n, r.cost, r.shards) for r in recs16]}")
+    mesh_mod.force_device_count(None)
+    print(f"sharded server: solve_shards=4, ceilings cap "
+          f"{cfg16.fused_cap_max_n} / out {cfg16.fused_out_max_n}, "
+          f"prewarm {pw16['compiled']} programs in {pw16['seconds']:.2f} s; "
+          f"{len(stream)} requests in {t_srv16:.4f} s, "
+          f"{len(stream) / t_srv16:.2f} requests/s, every answer == "
+          f"plan_one of an unsharded server; n >= 14 cap/out lanes "
+          f"{dict(sorted(lanes16.items()))}; {len(big16)} of "
+          f"{len(recs16)} dispatches on the 4-slot mesh; launches "
+          f"{server16} {card}", flush=True)
+    for r in rows:
+        r["launches"] += counts16[r["name"]] + server16[r["name"]]
+    for k in build.KERNELS:
+        launches[k] += counts16[k] + server16[k]
 
     loaded = [m for m in sys.modules
               if m.split(".")[0] == "jax" or m.startswith("repro.")

@@ -23,7 +23,10 @@ ranked-convolution kernels; every (cost, method) pair of
 ``core.dpconv.optimize`` with the host loop's early-exit and (G+1)-ary
 searches; the einsum and data-join planners (``planner``) with the
 model configs they plan at (``configs``, ``models.common.ModelConfig``)
-and the einsum replay lane; and the replica cluster
-(``service.net``, ``service.cluster``).  ``shards > 1`` raises
-``NotImplementedError``; the LM model side is not ported.
+and the einsum replay lane; the replica cluster (``service.net``,
+``service.cluster``); and the sharded lattice solve (``shards = D`` in
+every fused program, over a single-controller solve mesh of
+``launch.mesh``, with ``force_device_count`` to run a D-way mesh on one
+device) with the batch lane's ``BatchPolicy.solve_shards`` and the
+server's lifted cap/out ceilings.  The LM model side is not ported.
 """

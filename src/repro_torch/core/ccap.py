@@ -70,7 +70,7 @@ def ccap(
     engine: str = "auto",              # "auto" | "fused" | "host"
     gamma_batch: int = 1,              # pass-1 probe width (fused only)
     connected: bool = False,           # exclude cross products in pass 2
-    shards: int = 1,
+    shards: int = 1,                   # solve-mesh width (fused only)
     seed_opt: "float | None" = None,
     device=None,
 ) -> CcapResult:
@@ -87,7 +87,6 @@ def ccap(
     card = host_cards(card)
     if engine not in ("auto", "fused", "host"):
         raise ValueError(f"unknown engine {engine!r}")
-    engine_mod.reject_unported(shards)
     seeds = None if seed_opt is None else [seed_opt]
     if connected:
         if engine_pass2 == "dpsub":
@@ -105,7 +104,7 @@ def ccap(
             fc = engine_mod.fused_ccap(
                 card[None, :], n, gamma_slack=gamma_slack,
                 extract_tree=extract_tree, gamma_batch=gamma_batch,
-                qs=[q], seed_opt=seeds, device=device)
+                qs=[q], shards=shards, seed_opt=seeds, device=device)
             return _fused_result(fc, 0, True)
         # fall through to the host pipeline (engine_pass2 == "dpccp")
     elif engine == "fused" and not _fused_combo(engine_pass1,
@@ -120,7 +119,7 @@ def ccap(
         fc = engine_mod.fused_ccap(
             card[None, :], n, gamma_slack=gamma_slack,
             extract_tree=extract_tree, gamma_batch=gamma_batch,
-            seed_opt=seeds, device=device)
+            shards=shards, seed_opt=seeds, device=device)
         return _fused_result(fc, 0, False)
 
     diagnostics = {}
@@ -164,7 +163,7 @@ def ccap_batch(
     engine: str = "fused",
     gamma_batch: int = 1,
     connected: bool = False,
-    shards: int = 1,
+    shards: int = 1,                   # solve-mesh width (fused only)
     seed_opt=None,
     device=None,
 ) -> "list[CcapResult]":
@@ -181,7 +180,6 @@ def ccap_batch(
     cards = host_cards(cards)
     if cards.shape[1] != 1 << n:
         raise ValueError(f"cards of width {cards.shape[1]} do not fit n={n}")
-    engine_mod.reject_unported(shards)
     fusable = not connected or all(
         not q.hyperedges and q.is_connected(q.full_mask) for q in qs)
     if engine in ("fused", "auto") and fusable:
@@ -189,7 +187,8 @@ def ccap_batch(
                                    extract_tree=extract_tree,
                                    gamma_batch=gamma_batch,
                                    qs=list(qs) if connected else None,
-                                   seed_opt=seed_opt, device=device)
+                                   shards=shards, seed_opt=seed_opt,
+                                   device=device)
         return [_fused_result(fc, b, connected)
                 for b in range(cards.shape[0])]
     return [ccap(q, cards[b], gamma_slack=gamma_slack,

@@ -15,7 +15,9 @@ the numpy oracles (``dpsub``, the host ``dpccp`` enumerator) run on the
 host, as in the reference.  Warm-start seeds ride as in the reference:
 ``seed_opt`` reaches the fused max and cap searches, ``seed_vals``/
 ``seed_ok`` the fused DPccp sweep only (the host enumerator drops them).
-``shards > 1`` raises ``NotImplementedError``.
+The solve-mesh width ``shards`` reaches the fused max, cap and DPccp
+programs (the host enumerator drops it; the host loops raise on
+``shards > 1``, as in the reference).
 """
 from __future__ import annotations
 
@@ -42,12 +44,6 @@ class PlanResult:
     meta: dict
 
 
-def _ported(kw: dict) -> None:
-    """Raise for a solve mesh wider than one device, which the port does
-    not carry yet; drop ``shards`` otherwise."""
-    engine_mod.reject_unported(int(kw.pop("shards", 1) or 1))
-
-
 def _fusable_out(q: QueryGraph) -> bool:
     return (q.n >= 2 and not q.hyperedges
             and q.is_connected(q.full_mask))
@@ -56,7 +52,6 @@ def _fusable_out(q: QueryGraph) -> bool:
 def optimize(q: QueryGraph, card, cost: str = "max",
              method: str = "dpconv", extract_tree: bool = True,
              **kw) -> PlanResult:
-    _ported(kw)
     n = q.n
     if cost == "max":
         if method == "dpconv":
@@ -91,6 +86,9 @@ def optimize(q: QueryGraph, card, cost: str = "max",
         if method == "dpccp":
             engine = kw.pop("engine", "host")
             device = kw.pop("device", None)
+            # the solve-mesh width rides the fused path only; the host
+            # enumerator has no device to shard
+            shards = int(kw.pop("shards", 1) or 1)
             # value seeds ride the fused path only: the host enumerator
             # has no slot for them, so they are dropped, never an error
             seed_vals = kw.pop("seed_vals", None)
@@ -101,7 +99,7 @@ def optimize(q: QueryGraph, card, cost: str = "max",
             if engine == "fused" and not kw and _fusable_out(q):
                 fo = engine_mod.fused_out(
                     [q], card[None, :], n, extract_tree=extract_tree,
-                    seed_vals=None if seed_vals is None
+                    shards=shards, seed_vals=None if seed_vals is None
                     else np.asarray(seed_vals, np.float64)[None, :],
                     seed_ok=None if seed_ok is None
                     else np.asarray(seed_ok, bool)[None, :],
@@ -150,7 +148,6 @@ def optimize_batch(qs, cards, cost: str = "max", method: str = "dpconv",
     are bit-identical to B single ``optimize`` calls.  Every other pair,
     and mixed-``n`` batches, loop per query.
     """
-    _ported(kw)
     qs = list(qs)
     cards = [host_cards(c) for c in cards]
     same_n = len(qs) > 1 and len({q.n for q in qs}) == 1
@@ -163,11 +160,13 @@ def optimize_batch(qs, cards, cost: str = "max", method: str = "dpconv",
                             "dispatches": r.dispatches,
                             "batched": True}) for r in rs]
     if (cost == "out" and method == "dpccp" and same_n and dp_fn is None
-            and set(kw) <= {"engine", "device", "seed_vals", "seed_ok"}
+            and set(kw) <= {"engine", "device", "shards", "seed_vals",
+                            "seed_ok"}
             and kw.get("engine") == "fused"
             and all(_fusable_out(q) for q in qs)):
         fo = engine_mod.fused_out(qs, np.stack(cards), qs[0].n,
                                   extract_tree=extract_tree,
+                                  shards=int(kw.get("shards", 1) or 1),
                                   seed_vals=kw.get("seed_vals"),
                                   seed_ok=kw.get("seed_ok"),
                                   device=kw.get("device"))

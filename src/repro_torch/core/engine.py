@@ -39,6 +39,17 @@ sync); ``seed_vals``/``seed_ok`` in ``fused_out`` run the ``out_seeded``
 program, which replays cached sub-table values in its sweep.  Results
 are bit-identical with or without seeds.
 
+Sharding (``shards = D > 1``): the solve runs over the D-device solve
+mesh of ``solve_mesh`` (``launch.mesh``) led by ``device``; the direct
+layers of the search and every (min,+) layer partition their sets over
+the mesh, each shard's block landing in one layer on the lead device
+(``core.lattice``).  Still one program call, with the same inputs,
+outputs and results.  The mesh's width and its device names extend the
+program-cache key, so programs of different meshes never alias, and
+each ``DispatchRecord`` carries them
+(``shards``, ``devices``: one name per mesh slot).  ``sharded_ceiling``
+says how far a D-way mesh lifts the server's fused cap/out ceilings.
+
 Exactness: as in the reference — feasibility values are exact {0,1}
 counts (f64 to n = 26 on the ``f64`` tier, int32 to n = 15 on the
 ``cuda`` tier), the G = 1 probe sequence is the host loop's pivot
@@ -62,6 +73,7 @@ from repro_torch.core import jointree, lattice
 from repro_torch.core.bitset import popcounts
 from repro_torch.core.dpccp import connectivity_masks
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.obs import metrics as obs_metrics
 
 
@@ -123,8 +135,8 @@ class DispatchRecord:
     rounds: int = 0            # search rounds (filled after the solve)
     flops: float = 0.0         # the port's work count (``program_work``)
     bytes_accessed: float = 0.0
-    shards: int = 1            # solve-mesh width (always 1 in the port)
-    devices: tuple = ()        # (the torch device's name,)
+    shards: int = 1            # solve-mesh width (1 = single device)
+    devices: tuple = ()        # one device name per mesh slot
     lane: "int | None" = None  # serving lane that issued the dispatch
 
     def as_dict(self) -> dict:
@@ -300,30 +312,74 @@ def _pad_candidates(cards: np.ndarray, n: int):
     return _pad_rows(cards, Bp), cand_pad, hi0, Bp, C
 
 
+_SOLVE_MESHES: dict = {}
+
+
+def solve_mesh(shards: int, device=None) -> tuple:
+    """The cached 1-D solve mesh of ``shards`` devices led by ``device``
+    (CUDA unless given; one per width, lead device and forced device
+    count)."""
+    lead = mesh_mod.lead_device(device)
+    key = (int(shards), str(lead), mesh_mod.forced_device_count())
+    m = _SOLVE_MESHES.get(key)
+    if m is None:
+        m = _SOLVE_MESHES[key] = mesh_mod.make_solve_mesh(shards, lead)
+    return m
+
+
+def _mesh_identity(shards: int, device) -> tuple:
+    """The device identity appended to every program-cache key and
+    stamped on ``DispatchRecord.devices``: one device name per mesh slot,
+    ``(str(device),)`` for a single-device solve.  Sharded and
+    single-device programs, or one width on different devices, never
+    alias."""
+    if shards > 1:
+        return mesh_mod.mesh_fingerprint(solve_mesh(shards, device))
+    return (str(torch.device(device)),)
+
+
+def sharded_ceiling(base_n: int, shards: int) -> int:
+    """How far a D-way solve mesh lifts a fused-tier ``n`` ceiling.
+
+    The ceiling is per-device memory on the dominant (min,+) layer
+    tensor ``C(n,k)·2^k`` ≈ 3^n/√n; sharding divides it by D, and each
+    +1 in n multiplies it by 3, so D devices buy ~log₃(D) extra
+    relations; claim a conservative +1 per doubling, clamped at the
+    int32 and extraction tier bound n = 15 (as the reference does).
+    """
+    if shards <= 1:
+        return base_n
+    return min(base_n + max(0, int(shards).bit_length() - 1), 15)
+
+
 def get_program(n: int, B: int, C: int, tier: str, direct_layers: int,
                 extract: bool, gamma_batch: int, device: torch.device,
-                cost: str = "max"):
+                cost: str = "max", shards: int = 1):
     """The whole-solve program of one bucket, keyed by ``(n, B, C, tier,
-    direct_layers, extract, cost, gamma_batch, device)``; it keeps its
-    static device tables across calls.  ``cost`` is ``"max"``, ``"cap"``,
-    ``"cap_conn"`` (pass 2 under connected-split masks) or ``"out"``
-    (keyed with ``C = 0``, tier ``"f64"`` and G = 1: it searches
-    nothing), each with an optional ``"_seeded"`` suffix: the warm-start
-    variant, in a slot of its own."""
+    direct_layers, extract, cost, gamma_batch, device, shards,
+    mesh identity)``; it keeps its static device tables across calls.
+    ``cost`` is ``"max"``, ``"cap"``, ``"cap_conn"`` (pass 2 under
+    connected-split masks) or ``"out"`` (keyed with ``C = 0``, tier
+    ``"f64"`` and G = 1: it searches nothing), each with an optional
+    ``"_seeded"`` suffix: the warm-start variant, in a slot of its own.
+    ``shards > 1`` builds the program over ``solve_mesh(shards,
+    device)``."""
     return _program(n, B, C, tier, direct_layers, extract, gamma_batch,
-                    device, cost)[0]
+                    device, cost, shards)[0]
 
 
 def _program(n: int, B: int, C: int, tier: str, direct_layers: int,
-             extract: bool, gamma_batch: int, device, cost: str):
+             extract: bool, gamma_batch: int, device, cost: str,
+             shards: int = 1):
     """Cache lookup, and on a miss the build: ``(fn, meta, hit)``.  A
     miss calls the compile-fault hook, builds the program and touches it
     once (``_first_touch``) under one lock, so two lanes never build one
     bucket twice and nobody runs a program before its tables exist.
-    ``meta`` carries the key and the build seconds."""
+    ``meta`` carries the key, the mesh and the build seconds."""
     device = torch.device(device)
+    shards = max(1, int(shards))
     key = (n, B, C, tier, direct_layers, bool(extract), cost, gamma_batch,
-           str(device))
+           str(device), shards, _mesh_identity(shards, device))
     fn = _PROGRAMS.get(key)
     if fn is None:
         with _BUILD_LOCK:
@@ -336,28 +392,34 @@ def _program(n: int, B: int, C: int, tier: str, direct_layers: int,
 
 def _build(key: tuple, device: torch.device):
     """Build one bucket's program (the caller holds ``_BUILD_LOCK``)."""
-    n, B, C, tier, direct_layers, extract, cost, gamma_batch, _ = key
+    (n, B, C, tier, direct_layers, extract, cost, gamma_batch, _, shards,
+     devs) = key
     if _COMPILE_FAULT_HOOK is not None:
         _COMPILE_FAULT_HOOK(n=n, B=B, C=C, backend=tier, cost=cost)
     _STATS.inc("exec_cache_misses")
     t0 = time.perf_counter()  # timing: measured-duration (build wall)
     seeded = cost.endswith("_seeded")
     base = cost[:-len("_seeded")] if seeded else cost
+    mesh = solve_mesh(shards, device) if shards > 1 else None
     if base == "max":
         fn = lattice.build_max_program(n, direct_layers, tier, extract,
-                                       gamma_batch, seeded=seeded)
+                                       gamma_batch, shards=shards,
+                                       mesh=mesh, seeded=seeded)
     elif base in ("cap", "cap_conn"):
         fn = lattice.build_cap_program(n, direct_layers, tier, extract,
                                        gamma_batch,
                                        connected=base == "cap_conn",
+                                       shards=shards, mesh=mesh,
                                        seeded=seeded)
     elif base == "out":
-        fn = lattice.build_out_program(n, extract, seeded=seeded)
+        fn = lattice.build_out_program(n, extract, shards=shards, mesh=mesh,
+                                       seeded=seeded)
     else:
         raise ValueError(f"unknown fused cost {cost!r}")
     _first_touch(fn, base, seeded, n, B, C, device)
-    _sync(device)
-    meta = {"key": key, "devices": (str(device),),
+    for d in dict.fromkeys(mesh or (device,)):
+        _sync(d)
+    meta = {"key": key, "shards": shards, "devices": devs,
             # timing: measured-duration (program build + first touch)
             "compile_s": time.perf_counter() - t0}
     _PROGRAMS[key] = fn
@@ -420,6 +482,9 @@ def program_work(n: int, B: int, C: int, cost: str, tier: str,
       read and the value table written once;
     * the extraction scan: 2n-1 slots, 8 operations per cell and slot;
     * the program's own inputs and outputs, once.
+
+    The count is the unsharded program's whatever the mesh: a sharded
+    solve's replica and peer copies are not counted.
     """
     N = 1 << n
     seeded = cost.endswith("_seeded")
@@ -467,13 +532,14 @@ def program_work(n: int, B: int, C: int, cost: str, tier: str,
 
 def prewarm(ns, max_batch: int = 16, backend: str = "f64",
             direct_layers: int = 4, costs=("max",), gamma_batch: int = 1,
-            extract: bool = True, device=None) -> dict:
+            extract: bool = True, device=None, shards: int = 1) -> dict:
     """Build and first-touch the program buckets a server configured for
     ``ns`` can hit, before traffic arrives: for each ``n``, every
     power-of-two batch bucket up to ``max_batch`` at the canonical
-    candidate bucket (``"out"``: ``C = 0``, the f64 tier, G = 1).  On a
-    CUDA device the kernel library is built first.  Returns
-    ``{"compiled": k, "seconds": s}``; buckets already built are free."""
+    candidate bucket (``"out"``: ``C = 0``, the f64 tier, G = 1), over a
+    ``shards``-wide solve mesh.  On a CUDA device the kernel library is
+    built first.  Returns ``{"compiled": k, "seconds": s}``; buckets
+    already built are free."""
     dev = resolve_device(device)
     t0 = time.perf_counter()  # timing: measured-duration (prewarm wall)
     if dev.type == "cuda":
@@ -485,11 +551,12 @@ def prewarm(ns, max_batch: int = 16, backend: str = "f64",
         while b <= max_batch:
             for cost in costs:
                 if cost in ("out", "out_seeded"):
-                    _program(n, b, 0, "f64", 4, extract, 1, dev, cost)
+                    _program(n, b, 0, "f64", 4, extract, 1, dev, cost,
+                             shards)
                 else:
                     _program(n, b, candidate_bucket(n), backend,
                              direct_layers, extract, gamma_batch, dev,
-                             cost)
+                             cost, shards)
             b *= 2
     compiled = _STATS.exec_cache_misses - before
     _STATS.inc("prewarmed", compiled)
@@ -500,8 +567,9 @@ def prewarm(ns, max_batch: int = 16, backend: str = "f64",
 
 def _run(fn, args, record: DispatchRecord):
     """The single recording site of a solve: one program call, counted
-    as one dispatch, timed to a finished device result, with its record
-    appended to the profile ring."""
+    as one dispatch, timed to a finished device result (on the lead
+    device, where every shard's block lands), with its record appended to the
+    profile ring."""
     _STATS.inc("dispatches")
     dev = args[0].device
     t0 = time.perf_counter()  # timing: measured-duration (execute wall)
@@ -517,8 +585,8 @@ def _record(cost: str, n: int, Bp: int, C: int, tier: str, meta: dict,
     return DispatchRecord(seq=0, cost=cost, n=n, B=Bp, C=C, backend=tier,
                           key=meta["key"], aot_cache_hit=hit,
                           compile_s=0.0 if hit else meta["compile_s"],
-                          execute_s=0.0, devices=meta["devices"],
-                          lane=current_lane())
+                          execute_s=0.0, shards=meta["shards"],
+                          devices=meta["devices"], lane=current_lane())
 
 
 def _finish_record(rec: DispatchRecord, rounds: int, gamma_batch: int,
@@ -558,13 +626,6 @@ def _connectivity(qs, B: int, what: str) -> np.ndarray:
                          "excludes cross products); route disconnected "
                          "queries to the full-lattice pipelines")
     return conn
-
-
-def reject_unported(shards: int) -> None:
-    """Raise for what the port does not carry yet: a solve mesh wider
-    than one device."""
-    if shards != 1:
-        raise NotImplementedError("shards > 1 is not ported yet")
 
 
 def _seed_bracket(cand_pad: np.ndarray, hi0: np.ndarray, seed_opt,
@@ -625,7 +686,9 @@ def fused_dpconv_max(cards, n: int, direct_layers: int = 4,
     ``cards`` is (B, 2^n) (numpy or tensor).  ``backend`` is the
     transform tier (``"f64"`` or ``"cuda"``), ``gamma_batch = G > 1``
     probes G thresholds per round ((G+1)-ary search).  Optima and trees
-    are bit-identical to B host-loop ``dpconv_max`` calls.
+    are bit-identical to B host-loop ``dpconv_max`` calls.  ``shards = D
+    > 1`` runs the program over the D-device solve mesh led by
+    ``device`` (still one program call, the same results).
 
     ``seed_opt`` — per-row cached optima from the layer cache (None
     entries cold): if any matches, the ``max_seeded`` program verifies
@@ -633,7 +696,6 @@ def fused_dpconv_max(cards, n: int, direct_layers: int = 4,
     of ~log2 C when the seed holds); results are bit-identical either
     way.
     """
-    reject_unported(shards)
     dev = resolve_device(device)
     cards = host_cards(cards)
     if cards.ndim == 1:
@@ -647,7 +709,7 @@ def fused_dpconv_max(cards, n: int, direct_layers: int = 4,
     lo0, hi0, seeded = _seed_bracket(cand_pad, hi0, seed_opt, B)
     cost = "max_seeded" if seeded else "max"
     fn, meta, hit = _program(n, Bp, C, backend, direct_layers, extract_tree,
-                             gamma_batch, dev, cost)
+                             gamma_batch, dev, cost, shards)
     prof = _record(cost, n, Bp, C, backend, meta, hit)
     rec0 = jointree.recursive_extractions()
     out = _run(fn, (torch.as_tensor(cards_pad, device=dev),
@@ -689,7 +751,8 @@ def fused_out(qs: list, cards, n: int, extract_tree: bool = True,
     the connected-subset masks are a program input), ``cards`` is
     (B, 2^n).  Every graph must be connected and simple-edge, else
     ``ValueError``.  Optima, DP tables and trees are bit-identical to B
-    ``dpccp_with_tree`` calls.
+    ``dpccp_with_tree`` calls.  ``shards = D > 1`` runs the sweep over
+    the D-device solve mesh led by ``device``.
 
     ``seed_vals``/``seed_ok`` — (B, 2^n) cached sub-table values and
     their validity mask from the layer cache: if any row has one, the
@@ -698,7 +761,6 @@ def fused_out(qs: list, cards, n: int, extract_tree: bool = True,
     pure function of the sub-problem induced on ``S``, so results never
     change.
     """
-    reject_unported(shards)
     dev = resolve_device(device)
     cards = host_cards(cards)
     if cards.ndim == 1:
@@ -719,7 +781,8 @@ def fused_out(qs: list, cards, n: int, extract_tree: bool = True,
         extra = (torch.as_tensor(sv, device=dev),
                  torch.as_tensor(so, device=dev))
     cost = "out_seeded" if seeded else "out"
-    fn, meta, hit = _program(n, Bp, 0, "f64", 4, extract_tree, 1, dev, cost)
+    fn, meta, hit = _program(n, Bp, 0, "f64", 4, extract_tree, 1, dev, cost,
+                             shards)
     prof = _record(cost, n, Bp, 0, "f64", meta, hit)
     rec0 = jointree.recursive_extractions()
     out = _run(fn, (torch.as_tensor(_pad_rows(cards, Bp), device=dev),
@@ -761,13 +824,14 @@ def fused_ccap(cards, n: int, gamma_slack: float = 1.0,
     ``dpconv_max`` + ``dpccp(prune_gamma=gamma)``; it requires connected
     simple-edge graphs.  A cap the connected space cannot attain yields
     ``cout = +inf``; the caller decides whether that is an error.
+    ``shards = D > 1`` runs both passes over the D-device solve mesh led
+    by ``device``.
 
     ``seed_opt`` — per-row cached C_max optima warm-starting the pass-1
     bracket exactly as in ``fused_dpconv_max``, verification included:
     at the default slack pass 1 yields the cached value bitwise, so max-
     and cap-lane solves of one canonical query seed each other.
     """
-    reject_unported(shards)
     dev = resolve_device(device)
     cards = host_cards(cards)
     if cards.ndim == 1:
@@ -788,7 +852,7 @@ def fused_ccap(cards, n: int, gamma_slack: float = 1.0,
     if seeded:
         cost += "_seeded"
     fn, meta, hit = _program(n, Bp, C, backend, direct_layers, extract_tree,
-                             gamma_batch, dev, cost)
+                             gamma_batch, dev, cost, shards)
     prof = _record(cost, n, Bp, C, backend, meta, hit)
     rec0 = jointree.recursive_extractions()
     out = _run(fn, (torch.as_tensor(cards_pad, device=dev),

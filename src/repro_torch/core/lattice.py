@@ -43,14 +43,30 @@ Warm starts, as in the reference: ``feasibility_layers(seed_layers=)``
 replays a solved layer prefix, ``minplus_connected_layers(seed_vals=,
 seed_ok=)`` replays cached sub-table values, and the ``seeded`` program
 variants verify a cached C_max optimum with one dual probe before the
-search (``_fused_search(verify_seed=True)``).  Held over to a later
-slice: sharded sweeps (the entry points raise on ``shards > 1``).
+search (``_fused_search(verify_seed=True)``).
+
+Sharding, as in the reference's ``shard_map`` programs: a program built
+with ``shards = D`` and a solve mesh (``launch.mesh``, a tuple of D
+devices, lead first) partitions the sets axis of every direct layer —
+the feasibility recursion's direct layers and every layer of the (min,+)
+sweeps — into D blocks of consecutive rows, the reference's blocks less
+its pad rows.  One controller drives the mesh: inputs and outputs stay
+on the lead device, which runs everything replicated (the middle layers'
+transforms, gates, search, extraction).  In a sharded layer shard d
+evaluates its block in row-chunks on its device, from its replica of
+``dp``, and its values are written at its own sets of one layer on the
+lead device.  The blocks are disjoint, so this is what the reference's
+``psum`` of zero-filled partials (``pmin`` of +inf-filled ones) gives,
+without D full-size partials, their merge or pad rows; per set the whole
+split axis stays on one shard, so results are bitwise those of the
+unsharded sweep.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 
 from repro_torch.core.bitset import layer_indices, popcounts, submask_table
@@ -124,6 +140,78 @@ def direct_layer_tables(n: int, k: int, device):
         for a in direct_layer_indices(n, k)))
 
 
+# The sharded layer sweeps gather at most this many elements per batch
+# row per chunk (rows_per_chunk = SHARD_CHUNK_ELEMS >> k), bounding the
+# (..., rows, 2^k) working set on each device regardless of layer width.
+SHARD_CHUNK_ELEMS = 1 << 21
+
+
+def shard_block(m: int, shards: int) -> int:
+    """Rows of each shard's block when ``m`` layer rows split ``shards``
+    ways (the last block may be shorter, or empty)."""
+    return -(-m // shards)
+
+
+@functools.lru_cache(maxsize=128)
+def sharded_layer_indices(n: int, k: int, shards: int):
+    """The reference's padded layout of ``direct_layer_indices``: the
+    sets axis padded so it splits into ``shards`` equal blocks (shard d
+    takes rows [d*blk, (d+1)*blk)), pad rows pointing at index 0 (the
+    empty set).  The sharded sweeps take the same blocks less the pad
+    rows (``_shard_chunks``).  Returns (sets, subs, comps, blk), numpy."""
+    sets, subs, comps = direct_layer_indices(n, k)
+    m = sets.shape[0]
+    blk = shard_block(m, shards)
+    pad = blk * shards - m
+    if pad:
+        sets = np.concatenate([sets, np.zeros(pad, sets.dtype)])
+        subs = np.concatenate(
+            [subs, np.zeros((pad, subs.shape[1]), subs.dtype)])
+        comps = np.concatenate(
+            [comps, np.zeros((pad, comps.shape[1]), comps.dtype)])
+    return (sets, subs, comps, blk)
+
+
+def _shard_chunks(n: int, k: int, mesh, chunk: int):
+    """Every shard's row-chunks of the layer-k gather tables, shard by
+    shard: yields ``(device, lead_sets, (sets, subs, comps))`` for chunks
+    of at most ``chunk >> k`` rows of shard d's block, ``lead_sets`` the
+    chunk's sets on the lead device and the tables on ``mesh[d]``.  A
+    shard on the lead device slices the lead's tables; a shard on
+    another device holds a copy of its own block only."""
+    lead = mesh[0]
+    tables = direct_layer_tables(n, k, lead)
+    m = tables[0].shape[0]
+    blk = shard_block(m, len(mesh))
+    rows = max(1, chunk >> k)
+    for d, dev in enumerate(mesh):
+        lo_d, hi_d = d * blk, min((d + 1) * blk, m)
+        if lo_d >= hi_d:
+            continue
+        own, off = tables, 0
+        if dev != lead:
+            own = _on_device(("shard", n, k, len(mesh), d, str(dev)),
+                             lambda: tuple(t[lo_d:hi_d].to(dev)
+                                           for t in tables))
+            off = lo_d
+        for lo in range(lo_d, hi_d, rows):
+            hi = min(lo + rows, hi_d)
+            yield dev, tables[0][lo:hi], tuple(t[lo - off:hi - off]
+                                               for t in own)
+
+
+def _replicas(mesh, *tensors) -> dict:
+    """``tensors`` on each distinct device of ``mesh``: the given
+    storage where it already lies, a (peer) copy elsewhere.  A mesh that
+    repeats one device copies nothing."""
+    out: dict = {}
+    for dev in mesh:
+        if dev not in out:
+            out[dev] = tuple(t if t.device == dev else t.to(dev)
+                             for t in tensors)
+    return out
+
+
 # ------------------------------------------------------ layer primitives
 def direct_layer_full(dp, gate, n: int, k: int, pc, dtype):
     """Layer k by gather-based split enumeration (paper Sec. 6): full
@@ -133,6 +221,25 @@ def direct_layer_full(dp, gate, n: int, k: int, pc, dtype):
     layer_ind = (prod.sum(dim=-1) > 0.5).to(dtype)
     layer_full = torch.zeros(dp.shape, dtype=dtype, device=dp.device)
     layer_full[..., sets] = layer_ind
+    layer_full = layer_full * gate
+    return torch.where(pc == k, layer_full, torch.zeros((), dtype=dtype,
+                                                        device=dp.device))
+
+
+def direct_layer_full_sharded(dp, gate, n: int, k: int, pc, dtype, mesh,
+                              chunk: int = SHARD_CHUNK_ELEMS):
+    """``direct_layer_full`` over a solve mesh: each shard evaluates its
+    block of layer-k sets (chunked gathers) from its replica of ``dp``,
+    and its indicators are written at its own sets of one zero layer on
+    the lead device (the reference's ``psum`` of disjoint blocks).
+    ``dp`` is only read.  Bit-identical to the unsharded form."""
+    dps = _replicas(mesh, dp)
+    layer_full = torch.zeros(dp.shape, dtype=dtype, device=dp.device)
+    for dev, ss, (sets, subs, comps) in _shard_chunks(n, k, mesh, chunk):
+        dpd = dps[dev][0]
+        prod = dpd[..., subs] * dpd[..., comps]    # (..., rows, 2^k)
+        layer_full[..., ss] = (prod.sum(dim=-1) > 0.5).to(dtype).to(
+            dp.device)
     layer_full = layer_full * gate
     return torch.where(pc == k, layer_full, torch.zeros((), dtype=dtype,
                                                         device=dp.device))
@@ -179,7 +286,8 @@ def feasibility_layers(gate, n: int, direct_layers: int = 4,
                        tfm: "Transforms | None" = None,
                        final_shortcut: bool = True,
                        Z=None, scan_middle: bool = False,
-                       seed_layers=None):
+                       seed_layers=None, mesh=None,
+                       shard_chunk: int = SHARD_CHUNK_ELEMS):
     """One full layered feasibility DP under ``gate`` (paper Sec. 5 + 6).
 
     Returns ``(dp, Z, feas)``: the accumulated feasibility table, the
@@ -204,6 +312,11 @@ def feasibility_layers(gate, n: int, direct_layers: int = 4,
     transfers exactly when the gate over sets of size ``<= k0`` matches
     the run that produced it; seeded and cold runs are then
     bit-identical.
+
+    ``mesh`` (a solve mesh, lead device first) partitions the *direct*
+    layers' gather sweep across its devices, one sum per layer
+    (``direct_layer_full_sharded``).  The transform layers stay on the
+    lead device: a zeta transform reads the whole lattice.
     """
     tfm = tfm or transforms("f64")
     size = 1 << n
@@ -234,7 +347,11 @@ def feasibility_layers(gate, n: int, direct_layers: int = 4,
                 tfm.zeta(layer_full, out=Z[k])
         start_k = max(2, k0 + 1)
     for k in range(start_k, dl + 1):           # direct small layers
-        layer_full = direct_layer_full(dp, gate, n, k, pc, dtype)
+        if mesh is not None:
+            layer_full = direct_layer_full_sharded(dp, gate, n, k, pc,
+                                                   dtype, mesh, shard_chunk)
+        else:
+            layer_full = direct_layer_full(dp, gate, n, k, pc, dtype)
         dp = dp + layer_full
         if k < n:
             tfm.zeta(layer_full, out=Z[k])
@@ -271,7 +388,42 @@ def _minplus_init(card, n: int):
     return dp.expand(card.shape).contiguous()
 
 
-def minplus_value_layers(card, gate_ok, n: int):
+def _minplus_sweep(card, n: int, layer, inputs: tuple, mesh, chunk: int):
+    """The layer loop of both (min,+) sweeps: ``layer(dp, sets, subs,
+    comps, *inputs)`` gives layer k's values at ``sets`` from the gather
+    tables of those rows, and they are written into ``dp``.  Over a mesh
+    each shard evaluates its row-chunks on its device, from a replica of
+    ``dp`` taken at the layer's start (the lead shard reads ``dp``
+    itself), and its values are written at its own sets on the lead
+    device (the reference's ``pmin`` of disjoint blocks).  Layer k reads
+    only sets smaller than k, so no shard sees another's writes."""
+    dp = _minplus_init(card, n)
+    if mesh is None:
+        for k in range(2, n + 1):
+            sets, subs, comps = direct_layer_tables(n, k, card.device)
+            dp[..., sets] = layer(dp, sets, subs, comps, *inputs)
+        return dp
+    static = _replicas(mesh, *inputs)
+    for k in range(2, n + 1):
+        dps = _replicas(mesh, dp)
+        for dev, ss, tabs in _shard_chunks(n, k, mesh, chunk):
+            dp[..., ss] = layer(dps[dev][0], *tabs, *static[dev]).to(
+                dp.device)
+    return dp
+
+
+def _value_layer(dp, sets, subs, comps, card, gate_ok):
+    """Layer values of the (min,+) value sweep at ``sets``."""
+    combo = dp[..., subs]                              # (..., m, 2^k)
+    combo += dp[..., comps]
+    val = combo.amin(dim=-1)
+    del combo
+    val += card[..., sets]
+    return val.masked_fill_(~gate_ok[..., sets], float("inf"))
+
+
+def minplus_value_layers(card, gate_ok, n: int, mesh=None,
+                         shard_chunk: int = SHARD_CHUNK_ELEMS):
     """DPsub[out]'s recursion as a dense layer program — the C_cap pass 2.
 
     ``dp[S] = c(S) + min_T (dp[T] + dp[S\\T])`` for gated sets
@@ -283,22 +435,38 @@ def minplus_value_layers(card, gate_ok, n: int):
     c(S)`` matches.
 
     ``card`` (..., 2^n) f64; ``gate_ok`` boolean, same shape.
+
+    ``mesh`` partitions each layer's sets axis across the solve mesh:
+    every shard computes its block of layer-k sets in row-chunks (the
+    dominant ``C(n,k)·2^k`` split tensor shrinks to a chunk per device)
+    and its values land at its own sets on the lead device.  Per set the
+    full 2^k split axis stays on one shard (same min, same add
+    association), so the sweep stays bit-identical.
     """
+    return _minplus_sweep(card, n, _value_layer, (card, gate_ok), mesh,
+                          shard_chunk)
+
+
+def _connected_layer(dp, sets, subs, comps, card, conn, seed_vals=None,
+                     seed_ok=None):
+    """Layer values of the connected (min,+) sweep at ``sets``."""
     inf = float("inf")
-    dp = _minplus_init(card, n)
-    for k in range(2, n + 1):
-        sets, subs, comps = direct_layer_tables(n, k, card.device)
-        combo = dp[..., subs]                          # (..., m, 2^k)
-        combo += dp[..., comps]
-        val = combo.amin(dim=-1)
-        del combo
-        val += card[..., sets]
-        dp[..., sets] = val.masked_fill_(~gate_ok[..., sets], inf)
-    return dp
+    split_ok = conn[..., subs]                         # (..., m, 2^k)
+    split_ok &= conn[..., comps]
+    combo = dp[..., subs]
+    combo += dp[..., comps]
+    val = combo.masked_fill_(~split_ok, inf).amin(dim=-1)
+    del combo, split_ok
+    val += card[..., sets]
+    val.masked_fill_(~conn[..., sets], inf)
+    if seed_ok is not None:
+        val = torch.where(seed_ok[..., sets], seed_vals[..., sets], val)
+    return val
 
 
 def minplus_connected_layers(card, conn, n: int, seed_vals=None,
-                             seed_ok=None):
+                             seed_ok=None, mesh=None,
+                             shard_chunk: int = SHARD_CHUNK_ELEMS):
     """DPccp's recursion as a dense layer program — the connectivity-
     masked C_out sweep.
 
@@ -321,23 +489,14 @@ def minplus_connected_layers(card, conn, n: int, seed_vals=None,
     function of the sub-problem induced on ``S``, so a seed taken from a
     solve whose induced sub-problem is a byte-exact relabeling transfers
     bitwise, and seeded sweeps stay bit-identical to cold ones.
+
+    ``mesh`` partitions the sets axis exactly as in
+    ``minplus_value_layers``; the valid-split masks are then only ever
+    built for a shard's own block.
     """
-    inf = float("inf")
-    dp = _minplus_init(card, n)
-    for k in range(2, n + 1):
-        sets, subs, comps = direct_layer_tables(n, k, card.device)
-        split_ok = conn[..., subs]                     # (..., m, 2^k)
-        split_ok &= conn[..., comps]
-        combo = dp[..., subs]
-        combo += dp[..., comps]
-        val = combo.masked_fill_(~split_ok, inf).amin(dim=-1)
-        del combo, split_ok
-        val += card[..., sets]
-        val.masked_fill_(~conn[..., sets], inf)
-        if seed_vals is not None:
-            val = torch.where(seed_ok[..., sets], seed_vals[..., sets], val)
-        dp[..., sets] = val
-    return dp
+    seeds = () if seed_ok is None else (seed_vals, seed_ok)
+    return _minplus_sweep(card, n, _connected_layer, (card, conn) + seeds,
+                          mesh, shard_chunk)
 
 
 # ------------------------------------------------------ probe strategies
@@ -418,6 +577,23 @@ def extract_scan(dp, n: int, card=None):
 
 
 # --------------------------------------------- whole-solve program
+def _solve_axis(shards: int, mesh) -> "tuple | None":
+    """The solve mesh a sharded program partitions over, as a tuple of
+    devices, or None for the single-device build.  ``shards`` and
+    ``mesh`` travel together: the engine resolves ``shards ->
+    launch.mesh.make_solve_mesh(shards)`` and the builders check that
+    they agree."""
+    if shards <= 1 and mesh is None:
+        return None
+    if mesh is None:
+        raise ValueError(f"shards={shards} needs a solve mesh")
+    mesh = tuple(torch.device(d) for d in mesh)
+    if len(mesh) != shards:
+        raise ValueError(f"a mesh of {len(mesh)} devices does not match "
+                         f"shards={shards}")
+    return mesh
+
+
 def _search_state(B: int, n: int, tfm: Transforms, G: int, device):
     """Initial ranked-zeta buffer of the lockstep search: zeros with the
     singleton transform in slot 1; a leading probe axis for G > 1."""
@@ -442,7 +618,8 @@ def _gate_builder(cards, pc, dtype):
 
 
 def _fused_search(cards, cand, lo0, hi0, n, direct_layers, tfm, G,
-                  gate_of, Z0, verify_seed: bool = False, Zv=None):
+                  gate_of, Z0, verify_seed: bool = False, Zv=None,
+                  mesh=None):
     """The whole-solve lockstep (G+1)-ary search: each round builds its G
     gates and runs the layered DP on the carried buffer ``Z0`` (updated
     in place).  Returns ``(hi, Z, rounds, syncs)`` with cand[hi]
@@ -460,7 +637,10 @@ def _fused_search(cards, cand, lo0, hi0, n, direct_layers, tfm, G,
     sync.  The extraction pass rebuilds every Z slot >= 2 at the
     optimum's gate, so results are bit-identical to the cold search.
     The caller keeps the invariant: cand[hi0] is feasible and no
-    candidate below ``max(lo0, 0)`` is."""
+    candidate below ``max(lo0, 0)`` is.
+
+    Under ``mesh`` the direct layers of every round shard their gather
+    sweep; the bracket state stays on the lead device."""
     dl = min(direct_layers, n - 1)
     lo, hi, Z = lo0, hi0, Z0
     rounds = syncs = 0
@@ -472,7 +652,7 @@ def _fused_search(cards, cand, lo0, hi0, n, direct_layers, tfm, G,
         piv = torch.where(has[None, :], piv, hi[None, :])
         gamma = torch.gather(cand, 1, piv.T).T
         _, _, ok = feasibility_layers(gate_of(gamma), n, dl, tfm, True,
-                                      Z=Zv, scan_middle=True)
+                                      Z=Zv, scan_middle=True, mesh=mesh)
         lo, hi = bracket_update(lo, hi, piv, ok, has)
         rounds = 1                       # the verification sweep is paid
     while True:
@@ -484,7 +664,7 @@ def _fused_search(cards, cand, lo0, hi0, n, direct_layers, tfm, G,
             mid = torch.where(active, (lo + hi) // 2, hi)
             gamma = torch.gather(cand, 1, mid[:, None])[:, 0]
             _, Z, ok = feasibility_layers(gate_of(gamma), n, dl, tfm, True,
-                                          Z=Z, scan_middle=True)
+                                          Z=Z, scan_middle=True, mesh=mesh)
             hi = torch.where(active & ok, mid, hi)
             lo = torch.where(active & ~ok, mid + 1, lo)
         else:
@@ -492,14 +672,14 @@ def _fused_search(cards, cand, lo0, hi0, n, direct_layers, tfm, G,
             piv = torch.where(active[None, :], piv, hi[None, :])
             gamma = torch.gather(cand, 1, piv.T).T
             _, Z, ok = feasibility_layers(gate_of(gamma), n, dl, tfm, True,
-                                          Z=Z, scan_middle=True)
+                                          Z=Z, scan_middle=True, mesh=mesh)
             lo, hi = bracket_update(lo, hi, piv, ok, active)
         rounds += 1
     return hi, Z, rounds, syncs
 
 
 def _searcher(n: int, direct_layers: int, tfm: Transforms, G: int,
-              seeded: bool = False):
+              seeded: bool = False, mesh=None):
     """The lockstep search of a whole-solve program: ``search(cards,
     cand, lo0, hi0) -> (gate_of, hi, Z, rounds, syncs)``.  It keeps the
     initial ranked-zeta buffers of its first call (static tables of
@@ -518,14 +698,14 @@ def _searcher(n: int, direct_layers: int, tfm: Transforms, G: int,
         Zv = state["Zv"].clone() if seeded else None
         return (gate_of,) + _fused_search(
             cards, cand, lo0, hi0, n, direct_layers, tfm, G, gate_of,
-            state["Z0"].clone(), verify_seed=seeded, Zv=Zv)
+            state["Z0"].clone(), verify_seed=seeded, Zv=Zv, mesh=mesh)
 
     return search
 
 
 def build_max_program(n: int, direct_layers: int, tier: str,
                       extract: bool, gamma_batch: int = 1,
-                      seeded: bool = False):
+                      shards: int = 1, mesh=None, seeded: bool = False):
     """The whole-solve DPconv[max] program:
     ``(cards, cand, lo0, hi0) -> (opt[, dp, nodes, lidx], rounds, syncs)``.
 
@@ -535,11 +715,17 @@ def build_max_program(n: int, direct_layers: int, tier: str,
     loop condition once per round.  ``seeded=True`` is the warm-start
     variant: rows with ``lo0 = -(idx + 1)`` carry a cached optimum that
     the search verifies with one dual probe (``_fused_search``).
+
+    ``shards > 1`` partitions the direct-layer sweeps over ``mesh`` (a
+    ``launch.mesh.make_solve_mesh`` tuple of ``shards`` devices); inputs
+    and outputs stay on the lead device, with the same shapes and
+    bit-identical results.
     """
     tfm = transforms(tier)
     dl = min(direct_layers, n - 1)
     G = gamma_batch
-    search = _searcher(n, direct_layers, tfm, G, seeded)
+    mesh = _solve_axis(shards, mesh)
+    search = _searcher(n, direct_layers, tfm, G, seeded, mesh)
 
     def fn(cards, cand, lo0, hi0):
         gate_of, hi, Z, rounds, syncs = search(cards, cand, lo0, hi0)
@@ -552,7 +738,7 @@ def build_max_program(n: int, direct_layers: int, tier: str,
         # the recursion reads it.
         Zx = Z if G == 1 else Z[:, 0].contiguous()
         dp, _, _ = feasibility_layers(gate_of(opt), n, dl, tfm, False,
-                                      Z=Zx, scan_middle=True)
+                                      Z=Zx, scan_middle=True, mesh=mesh)
         dpf = dp.to(torch.float64)
         nodes, lidx = extract_scan(dpf, n)
         return opt, dpf, nodes, lidx, rounds, syncs
@@ -560,7 +746,8 @@ def build_max_program(n: int, direct_layers: int, tier: str,
     return fn
 
 
-def build_out_program(n: int, extract: bool, seeded: bool = False):
+def build_out_program(n: int, extract: bool, shards: int = 1, mesh=None,
+                      seeded: bool = False):
     """The whole-solve connected C_out program (DPccp semantics):
     ``(cards, conn) -> (cout[, dp, nodes, lidx])`` — or, with
     ``seeded=True``, ``(cards, conn, seed_vals, seed_ok) -> ...``: the
@@ -573,14 +760,17 @@ def build_out_program(n: int, extract: bool, seeded: bool = False):
     from ``conn`` and the value-mode extraction scan reads the same
     table, so disconnected witnesses carry +inf error.  No search loop:
     the program reads nothing back until its results.  Bit-identical
-    optima, DP tables and trees to ``dpccp_with_tree``.
+    optima, DP tables and trees to ``dpccp_with_tree``.  ``shards > 1``
+    partitions every layer of the sweep over ``mesh``.
     """
+    mesh = _solve_axis(shards, mesh)
+
     def fn(cards, conn, seed_vals=None, seed_ok=None):
         if seeded != (seed_ok is not None):
             raise ValueError("the seeded out program takes seed_vals and "
                              "seed_ok, the cold one neither")
         dpv = minplus_connected_layers(cards, conn, n, seed_vals=seed_vals,
-                                       seed_ok=seed_ok)
+                                       seed_ok=seed_ok, mesh=mesh)
         cout = dpv[..., -1]
         if not extract:
             return (cout,)
@@ -592,7 +782,8 @@ def build_out_program(n: int, extract: bool, seeded: bool = False):
 
 def build_cap_program(n: int, direct_layers: int, tier: str,
                       extract: bool, gamma_batch: int = 1,
-                      connected: bool = False, seeded: bool = False):
+                      connected: bool = False, shards: int = 1, mesh=None,
+                      seeded: bool = False):
     """The whole-solve C_cap program (paper Sec. 8, both passes):
     ``(cards, cand, lo0, hi0, slack[, conn]) ->
     (gamma, cout[, nodes, lidx], rounds, syncs)``.
@@ -607,10 +798,12 @@ def build_cap_program(n: int, direct_layers: int, tier: str,
     gamma)``.  The cap stays the full-lattice C_max optimum, which a
     cross-product-free plan may not attain: ``cout`` is then +inf, as in
     the host pipeline.  ``seeded=True`` verifies cached pass-1 optima as
-    ``build_max_program`` does.
+    ``build_max_program`` does.  ``shards > 1`` partitions pass 1's
+    direct layers and every layer of pass 2 over ``mesh``.
     """
     tfm = transforms(tier)
-    search = _searcher(n, direct_layers, tfm, gamma_batch, seeded)
+    mesh = _solve_axis(shards, mesh)
+    search = _searcher(n, direct_layers, tfm, gamma_batch, seeded, mesh)
 
     def fn(cards, cand, lo0, hi0, slack, conn=None):
         _, hi, _, rounds, syncs = search(cards, cand, lo0, hi0)
@@ -619,9 +812,10 @@ def build_cap_program(n: int, direct_layers: int, tier: str,
         gamma = gamma * slack
         gate_ok = (cards <= gamma[:, None]) | (pc < 2)
         if connected:
-            dpv = minplus_connected_layers(cards, gate_ok & conn, n)
+            dpv = minplus_connected_layers(cards, gate_ok & conn, n,
+                                           mesh=mesh)
         else:
-            dpv = minplus_value_layers(cards, gate_ok, n)
+            dpv = minplus_value_layers(cards, gate_ok, n, mesh=mesh)
         cout = dpv[..., -1]
         if not extract:
             return gamma, cout, rounds, syncs
@@ -636,8 +830,9 @@ def program_card(n: int, cost: str, backend: str = "f64",
                  shards: int = 1) -> dict:
     """Static description of one whole-solve lattice program: which
     semiring passes run, how many DP layers, the subset-lattice width and
-    the search arity.  ``cost`` may carry the ``_seeded`` suffix of the
-    warm-start variants; ``backend`` is the search's transform tier."""
+    the search arity and the solve-mesh width.  ``cost`` may carry the
+    ``_seeded`` suffix of the warm-start variants; ``backend`` is the
+    search's transform tier."""
     semirings = {
         "max": ["feasibility(count)"],
         "max_seeded": ["feasibility(count), verified warm start"],

@@ -28,6 +28,12 @@ loop for max (whose kernel tier also takes the ranked-convolution
 kernel, ``kernel_dp_fn``), the host pipeline for cap (B independent
 solves, ``chunk = 1``) and the host DPccp enumerator for out.
 
+Solve mesh (``BatchPolicy.solve_shards = D``): chunks at ``n >=
+shard_min_n`` run the fused engine over a D-way solve mesh
+(``launch.mesh``; ``_shards`` clamps D to the devices the mesh may use),
+which is what lets the server lift its fused cap/out ceilings past
+n = 13 (``engine.sharded_ceiling``).  The host tiers never shard.
+
 Execution splits into ``submit`` (stage the items) and ``collect`` (run
 them, possibly on another thread): the serving runtime carries a
 ``SolveHandle`` onto a lane's worker thread and keeps forming the next
@@ -55,6 +61,7 @@ from repro_torch.core.dpconv import optimize, optimize_batch
 from repro_torch.core.engine import host_cards
 from repro_torch.core.layered import layered_feasibility_dp
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import mesh_devices
 from repro_torch.kernels.ops import (mobius_batch_op, ranked_conv_op,
                                      zeta_batch_op)
 
@@ -67,6 +74,8 @@ class BatchPolicy:
     backend: str = "auto"       # "auto" | "f64" | "cuda"
     engine: str = "fused"       # "fused" | "host"
     gamma_batch: int = 1        # fused probe width: 1 = binary search
+    solve_shards: int = 1       # solve-mesh width of the fused sweeps
+    shard_min_n: int = 14       # engage the mesh only at n >= this
 
     def __post_init__(self):
         if self.engine not in ("fused", "host"):
@@ -75,6 +84,8 @@ class BatchPolicy:
             raise ValueError(f"unknown backend {self.backend!r}")
         if self.gamma_batch < 1:
             raise ValueError("gamma_batch must be >= 1")
+        if self.solve_shards < 1:
+            raise ValueError("solve_shards must be >= 1")
 
 
 def _pow2_chunks(b: int, cap: int):
@@ -188,6 +199,16 @@ class BatchedSolver:
     def _dp_fn(self, n: int):
         return kernel_dp_fn(n) if self.use_kernels(n) else None
 
+    def _shards(self, n: int) -> int:
+        """Solve-mesh width for one chunk: the policy's width, engaged
+        only at ``n >= shard_min_n`` and clamped to the devices a mesh led
+        by the solver's device may use (a policy written for four cards
+        runs single-device on one)."""
+        p = self.policy
+        if p.solve_shards <= 1 or n < p.shard_min_n:
+            return 1
+        return min(p.solve_shards, len(mesh_devices(self.device)))
+
     def _solve_chunk(self, qs, cards, n, cost, extract_tree, seeds=None):
         """One same-(n, cost) chunk through the routed engine tier.
         ``seeds`` (per-query warm-start payloads, see ``_unpack``) reach
@@ -195,6 +216,7 @@ class BatchedSolver:
         engine = self.policy.engine
         G = self.policy.gamma_batch
         tier = "cuda" if self.use_kernels(n) else "f64"
+        shards = self._shards(n)
         dev = self.device
         seed_kw = (_seed_kw(seeds or [None] * len(qs), cost, 1 << n)
                    if engine == "fused" else {})
@@ -203,6 +225,8 @@ class BatchedSolver:
                                if cost == "cap_conn" else (cost, {}))
         if len(qs) == 1:
             kw = {"engine": engine, "device": dev}
+            if engine == "fused" and shards > 1:
+                kw["shards"] = shards
             if engine == "fused" and cost != "out":
                 kw["gamma_batch"] = G   # out's (min,+) sweep never probes
                 if cost == "max":   # cap's pass 1 stays on the f64 tier
@@ -223,7 +247,8 @@ class BatchedSolver:
             # space, B host enumerations accounted as chunk-1 solves
             results = optimize_batch(qs, cards, cost="out", method="dpccp",
                                      extract_tree=extract_tree,
-                                     engine=engine, device=dev, **seed_kw)
+                                     engine=engine, shards=shards,
+                                     device=dev, **seed_kw)
             if not results[0].meta.get("batched"):
                 return self._independent(results)
         elif solve_cost == "cap":
@@ -236,13 +261,14 @@ class BatchedSolver:
                      for q, c in zip(qs, cards)])
             results = optimize_batch(qs, cards, cost="cap",
                                      extract_tree=extract_tree,
-                                     gamma_batch=G, device=dev, **conn_kw,
-                                     **seed_kw)
+                                     gamma_batch=G, shards=shards,
+                                     device=dev, **conn_kw, **seed_kw)
         elif engine == "fused":
             results = optimize_batch(qs, cards, cost="max",
                                      extract_tree=extract_tree,
                                      engine="fused", backend=tier,
-                                     gamma_batch=G, device=dev, **seed_kw)
+                                     gamma_batch=G, shards=shards,
+                                     device=dev, **seed_kw)
         else:
             results = optimize_batch(qs, cards, cost="max",
                                      extract_tree=extract_tree,

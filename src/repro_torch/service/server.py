@@ -185,6 +185,16 @@ class PlanServer:
         # admission estimates price the engine the batch lane will run
         self.router.engine_hint["dpconv"] = self.solver.policy.engine
         self.router.engine_hint["dpccp"] = self.solver.policy.engine
+        # a solve mesh lifts the fused cap/out admission ceilings: the
+        # per-device layer memory drops 1/D (engine.sharded_ceiling caps
+        # the lift at the int32 and extraction tier bound)
+        pol = self.solver.policy
+        if pol.solve_shards > 1:
+            cfg = self.router.config
+            cfg.fused_cap_max_n = engine_mod.sharded_ceiling(
+                cfg.fused_cap_max_n, pol.solve_shards)
+            cfg.fused_out_max_n = engine_mod.sharded_ceiling(
+                cfg.fused_out_max_n, pol.solve_shards)
         self.max_batch = max_batch
         self.max_wait = max_wait
         self.lanes = max(1, int(lanes))   # serving runtime solve lanes
@@ -279,7 +289,8 @@ class PlanServer:
                                        backend=backend, direct_layers=4,
                                        costs=warm_costs,
                                        gamma_batch=pol.gamma_batch,
-                                       device=self.device)
+                                       device=self.device,
+                                       shards=self.solver._shards(n))
                 total["compiled"] += r["compiled"]
                 total["seconds"] += r["seconds"]
         return total
@@ -726,8 +737,13 @@ class PlanServer:
                 engine = "host"
             kw.setdefault("engine", engine)
             if kw["engine"] == "fused":
+                # single-lane fused solves hit the buckets (probe width,
+                # mesh) that prewarm built
                 kw.setdefault("gamma_batch",
                               self.solver.policy.gamma_batch)
+                shards = self.solver._shards(q.n)
+                if shards > 1:
+                    kw.setdefault("shards", shards)
         elif route.method == "dpccp" and engine:
             kw.setdefault("engine", engine)
         res = optimize(q, card, cost=cost, method=route.method,

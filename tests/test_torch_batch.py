@@ -228,23 +228,28 @@ def test_convert_round_trip_and_oracle():
 
 
 def test_unported_paths_raise():
-    """What stays unported raises ``NotImplementedError``: ``shards > 1``.
-    The host batch loop's ``gamma_batch > 1`` raises ``ValueError``, as
-    the reference does (the (G+1)-ary search is the single-query host
+    """What is refused raises ``ValueError``, as in the reference: the
+    host loops refuse ``shards > 1``, a fused solve refuses a mesh wider
+    than the devices it may use (one CPU device here, without
+    ``launch.mesh.force_device_count``), and the host batch loop refuses
+    ``gamma_batch > 1`` (the (G+1)-ary search is the single-query host
     loop's and the fused engine's)."""
     qs, cards = _queries(5, 2, seed=1)
     items = [_port_query(q, c) for q, c in zip(qs, cards)]
     q0, c0 = items[0]
     for cost, kw in [("max", {"shards": 2}), ("cap", {"shards": 2}),
                      ("out", {"method": "dpccp", "engine": "fused",
-                              "shards": 2})]:
-        with pytest.raises(NotImplementedError):
+                              "shards": 2}),
+                     ("max", {"engine": "host", "shards": 2})]:
+        with pytest.raises(ValueError):
             optimize(q0, c0, cost=cost, device=CPU, **kw)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
+        dpconv_max_batch(cards, 5, engine="host", shards=2, device=CPU)
+    with pytest.raises(ValueError):
         engine.fused_dpconv_max(cards, 5, shards=2, device=CPU)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         engine.fused_ccap(cards, 5, shards=2, device=CPU)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         engine.fused_out([q0, items[1][0]], cards, 5, shards=2, device=CPU)
     with pytest.raises(ValueError):
         dpconv_max_batch(cards, 5, engine="host", gamma_batch=3,
@@ -255,3 +260,59 @@ def test_unported_paths_raise():
     assert not any(r.meta.get("batched") for r in mixed)
     assert _pow2_chunks(11, 16) == [8, 2, 1]
     assert _pow2_chunks(11, 6) == [4, 4, 2, 1]
+
+
+# ------------------------------------------------------------ solve mesh
+def test_batch_policy_solve_shards():
+    """``solve_shards``/``shard_min_n`` default and validate as in the
+    reference; ``_shards`` engages the mesh only at ``n >= shard_min_n``
+    and clamps to the devices the mesh may use."""
+    from repro_torch.launch import mesh
+    for P in (BatchPolicy, ref_batch.BatchPolicy):
+        assert (P().solve_shards, P().shard_min_n) == (1, 14)
+        with pytest.raises(ValueError):
+            P(solve_shards=0)
+    pol = dict(solve_shards=4)
+    port = BatchedSolver(BatchPolicy(**pol), device=CPU)
+    ref = ref_batch.BatchedSolver(ref_batch.BatchPolicy(**pol))
+    assert port._shards(13) == ref._shards(13) == 1
+    assert port._shards(14) == 1                     # one CPU device
+    try:
+        mesh.force_device_count(8)
+        assert [port._shards(n) for n in (13, 14, 15)] == [1, 4, 4]
+        low = BatchedSolver(BatchPolicy(solve_shards=4, shard_min_n=6),
+                            device=CPU)
+        assert low._shards(6) == 4 and low._shards(5) == 1
+    finally:
+        mesh.force_device_count(None)
+
+
+def test_sharded_batch_lane_matches_reference():
+    """A ``solve_shards=4`` batch lane on a 4-slot CPU mesh: cap, cap_conn
+    and out chunks at n = 14 run sharded fused programs and answer as
+    the reference's lane (whose jax mesh is however wide jax allows)."""
+    from repro_torch.launch import mesh
+    n = 14
+    graphs = [(clique(n), "cap", 1), (star(n), "cap", 2),
+              (cycle(n), "cap_conn", 3), (chain(n), "cap_conn", 4),
+              (chain(n), "out", 5), (cycle(n), "out", 6)]
+    ref_items = [(q, make_cardinalities(q, seed=s), cost)
+                 for q, cost, s in graphs]
+    want = ref_batch.BatchedSolver(
+        ref_batch.BatchPolicy(solve_shards=4)).solve(ref_items)
+    try:
+        mesh.force_device_count(4)
+        solver = BatchedSolver(BatchPolicy(solve_shards=4), device=CPU)
+        mark = engine.dispatch_mark()
+        got = solver.solve([_port_query(q, c) + (cost,)
+                            for q, c, cost in ref_items])
+        recs = engine.dispatches_since(mark)
+    finally:
+        mesh.force_device_count(None)
+    assert sorted(r.cost for r in recs) == ["cap", "cap_conn", "out"]
+    assert all(r.shards == 4 and r.devices == ("cpu",) * 4 for r in recs)
+    for g, w in zip(got, want):
+        assert float(g.cost).hex() == float(w.cost).hex()
+        assert repr(g.tree) == repr(w.tree)
+        assert g.meta["engine"] == w.meta["engine"] == "fused"
+        assert g.meta["chunk"] == w.meta["chunk"] == 2

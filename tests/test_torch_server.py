@@ -468,3 +468,47 @@ def test_host_engine_server_launches_ranked_conv(cuda_device):
     assert [float(g.cost).hex() for g in got] == \
         [float(w.cost).hex() for w in want]
     assert [repr(g.tree) for g in got] == [repr(w.tree) for w in want]
+
+
+# ------------------------------------------------------------ solve mesh
+def test_sharded_server_lifts_ceilings_and_matches_reference():
+    """``BatchPolicy(solve_shards=4)`` lifts the fused cap and out
+    ceilings to 15 in both packages, so n = 14 cap, connected cap and
+    sparse out requests take the fused batch lane, which the port runs
+    on a 4-slot CPU mesh; answers are the reference server's, bitwise,
+    and the reference's host answers."""
+    from repro.service import BatchPolicy as RefPolicy
+    from repro_torch.launch import mesh
+    n = 14
+    reqs = [(clique(n), "cap", False, 1), (cycle(n), "cap", True, 2),
+            (chain(n), "out", False, 3), (star(n), "max", False, 4)]
+    ref = RefServer(batch_policy=RefPolicy(solve_shards=4))
+    try:
+        mesh.force_device_count(4)
+        srv = PlanServer(batch_policy=BatchPolicy(solve_shards=4),
+                         device=CPU)
+        for s in (srv, ref):
+            cfg = s.router.config
+            assert (cfg.fused_cap_max_n, cfg.fused_out_max_n) == (15, 15)
+        assert srv.solver._shards(13) == 1 and srv.solver._shards(n) == 4
+        mark = engine.dispatch_mark()
+        for q, cost, conn, seed in reqs:
+            card = make_cardinalities(q, seed=seed)
+            got = srv.plan_one(_pq(q), card, cost=cost, connected=conn)
+            want = ref.plan_one(q, card, cost=cost, connected=conn)
+            assert _resp_key(got) == _resp_key(want)
+            assert got.route.lane == "batch" and got.status == "exact"
+            if cost != "max":
+                host = RefServer(batch_policy=RefPolicy(engine="host"))
+                hw = host.plan_one(q, card, cost=cost, connected=conn)
+                assert (float(got.cost).hex(), repr(got.tree)) == \
+                    (float(hw.cost).hex(), repr(hw.tree))
+        recs = engine.dispatches_since(mark)
+    finally:
+        mesh.force_device_count(None)
+    assert sorted(r.cost for r in recs) == ["cap", "cap_conn", "max",
+                                            "out"]
+    assert all(r.shards == 4 and len(r.devices) == 4 for r in recs)
+    # an unsharded server keeps the single-device ceilings
+    cfg = PlanServer(device=CPU).router.config
+    assert (cfg.fused_cap_max_n, cfg.fused_out_max_n) == (13, 13)
