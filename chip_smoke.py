@@ -117,7 +117,19 @@ Phases (any failed check exits non-zero; nothing is caught):
                phase 11's stream, every answer equal to an unsharded
                server's ``plan_one``, n >= 14 cap/out on the batch lane
                over the 4-slot mesh.  It runs after phase 15; its
-               launches join the kernel table.
+               launches join the kernel table;
+17. LM serve — the LM side, which runs none of the three kernels: (a)
+               the ten reduced configs in float32, the port's
+               teacher-forced decode against its forward (B = 2, S = 40,
+               within 2e-3 of a position's largest |logit|; MoE at
+               capacity_factor 16), int8 KV caches of qwen3-0.6b and
+               zamba2-1.2b within 5e-2, and the card's logits against the
+               port's on the CPU on the same weights; (b) gemma3-1b at its
+               published width in bf16 through ``launch.serve.main``
+               (batch 8, prompt 512 + gen 64: every local ring wraps),
+               the decode path's logits of all 576 positions against
+               ``make_prefill_step``'s, then one decode step profiled and
+               timed (see ``lm_serve_phase``).
 
 Phases 8 and 9 print wall time, solved queries per second, peak device
 memory and host syncs per solve; phase 10 prints each pass's wall time,
@@ -126,10 +138,14 @@ launches; phase 11 prints each pass's wall time, requests per second,
 p50/p99 latency, batches, batch occupancy, coalesced joins, fast-path
 and plan-cache hits, the engine's dispatch records (count, execute and
 build seconds, program-cache hits) and launches; phases 12-14 print
-wall time, passes or requests per second and launches per variant.
-Launch counters are set to 0 just before each main-path phase (5, 6, 8,
-9, 12, 13, 14's loopback passes, 16's direct solves and its server
-pass), each server pass and each runtime pass, and read just after;
+wall time, passes or requests per second and launches per variant;
+phase 17 prints tokens per second of the prompt through the decode path,
+of generation and of ``make_prefill_step``, ms per decode step against
+its bound, launches per step, device busy share and peak memory above
+the weights.  Launch counters are set to 0 just before each main-path
+phase (5, 6, 8, 9, 12, 13, 14's loopback passes, 16's direct solves and
+its server pass, 17's two parts), each server pass and each runtime
+pass, and read just after;
 spawned replicas count in their own processes, which the table does not
 read.  Data comes from fixed seeds through numpy.  The second-to-last
 line is the kernel table as JSON; the last line is
@@ -151,6 +167,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
+BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores;
 #                             32-bit integer adds and multiplies are
 #                             counted against the same rate
@@ -165,6 +182,12 @@ LANE_ROUNDS, LANE_PASSES = 23, 31
 # with probability rate / 6 per arming, so most seeds fire none in one
 # stream)
 RUNTIME_REQUESTS, RUNTIME_SEED, CHAOS_SEED = 96, 12, 139
+# phase 17: the card's float32 logits against the port's on the CPU
+# (TF32 off; the sums run in other orders), and gemma3-1b's bf16 decode
+# path against its prefill (bf16 keeps 8 bits; the two paths round at
+# other places over 26 layers), each relative to a position's largest
+# |logit|
+LM_CARD_RTOL, LM_BF16_RTOL = 1e-4, 5e-2
 
 
 def fail(msg: str) -> None:
@@ -259,6 +282,218 @@ def bound(nbytes: float, nops: float) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def lm_serve_phase(dev, card: str) -> None:
+    """Phase 17, LM serving on the card; a failed check exits.
+
+    (a) The ten reduced configs in float32 (TF32 off since phase 1),
+    weights from a seeded CPU generator copied to the card: the port's
+    teacher-forced decode against its own forward at B = 2, S = 40 within
+    2e-3 of each position's largest |logit| (the reference's contract;
+    MoE at capacity_factor 16, so that the forward drops nothing); int8
+    KV caches (qwen3-0.6b, zamba2-1.2b, S = 32) within 5e-2; and the
+    card's forward and decode logits against the port's on the CPU, same
+    weights, within LM_CARD_RTOL.
+    (b) gemma3-1b at its published width in bf16 through
+    ``launch.serve.main`` (weights from a seeded CUDA generator): batch
+    8, prompt 512, gen 64, so that every local layer's 512-entry ring
+    wraps; the decode path's logits of all 576 positions against
+    ``make_prefill_step``'s over the same tokens within LM_BF16_RTOL;
+    then one decode step profiled and timed.  The LM path launches none
+    of the three kernels: the counts are set to 0 before each part and
+    must read 0 after it.
+    """
+    import dataclasses
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import ARCHS, get_config, reduced
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.steps import make_prefill_step
+
+    def rel_err(got, want) -> float:
+        """Largest error of any position relative to that position's
+        largest |logit| of ``want``; (..., V) tensors, compared in f32."""
+        got, want = got.float(), want.float()
+        scale = want.abs().amax(dim=-1) + 1e-6
+        return float(((got - want).abs().amax(dim=-1) / scale).max())
+
+    def lm_run(model, cfg, tok, frames, device, S):
+        """Forward logits (B, S, V) and teacher-forced decode logits."""
+        tok_d = torch.as_tensor(tok, device=device)
+        fr = None if frames is None else torch.as_tensor(frames,
+                                                         device=device)
+        with torch.no_grad():
+            fwd, _ = tfm.forward(model, cfg, tok_d, frames=fr)
+            cache = tfm.init_cache(cfg, tok.shape[0], max_seq=S,
+                                   device=device)
+            if fr is not None:
+                enc_out, _ = tfm.encode(model, cfg, fr)
+                tfm.build_cross_cache(model, cfg, enc_out, cache)
+            dec = []
+            for i in range(S):
+                lg, cache = tfm.decode_step(
+                    model, cfg, cache, tok_d[:, i],
+                    torch.full((tok.shape[0],), i, device=device))
+                dec.append(lg)
+        return fwd.cpu(), torch.stack(dec, dim=1).cpu()
+
+    ops.reset_launch_counts()
+    t17 = time.perf_counter()
+    worst17 = {"decode vs forward": 0.0, "card vs cpu": 0.0, "int8": 0.0}
+    for arch in sorted(ARCHS):
+        for quant in (("", "int8") if arch in ("qwen3-0.6b", "zamba2-1.2b")
+                      else ("",)):
+            cfg = reduced(get_config(arch))
+            if cfg.n_experts:
+                cfg = dataclasses.replace(cfg, capacity_factor=16.0)
+            if quant:
+                cfg = dataclasses.replace(cfg, kv_cache_dtype=quant)
+            S = 32 if quant else 40
+            rng17 = np.random.default_rng(0)
+            tok = rng17.integers(0, cfg.vocab_size, (2, S))
+            frames = (rng17.normal(size=(2, cfg.n_frames, cfg.d_model))
+                      .astype(np.float32) if cfg.family == "encdec" else None)
+            params = tfm.init_params(cfg, seed=0, device="cpu")
+            cpu_model = tfm.LM(cfg, params)
+            card_model = tfm.LM(cfg, params).to(dev)
+            fwd, dec = lm_run(card_model, cfg, tok, frames, dev, S)
+            at = f"LM {arch}{' int8 kv' if quant else ''}"
+            e_dec = rel_err(dec, fwd)
+            check(torch.isfinite(dec).all() and torch.isfinite(fwd).all(),
+                  f"{at}: logits not finite on the card")
+            if quant:
+                check(e_dec < 5e-2, f"{at}: decode vs forward {e_dec:.3e}")
+                worst17["int8"] = max(worst17["int8"], e_dec)
+                print(f"{at}: decode vs forward {e_dec:.3e} (< 5e-2) on "
+                      f"the card", flush=True)
+                continue
+            check(e_dec < 2e-3, f"{at}: decode vs forward {e_dec:.3e}")
+            cfwd, cdec = lm_run(cpu_model, cfg, tok, frames, "cpu", S)
+            e_cf, e_cd = rel_err(fwd, cfwd), rel_err(dec, cdec)
+            check(e_cf <= LM_CARD_RTOL and e_cd <= LM_CARD_RTOL,
+                  f"{at}: card vs cpu forward {e_cf:.3e}, decode {e_cd:.3e}")
+            worst17["decode vs forward"] = max(worst17["decode vs forward"],
+                                               e_dec)
+            worst17["card vs cpu"] = max(worst17["card vs cpu"], e_cf, e_cd)
+            print(f"{at}: decode vs forward {e_dec:.3e} (< 2e-3), card vs "
+                  f"cpu forward {e_cf:.3e} decode {e_cd:.3e} (<= "
+                  f"{LM_CARD_RTOL:g}) {card}", flush=True)
+    counts17a = ops.launch_counts()
+    check(not any(counts17a.values()),
+          f"the reduced LM runs launched {counts17a}")
+    print(f"LM reduced: ten configs held in {time.perf_counter() - t17:.2f} "
+          f"s; worst {worst17} {card}", flush=True)
+
+    B17, P17, G17 = 8, 512, 64
+    rec = {"logits": True}
+    ops.reset_launch_counts()
+    check(lm_serve.main(["--arch", "gemma3-1b", "--batch", str(B17),
+                         "--prompt-len", str(P17), "--gen", str(G17),
+                         "--seed", "0"], record=rec) == 0,
+          "launch.serve.main failed")
+    counts17 = ops.launch_counts()
+    check(not any(counts17.values()), f"LM serving launched {counts17}")
+    cfg, model, cache = rec["cfg"], rec["model"], rec["cache"]
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+           cfg.d_ff, cfg.vocab_size, cfg.window_size, cfg.dtype)
+          == (26, 1152, 4, 1, 256, 6912, 262144, 512, "bfloat16")
+          and cfg.param_count() == 999_751_680,
+          f"gemma3-1b is not at its published width: {cfg}")
+    n_params = sum(p.numel() for p in model.parameters())
+    rings = [c["k"].shape[2] for seg in cache["segments"]
+             for c in seg.values()]
+    check(min(rings) == cfg.window_size < P17 + G17,
+          f"local rings of {min(rings)} entries do not wrap")
+    toks = rec["tokens"]
+    check(toks.shape == (B17, P17 + G17)
+          and int(toks.min()) >= 0 and int(toks.max()) < cfg.padded_vocab,
+          "greedy tokens outside [0, padded_vocab)")
+    keep = rec["logits"]
+    check(bool(torch.equal(toks[:, P17:], keep[:, P17 - 1:-1].argmax(-1))),
+          "fed tokens are not the greedy tokens of the decode logits")
+    prefill = make_prefill_step(cfg)
+    prefill(model, toks[:1, :8])                    # cast, warm up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pre = prefill(model, toks)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    check(pre.shape == keep.shape and pre.dtype == torch.bfloat16,
+          f"prefill logits {tuple(pre.shape)} {pre.dtype}")
+    e_pre = max(rel_err(keep[b], pre[b]) for b in range(B17))
+    check(e_pre < LM_BF16_RTOL and bool(torch.isfinite(keep).all()),
+          f"gemma3-1b decode vs prefill {e_pre:.3e}")
+    agree = float((pre[:, P17 - 1:-1].argmax(-1) == toks[:, P17:])
+                  .float().mean())
+    del pre
+
+    # one more decode step, re-fed the last token at its position (the
+    # same entries are written again): its launches from the profiler,
+    # its device time, and its time from CUDA events over 20 calls
+    step = rec["step"]
+    last = toks[:, -1].contiguous()
+    pos_last = torch.full((B17,), P17 + G17 - 1, device=dev)
+    one = lambda: step(model, cache, last, pos_last)    # noqa: E731
+    one()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        one()
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == DeviceType.CUDA]
+    step_launches = sum(e.count for e in dev_events)
+    step_dev_ms = sum(_device_us(e) for e in dev_events) * 1e-3
+    check(step_launches > 0, "the profiler saw no device event of a step")
+    step_ms = time_ms(one, iters=20, warmup=2)
+    weights_cast = rec["cast_bytes"]
+    kv_bytes = rec["cache_bytes"]
+    # bytes: every bf16 weight read once (the tied embedding serves the
+    # unembedding), and the whole KV cache; operations: 2 per weight and
+    # token at the bf16 tensor-core rate, far below the bytes' time
+    b_w = weights_cast / HBM_BYTES_PER_S * 1e3
+    b_all = (weights_cast + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    b_ops = 2 * n_params * B17 / BF16_OPS_PER_S * 1e3
+    ms_step = rec["t_gen"] / G17 * 1e3
+    # what the process held before main (earlier phases) is not the run's
+    above = (rec["peak_bytes"] - rec["held_bytes"] - rec["weights_bytes"]
+             - weights_cast)
+    print(f"LM gemma3-1b (published width, {n_params} parameters, "
+          f"param_count() {cfg.param_count()}), bf16, batch {B17}, prompt "
+          f"{P17} + gen {G17}, rings of {min(rings)} wrapped: decode vs "
+          f"prefill logits {e_pre:.3e} (< {LM_BF16_RTOL:g}) over "
+          f"{P17 + G17} positions; prefill's greedy tokens agree with the "
+          f"decode path's at {agree:.4f} of positions {card}", flush=True)
+    print(f"LM gemma3-1b serve: prompt through the decode path "
+          f"{B17 * P17 / rec['t_prefill']:.1f} tokens/s "
+          f"({rec['t_prefill']:.3f} s), generate "
+          f"{B17 * G17 / rec['t_gen']:.1f} tokens/s ({rec['t_gen']:.3f} s, "
+          f"{ms_step:.3f} ms per decode step with its argmax and host "
+          f"read); make_prefill_step over {P17 + G17} tokens "
+          f"{B17 * (P17 + G17) / t_pre:.1f} tokens/s "
+          f"({t_pre:.3f} s) {card}", flush=True)
+    print(f"LM gemma3-1b decode step: {step_ms:.3f} ms (CUDA events over "
+          f"20 calls), device busy {step_dev_ms:.3f} ms "
+          f"({100 * (1 - step_dev_ms / step_ms):.1f}% idle), "
+          f"{step_launches} launches per step (torch.profiler); bound "
+          f"{b_w:.3f} ms for {weights_cast / 1e9:.3f} GB of bf16 weights "
+          f"over 3.35 TB/s, {b_all:.3f} ms with the {kv_bytes / 1e9:.3f} GB "
+          f"KV cache ({b_ops:.4f} ms of bf16 operations); peak device "
+          f"memory {rec['peak_bytes'] / 2**30:.2f} GiB, of which "
+          f"{rec['held_bytes'] / 2**30:.2f} GiB held before the run; "
+          f"{above / 2**30:.2f} GiB above that, the f32 masters "
+          f"({rec['weights_bytes'] / 1e9:.3f} GB) and bf16 weights, of "
+          f"which the KV cache {kv_bytes / 2**30:.3f} GiB and the kept "
+          f"logits {keep.numel() * keep.element_size() / 2**30:.2f} GiB; "
+          f"kernel launches {counts17} {card}", flush=True)
+    del rec, keep, model, cache, step, prefill, one
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1892,6 +2127,8 @@ def main() -> int:
         r["launches"] += counts16[r["name"]] + server16[r["name"]]
     for k in build.KERNELS:
         launches[k] += counts16[k] + server16[k]
+
+    lm_serve_phase(dev, card)
 
     loaded = [m for m in sys.modules
               if m.split(".")[0] == "jax" or m.startswith("repro.")

@@ -28,5 +28,10 @@ and the einsum replay lane; the replica cluster (``service.net``,
 every fused program, over a single-controller solve mesh of
 ``launch.mesh``, with ``force_device_count`` to run a D-way mesh on one
 device) with the batch lane's ``BatchPolicy.solve_shards`` and the
-server's lifted cap/out ceilings.  The LM model side is not ported.
+server's lifted cap/out ceilings.  On the LM side: the models of the
+ten configs' six families (``models``: dense, moe, ssm, hybrid, encdec,
+vlm) with their KV/SSM decode caches, the serve steps
+(``train.steps``), the input shapes (``configs.shapes``) and the
+batched serving driver (``launch.serve``); LM training and its launch
+tooling are not ported.
 """

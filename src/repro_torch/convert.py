@@ -1,11 +1,14 @@
-"""Carry a query from ``repro`` to the port, and a plan back.
+"""Carry a query or a model from ``repro`` to the port, and a plan back.
 
-The system has no weights: what crosses over is the query graph and its
-dense cardinality table.  ``from_reference`` takes the fields of a
-``repro.core.querygraph.QueryGraph`` and its (2^n,) float64 table;
+The join-order side has no weights: what crosses over is the query graph
+and its dense cardinality table.  ``from_reference`` takes the fields of
+a ``repro.core.querygraph.QueryGraph`` and its (2^n,) float64 table;
 ``plan_key`` turns a plan into what the two packages are compared on —
-the optimum's ``float.hex`` and the tree's string.  Plain values only:
-this module imports nothing of ``repro``.
+the optimum's ``float.hex`` and the tree's string.  The LM side carries
+parameter and cache pytrees over path for path
+(``lm_params_from_reference``, ``lm_cache_from_reference``): the port
+keeps the reference's paths and shapes, so nothing is transposed.  Plain
+values only: this module imports nothing of ``repro``.
 """
 from __future__ import annotations
 
@@ -14,6 +17,8 @@ import torch
 
 from repro_torch.core.querygraph import QueryGraph
 from repro_torch.device import resolve_device
+from repro_torch.models.common import ModelConfig
+from repro_torch.models.transformer import LM
 
 
 def from_reference(n: int, edges, hyperedges, card, device=None):
@@ -30,3 +35,26 @@ def from_reference(n: int, edges, hyperedges, card, device=None):
 def plan_key(optimum, tree) -> tuple:
     """``(float.hex(optimum), str(tree))`` — bitwise comparable."""
     return float(optimum).hex(), str(tree)
+
+
+def _tensor_tree(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tensor_tree(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tensor_tree(v, dev) for v in tree]
+    return torch.tensor(np.array(tree), device=dev)
+
+
+def lm_params_from_reference(cfg: ModelConfig, params_np,
+                             device=None) -> LM:
+    """The port's model (``models.transformer.LM``) holding the values of
+    a ``repro`` parameter pytree given as nested numpy arrays
+    (``jax.tree.map(np.asarray, params)``), on ``device`` (CUDA unless
+    given).  Every leaf keeps its path, shape and dtype."""
+    return LM(cfg, _tensor_tree(params_np, resolve_device(device)))
+
+
+def lm_cache_from_reference(cache_np, device=None) -> dict:
+    """A ``repro`` decode cache (nested numpy arrays) as the port's cache
+    tree on ``device`` (CUDA unless given)."""
+    return _tensor_tree(cache_np, resolve_device(device))

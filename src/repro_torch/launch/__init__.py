@@ -1,2 +1,3 @@
-"""Device layout of the port (see ``repro.launch`` for the reference):
-the solve mesh of sharded lattice solves (``launch.mesh``)."""
+"""Launch tooling of the port (see ``repro.launch`` for the reference):
+the solve mesh of sharded lattice solves (``launch.mesh``) and the
+batched LM serving driver (``launch.serve``)."""

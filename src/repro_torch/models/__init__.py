@@ -1,1 +1,2 @@
-"""Model configuration of the port (``common.ModelConfig``)."""
+"""The LM side of the port: ``common`` (``ModelConfig`` and the
+primitives), ``mlp``, ``attention``, ``ssm`` and ``transformer``."""

@@ -1,13 +1,20 @@
-"""Model configuration of the port (counterpart of the config part of
-``repro.models.common``): ``ModelConfig`` and ``round_up``, the values
-the einsum planner's ``model_planner_trace`` plans at.  The model layers
-themselves are not ported; ``cdtype`` gives the compute dtype as a
-``torch.dtype``.
+"""Shared model substrate of the port (counterpart of
+``repro.models.common``): ``ModelConfig`` and ``round_up``, the
+primitive layers (``rms_norm``, ``rope``, the sinusoidal encodings) and
+the initializer.
+
+Parameters are nested dicts of tensors with the reference's shapes
+(``(d_in, d_out)`` matrices), stored float32 and cast to ``cfg.cdtype``
+(a ``torch.dtype``) at use.  ``jax.random`` keys become an explicit
+``torch.Generator``: every init function draws from the generator it is
+given, so one seed and one device give the same weights.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
+import numpy as np
 import torch
 
 
@@ -149,3 +156,74 @@ class ModelConfig:
         act_mlp = (self.top_k + self.n_shared_experts) * 3 * D * F \
             + D * self.n_experts
         return dense_like + self.n_layers * act_mlp
+
+
+# ------------------------------------------------------------- primitives
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    return ((x * torch.rsqrt(var + eps)) * (1.0 + scale.float())).to(dt)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Rotary embedding, the two halves concatenated (not interleaved).
+    x: (..., S, H, Dh); positions: (..., S)."""
+    dh = x.shape[-1]
+    half = dh // 2
+    freqs = torch.exp(-math.log(theta) * torch.arange(
+        0, half, dtype=torch.float32, device=x.device) / half)
+    ang = positions[..., None].float() * freqs              # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]                      # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d: int) -> np.ndarray:
+    pos = np.arange(seq)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * i / d)
+    out = np.zeros((seq, d), np.float32)
+    out[:, 0::2] = np.sin(ang)
+    out[:, 1::2] = np.cos(ang)
+    return out
+
+
+def sinusoidal_at(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """Sinusoidal encoding at run-time positions.  pos: (B,) -> (B, d)."""
+    i = torch.arange(d // 2, dtype=torch.float32, device=pos.device)[None, :]
+    ang = pos.float()[:, None] / torch.pow(10000.0, 2 * i / d)
+    out = torch.zeros((pos.shape[0], d), dtype=torch.float32,
+                      device=pos.device)
+    out[:, 0::2] = torch.sin(ang)
+    out[:, 1::2] = torch.cos(ang)
+    return out
+
+
+# ------------------------------------------------------------ initializers
+def normal(gen: torch.Generator, shape: tuple) -> torch.Tensor:
+    """Standard normal float32 draws of ``shape`` on the generator's
+    device."""
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=gen.device)
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               scale: float | None = None, lead: tuple = ()) -> torch.Tensor:
+    """A (``*lead``, d_in, d_out) float32 matrix: N(0, 1) times ``scale``
+    (1/sqrt(d_in) by default).  ``lead`` is the (repeats,) axis of a
+    stacked segment slot."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    return normal(gen, tuple(lead) + (d_in, d_out)) * scale
+
+
+def full(lead: tuple, shape: tuple, value: float,
+         gen: torch.Generator) -> torch.Tensor:
+    """A constant float32 leaf (norm scales, biases) on the generator's
+    device."""
+    return torch.full(tuple(lead) + tuple(shape), value,
+                      dtype=torch.float32, device=gen.device)

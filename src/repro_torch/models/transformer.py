@@ -1,0 +1,467 @@
+"""Model assembly for every architecture family (counterpart of
+``repro.models.transformer``): dense, moe, ssm, hybrid, encdec and vlm.
+
+Layer-plan segmentation: the layer stack is grouped into *segments* of
+identical repeating patterns, e.g. gemma3's 5-local:1-global becomes
+``[(4 repeats, [L,L,L,L,L,G]), (1 repeat, [L,L])]``.  Every slot's
+window, theta and kind is static, so sliding-window attention visits
+only in-window kv blocks and local decode caches are ring buffers of
+window length.
+
+Parameters are nested dicts of tensors with the reference's paths and
+shapes: ``(d_in, d_out)`` matrices, and a leading ``(repeats,)`` axis on
+the leaves of each segment slot.  The reference's ``lax.scan`` over
+repeats is a Python loop over that axis.  ``LM`` holds such a tree as an
+``nn.Module``.  ``remat`` and ``unroll`` are accepted and change nothing
+in a forward without gradients; ``act_sharding`` must be ``None``.
+
+Decode caches mirror the segment structure as in the reference, and
+``decode_step`` updates them in place (the reference returns a new
+pytree); it returns the cache it was given.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.common import (ModelConfig, dense_init, full,
+                                       normal, rms_norm,
+                                       sinusoidal_at, sinusoidal_positions)
+
+
+# ------------------------------------------------------------- layer plan
+@dataclasses.dataclass(frozen=True)
+class Slot:
+    kind: str                  # "attn" | "ssm"
+    window: int = 0            # 0 = global
+    theta: float = 1e4
+    moe: bool = False
+    shared_attn: bool = False  # hybrid: apply shared block after this slot
+    cross: bool = False        # enc-dec decoder slot
+
+
+def layer_plan(cfg: ModelConfig) -> list:
+    """Returns [(repeats, [Slot, ...]), ...] covering cfg.n_layers."""
+    if cfg.family in ("ssm", "hybrid"):
+        period = cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
+        if period:
+            slots = [Slot("ssm")] * (period - 1) + \
+                [Slot("ssm", shared_attn=True)]
+            full_, rem = divmod(cfg.n_layers, period)
+            plan = [(full_, slots)]
+            if rem:
+                plan.append((1, [Slot("ssm")] * rem))
+            return plan
+        return [(cfg.n_layers, [Slot("ssm")])]
+
+    if cfg.window_size > 0 and cfg.global_every > 0:
+        period = cfg.global_every
+        local = Slot("attn", window=cfg.window_size,
+                     theta=cfg.rope_theta_local, moe=bool(cfg.n_experts))
+        glob = Slot("attn", window=0, theta=cfg.rope_theta,
+                    moe=bool(cfg.n_experts))
+        slots = [local] * (period - 1) + [glob]
+        full_, rem = divmod(cfg.n_layers, period)
+        plan = [(full_, slots)]
+        if rem:
+            plan.append((1, [local] * rem))
+        return plan
+
+    slot = Slot("attn", window=cfg.window_size, theta=cfg.rope_theta,
+                moe=bool(cfg.n_experts), cross=(cfg.family == "encdec"))
+    return [(cfg.n_layers, [slot])]
+
+
+def enc_plan(cfg: ModelConfig) -> list:
+    return [(cfg.n_enc_layers, [Slot("attn", window=0,
+                                     theta=cfg.rope_theta)])]
+
+
+# ------------------------------------------------------------------- init
+def _init_slot(cfg: ModelConfig, slot: Slot, gen: torch.Generator,
+               repeats: int) -> dict:
+    D, lead = cfg.d_model, (repeats,)
+    if slot.kind == "ssm":
+        return {"ln": full(lead, (D,), 0.0, gen),
+                "ssm": ssm_mod.init_ssm(cfg, gen, lead)}
+    p = {"ln1": full(lead, (D,), 0.0, gen),
+         "attn": attn_mod.init_attention(cfg, gen, lead=lead),
+         "ln2": full(lead, (D,), 0.0, gen)}
+    if slot.cross:
+        p["ln_x"] = full(lead, (D,), 0.0, gen)
+        p["cross"] = attn_mod.init_attention(cfg, gen, lead=lead)
+    if slot.moe:
+        p["mlp"] = mlp_mod.init_moe(cfg, gen, lead)
+    else:
+        p["mlp"] = mlp_mod.init_mlp(cfg, gen, lead)
+    return p
+
+
+def _init_segment(cfg: ModelConfig, repeats: int, slots: list,
+                  gen: torch.Generator) -> dict:
+    return {f"slot{si}": _init_slot(cfg, slot, gen, repeats)
+            for si, slot in enumerate(slots)}
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
+    """Random float32 parameters drawn from a ``torch.Generator`` seeded
+    with ``seed`` on ``device`` (CUDA unless given).  The values differ
+    from the reference's ``jax.random`` draws; the shapes and paths are
+    the same (``convert.lm_params_from_reference`` carries the
+    reference's values over)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    V, D = cfg.padded_vocab, cfg.d_model
+    params: dict[str, Any] = {
+        "embed": normal(gen, (V, D)) * 0.02,
+        "final_norm": full((), (D,), 0.0, gen),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = dense_init(gen, D, V)
+    params["segments"] = [_init_segment(cfg, r, slots, gen)
+                          for r, slots in layer_plan(cfg)]
+    if cfg.family == "hybrid":
+        params["shared_block"] = {
+            "ln1": full((), (D,), 0.0, gen),
+            "attn": attn_mod.init_attention(cfg, gen),
+            "ln2": full((), (D,), 0.0, gen),
+            "mlp": mlp_mod.init_mlp(cfg, gen),
+        }
+    if cfg.family == "encdec":
+        params["encoder"] = {
+            "segments": [_init_segment(cfg, r, slots, gen)
+                         for r, slots in enc_plan(cfg)],
+            "final_norm": full((), (D,), 0.0, gen),
+        }
+    return params
+
+
+# ------------------------------------------------------- the nn.Module view
+class _Tree(nn.Module):
+    """One node of a parameter tree: tensor leaves are parameters, dicts
+    and lists are submodules, under the tree's own keys."""
+
+    def __init__(self, tree):
+        super().__init__()
+        self._is_list = isinstance(tree, list)
+        items = enumerate(tree) if self._is_list else tree.items()
+        self._keys = []
+        for key, val in items:
+            name = str(key)
+            self._keys.append(name)
+            if isinstance(val, torch.Tensor):
+                self.register_parameter(
+                    name, nn.Parameter(val, requires_grad=False))
+            else:
+                self.add_module(name, _Tree(val))
+
+    def tree(self):
+        vals = [getattr(self, k) for k in self._keys]
+        vals = [v.tree() if isinstance(v, _Tree) else v for v in vals]
+        return vals if self._is_list else dict(zip(self._keys, vals))
+
+
+class LM(nn.Module):
+    """A model's parameters as an ``nn.Module`` (``.to(device)``,
+    ``state_dict``).  The ``state_dict`` keys are the reference's pytree
+    paths under ``tree.`` (``tree.segments.0.slot0.attn.wq``), every leaf
+    with the reference's shape.  ``params()`` gives the nested dict that
+    the functions of this module take; they also take the ``LM``."""
+
+    def __init__(self, cfg: ModelConfig, params: dict):
+        super().__init__()
+        self.cfg = cfg
+        self.tree = _Tree(params)
+
+    def params(self) -> dict:
+        return self.tree.tree()
+
+
+def _as_tree(params):
+    return params.params() if isinstance(params, LM) else params
+
+
+def _layer(tree, r: int):
+    """Repeat ``r`` of a stacked segment subtree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+# ---------------------------------------------------------------- forward
+def _apply_slot(sp: dict, slot: Slot, x, positions, cfg, shared,
+                enc_out=None, enc_pos=None, attn_scheme: str = "simple"):
+    """One sub-layer application (training/prefill path)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if slot.kind == "ssm":
+        x = x + ssm_mod.ssm_forward(sp["ssm"], rms_norm(x, sp["ln"]), cfg)
+    else:
+        h, _ = attn_mod.attn_forward(
+            sp["attn"], rms_norm(x, sp["ln1"]), positions, cfg,
+            window=slot.window, theta=slot.theta, scheme=attn_scheme)
+        x = x + h
+        if slot.cross and enc_out is not None:
+            hx, _ = attn_mod.attn_forward(
+                sp["cross"], rms_norm(x, sp["ln_x"]), positions, cfg,
+                window=0, enc_out=enc_out, enc_pos=enc_pos)
+            x = x + hx
+        if slot.moe:
+            h, aux = mlp_mod.moe_forward(sp["mlp"], rms_norm(x, sp["ln2"]),
+                                         cfg)
+        else:
+            h = mlp_mod.mlp_forward(sp["mlp"], rms_norm(x, sp["ln2"]))
+        x = x + h
+    if slot.shared_attn and shared is not None:
+        h, _ = attn_mod.attn_forward(
+            shared["attn"], rms_norm(x, shared["ln1"]), positions, cfg,
+            window=0, theta=cfg.rope_theta, scheme=attn_scheme)
+        x = x + h
+        x = x + mlp_mod.mlp_forward(shared["mlp"],
+                                    rms_norm(x, shared["ln2"]))
+    return x, aux
+
+
+def _run_stack(segments_params: list, plan: list, x, positions, cfg,
+               shared=None, enc_out=None, enc_pos=None,
+               remat: bool = True, act_sharding=None,
+               unroll: bool = False, attn_scheme: str = "simple"):
+    """The layer stack; ``remat`` and ``unroll`` change nothing here (no
+    gradients, no compiled loop)."""
+    if act_sharding is not None:
+        raise ValueError("act_sharding has no counterpart in the port; "
+                         "pass None")
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for seg_p, (repeats, slots) in zip(segments_params, plan):
+        for r in range(repeats):
+            layer_p = _layer(seg_p, r)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            for si, slot in enumerate(slots):
+                x, a = _apply_slot(layer_p[f"slot{si}"], slot, x,
+                                   positions, cfg, shared, enc_out,
+                                   enc_pos, attn_scheme=attn_scheme)
+                aux = aux + a
+            aux_total = aux_total + aux
+    return x, aux_total
+
+
+def encode(params: dict, cfg: ModelConfig, frames: torch.Tensor):
+    """Whisper-style encoder over stub frame embeddings (B, T, D)."""
+    params = _as_tree(params)
+    B, T, D = frames.shape
+    pos_tab = torch.as_tensor(sinusoidal_positions(T, D),
+                              device=frames.device).to(frames.dtype)
+    x = frames + pos_tab[None]
+    positions = torch.arange(T, device=frames.device)[None].expand(B, T)
+    x, _ = _run_stack(params["encoder"]["segments"], enc_plan(cfg), x,
+                      positions, cfg)
+    return rms_norm(x, params["encoder"]["final_norm"]), positions
+
+
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            frames: torch.Tensor | None = None, remat: bool = True,
+            return_hidden: bool = False, act_sharding=None,
+            unroll: bool = False, attn_scheme: str = "simple"):
+    """Training / prefill forward.  tokens: (B, S) integer.
+    Returns (logits (B, S, V) — or the final hidden (B, S, D) with
+    ``return_hidden`` — and the aux loss scalar)."""
+    params = _as_tree(params)
+    B, S = tokens.shape
+    dt = cfg.cdtype
+    x = params["embed"].to(dt)[tokens]
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    enc_out = enc_pos = None
+    if cfg.family == "encdec":
+        if frames is None:
+            raise ValueError("encdec needs stub frame embeddings")
+        enc_out, enc_pos = encode(params, cfg, frames.to(dt))
+        pos_tab = torch.as_tensor(sinusoidal_positions(S, cfg.d_model),
+                                  device=x.device).to(dt)
+        x = x + pos_tab[None]
+    x, aux = _run_stack(params["segments"], layer_plan(cfg), x, positions,
+                        cfg, shared=params.get("shared_block"),
+                        enc_out=enc_out, enc_pos=enc_pos, remat=remat,
+                        act_sharding=act_sharding, unroll=unroll,
+                        attn_scheme=attn_scheme)
+    x = rms_norm(x, params["final_norm"])
+    if return_hidden:
+        return x, aux
+    return x @ unembed_matrix(params, cfg), aux
+
+
+def unembed_matrix(params: dict, cfg: ModelConfig) -> torch.Tensor:
+    params = _as_tree(params)
+    return (params["embed"].t() if cfg.tie_embeddings
+            else params["unembed"]).to(cfg.cdtype)
+
+
+# ----------------------------------------------------------------- decode
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               enc_len: int | None = None, device=None) -> dict:
+    """KV/SSM cache tree mirroring the segment structure, on ``device``
+    (CUDA unless given).
+
+    ``cfg.kv_cache_dtype == "int8"`` stores self-attention caches as int8
+    with per-entry float32 scales."""
+    dev = resolve_device(device)
+    dt = cfg.cdtype
+    quant = cfg.kv_cache_dtype == "int8"
+    kv_dt = torch.int8 if quant else dt
+    K, hd = cfg.n_kv_heads, cfg.hd
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    cache: dict[str, Any] = {"segments": []}
+    for repeats, slots in layer_plan(cfg):
+        seg = {}
+        for si, slot in enumerate(slots):
+            if slot.kind == "ssm":
+                c = ssm_mod.ssm_init_cache(cfg, batch, dt, dev, (repeats,))
+            else:
+                C = min(slot.window, max_seq) if slot.window else max_seq
+                c = {"k": zeros((repeats, batch, C, K, hd), kv_dt),
+                     "v": zeros((repeats, batch, C, K, hd), kv_dt)}
+                if quant:
+                    c["k_scale"] = zeros((repeats, batch, C, K),
+                                         torch.float32)
+                    c["v_scale"] = zeros((repeats, batch, C, K),
+                                         torch.float32)
+                if slot.cross:
+                    T = enc_len or cfg.n_frames
+                    c["ck"] = zeros((repeats, batch, T, K, hd), dt)
+                    c["cv"] = zeros((repeats, batch, T, K, hd), dt)
+            if slot.shared_attn:
+                c["shared_k"] = zeros((repeats, batch, max_seq, K, hd), kv_dt)
+                c["shared_v"] = zeros((repeats, batch, max_seq, K, hd), kv_dt)
+                if quant:
+                    c["shared_k_scale"] = zeros((repeats, batch, max_seq, K),
+                                                torch.float32)
+                    c["shared_v_scale"] = zeros((repeats, batch, max_seq, K),
+                                                torch.float32)
+            seg[f"slot{si}"] = c
+        cache["segments"].append(seg)
+    return cache
+
+
+def _decode_slot(sp: dict, cache_slot: dict, slot: Slot, x, pos, cfg,
+                 shared):
+    """One sub-layer's decode; ``cache_slot`` holds views of one repeat
+    of the cache and is updated in place."""
+    if slot.kind == "ssm":
+        h, c = ssm_mod.ssm_decode(sp["ssm"], cache_slot,
+                                  rms_norm(x, sp["ln"]), cfg)
+        x = x + h
+        cache_slot["conv"].copy_(c["conv"])
+        cache_slot["state"].copy_(c["state"])
+    else:
+        h = attn_mod.attn_decode(
+            sp["attn"], cache_slot["k"], cache_slot["v"],
+            rms_norm(x, sp["ln1"]), pos, cfg, window=slot.window,
+            theta=slot.theta, k_scale=cache_slot.get("k_scale"),
+            v_scale=cache_slot.get("v_scale"))[0]
+        x = x + h
+        if slot.cross:
+            x = x + attn_mod.cross_attn_decode(
+                sp["cross"], cache_slot["ck"], cache_slot["cv"],
+                rms_norm(x, sp["ln_x"]), cfg)
+        if slot.moe:
+            # decode: dense per-token expert mix (B tokens, no capacity)
+            h, _ = _moe_decode(sp["mlp"], rms_norm(x, sp["ln2"]), cfg)
+        else:
+            h = mlp_mod.mlp_forward(sp["mlp"], rms_norm(x, sp["ln2"]))
+        x = x + h
+    if slot.shared_attn and shared is not None:
+        h = attn_mod.attn_decode(
+            shared["attn"], cache_slot["shared_k"], cache_slot["shared_v"],
+            rms_norm(x, shared["ln1"]), pos, cfg, window=0,
+            theta=cfg.rope_theta,
+            k_scale=cache_slot.get("shared_k_scale"),
+            v_scale=cache_slot.get("shared_v_scale"))[0]
+        x = x + h
+        x = x + mlp_mod.mlp_forward(shared["mlp"],
+                                    rms_norm(x, shared["ln2"]))
+    return x
+
+
+def _moe_decode(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """Single-token MoE decode by one-hot activation dispatch: every
+    expert runs over the (B, D) tokens and the outputs are mixed with the
+    routed gates (zero for experts a token was not routed to).  Exact for
+    decode: no capacity, no drops."""
+    B, S, D = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    dt = x.dtype
+    logits = (x @ p["router"].to(dt)).float()
+    probs = torch.softmax(logits, dim=-1)
+    gate, eidx = torch.topk(probs, k, dim=-1, sorted=True)   # (B,1,k)
+    gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
+    # combine weights per expert: (B, E), zero for unrouted experts
+    comb = torch.zeros((B, E), dtype=torch.float32, device=x.device)
+    comb.scatter_add_(1, eidx[:, 0, :], gate[:, 0, :])
+    xe = x[:, 0, :]                                          # (B, D)
+    h = torch.nn.functional.silu(
+        torch.einsum("bd,edf->ebf", xe, p["wg"].to(dt))) * \
+        torch.einsum("bd,edf->ebf", xe, p["wu"].to(dt))
+    ye = torch.einsum("ebf,efd->ebd", h, p["wd"].to(dt))
+    y = torch.einsum("ebd,be->bd", ye, comb.to(dt))[:, None, :]
+    if cfg.n_shared_experts:
+        y = y + mlp_mod.mlp_forward(p["shared"], x)
+    return y, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def build_cross_cache(params: dict, cfg: ModelConfig,
+                      enc_out: torch.Tensor, cache: dict) -> dict:
+    """Fill the decoder cross-attention k/v from the encoder output
+    (serving prefill for enc-dec models), in place; returns ``cache``."""
+    params = _as_tree(params)
+    K, hd = cfg.n_kv_heads, cfg.hd
+    dt = enc_out.dtype
+    for seg_p, seg_c, (repeats, slots) in zip(
+            params["segments"], cache["segments"], layer_plan(cfg)):
+        for si, slot in enumerate(slots):
+            if not slot.cross:
+                continue
+            for r in range(repeats):
+                cp = _layer(seg_p[f"slot{si}"]["cross"], r)
+                k = enc_out @ cp["wk"].to(dt)
+                v = enc_out @ cp["wv"].to(dt)
+                if cfg.qkv_bias:
+                    k = k + cp["bk"].to(dt)
+                    v = v + cp["bv"].to(dt)
+                k = k.reshape(k.shape[:-1] + (K, hd))
+                v = v.reshape(v.shape[:-1] + (K, hd))
+                if cfg.qk_norm:
+                    k = rms_norm(k, cp["k_norm"])
+                seg_c[f"slot{si}"]["ck"][r].copy_(k)
+                seg_c[f"slot{si}"]["cv"][r].copy_(v)
+    return cache
+
+
+def decode_step(params: dict, cfg: ModelConfig, cache: dict,
+                token: torch.Tensor, pos: torch.Tensor):
+    """token: (B,) integer; pos: (B,) integer.  Returns (logits (B, V),
+    cache), the cache updated in place."""
+    params = _as_tree(params)
+    dt = cfg.cdtype
+    x = params["embed"].to(dt)[token][:, None, :]           # (B,1,D)
+    if cfg.family == "encdec":
+        x = x + sinusoidal_at(pos, cfg.d_model).to(dt)[:, None, :]
+    shared = params.get("shared_block")
+    for seg_p, seg_c, (repeats, slots) in zip(
+            params["segments"], cache["segments"], layer_plan(cfg)):
+        for r in range(repeats):
+            layer_p, layer_c = _layer(seg_p, r), _layer(seg_c, r)
+            for si, slot in enumerate(slots):
+                x = _decode_slot(layer_p[f"slot{si}"], layer_c[f"slot{si}"],
+                                 slot, x, pos, cfg, shared)
+    x = rms_norm(x, params["final_norm"])
+    logits = (x @ unembed_matrix(params, cfg))[:, 0, :]
+    return logits, cache
