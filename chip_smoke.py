@@ -129,7 +129,18 @@ Phases (any failed check exits non-zero; nothing is caught):
                (batch 8, prompt 512 + gen 64: every local ring wraps),
                the decode path's logits of all 576 positions against
                ``make_prefill_step``'s, then one decode step profiled and
-               timed (see ``lm_serve_phase``).
+               timed (see ``lm_serve_phase``);
+18. LM train — LM training, which runs none of the three kernels (see
+               ``lm_train_phase``): (a) the ten reduced configs' train
+               steps in float32, card against CPU on the same state and
+               batch (loss, ce, aux, grad norm, every gradient leaf),
+               accum 2 against 1, and the mini cyclic stream's CE halving
+               on the card; (b) qwen2-0.5b at its published width in bf16
+               through ``launch.train.main`` (batch 8 × seq 4096, accum
+               2), its first-step loss against a float32 loss of the same
+               weights and batch, then one step profiled; (c) the
+               fail-at-step-9-and-resume contract as three
+               ``launch.train`` processes on the card.
 
 Phases 8 and 9 print wall time, solved queries per second, peak device
 memory and host syncs per solve; phase 10 prints each pass's wall time,
@@ -142,10 +153,14 @@ wall time, passes or requests per second and launches per variant;
 phase 17 prints tokens per second of the prompt through the decode path,
 of generation and of ``make_prefill_step``, ms per decode step against
 its bound, launches per step, device busy share and peak memory above
-the weights.  Launch counters are set to 0 just before each main-path
-phase (5, 6, 8, 9, 12, 13, 14's loopback passes, 16's direct solves and
-its server pass, 17's two parts), each server pass and each runtime
-pass, and read just after;
+the weights; phase 18 prints s per step, tokens per second, the share
+of the step that ``launch.costmodel.step_cost``'s bound is, MFU against
+6·N·tokens, launches and device busy time of one profiled step, and the
+peak memory split into masters + moments and what the step adds.
+Launch counters are set to 0 just before each main-path phase (5, 6, 8,
+9, 12, 13, 14's loopback passes, 16's direct solves and its server
+pass, 17's two parts, 18's three parts and its profiled step), each
+server pass and each runtime pass, and read just after;
 spawned replicas count in their own processes, which the table does not
 read.  Data comes from fixed seeds through numpy.  The second-to-last
 line is the kernel table as JSON; the last line is
@@ -188,6 +203,14 @@ RUNTIME_REQUESTS, RUNTIME_SEED, CHAOS_SEED = 96, 12, 139
 # other places over 26 layers), each relative to a position's largest
 # |logit|
 LM_CARD_RTOL, LM_BF16_RTOL = 1e-4, 5e-2
+# phase 18: the card's float32 train step against the port's on the CPU,
+# relative to each leaf's largest |value|; (b)'s run and its gate (see
+# lm_train_phase for how TRAIN_BF16_RTOL was set)
+TRAIN_CARD_RTOL, TRAIN_BF16_RTOL = 1e-4, 5e-3
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM = "qwen2-0.5b", 8, 4096, 2
+# a step takes about 10 s on the card (PERF.md §5): one warm-up and two
+# timed steps keep the phase near two minutes
+TRAIN_WARM, TRAIN_TIMED = 1, 2
 
 
 def fail(msg: str) -> None:
@@ -494,6 +517,349 @@ def lm_serve_phase(dev, card: str) -> None:
           f"kernel launches {counts17} {card}", flush=True)
     del rec, keep, model, cache, step, prefill, one
     torch.cuda.empty_cache()
+
+
+def lm_train_phase(dev, card: str) -> dict:
+    """Phase 18, LM training on the card; a failed check exits.  Returns
+    the three kernels' launch counts over its parts (all 0: training
+    runs none of them).
+
+    (a) The ten reduced configs in float32 (TF32 off since phase 1), the
+    state from a seeded CPU generator copied to the card, B = 2, S = 40,
+    ``loss_chunk`` 32: the card's ``make_grad_step`` (the train step's
+    forward and backward) and ``make_train_step`` against the same on the
+    CPU — loss, ce, aux, grad norm and every gradient leaf within
+    TRAIN_CARD_RTOL of the leaf's largest |value| (a leaf whose CPU
+    gradient is below 1e-6 of the tree's largest is zero in exact
+    arithmetic, the enc-dec cross-attention key bias: both below that);
+    the reference's contract that ``accum`` 2 lands within 5e-3 of
+    ``accum`` 1; and the reduced qwen3 stream of
+    ``test_loss_decreases_on_learnable_data`` (60 steps, cyclic) ending
+    below half its first CE.
+    (b) qwen2-0.5b at its published width (arXiv:2407.10671) through
+    ``launch.train.main``: bf16 compute, float32 masters and moments,
+    ``--batch 8 --seq 4096 --accum 2`` (32768 tokens a step, two
+    microbatches of 4 × 4096), the cyclic pattern, TRAIN_WARM warm-up
+    and TRAIN_TIMED timed steps, no checkpoints.  Gate: the first step's
+    bf16 loss within TRAIN_BF16_RTOL (relative) of the float32 loss of
+    the same weights (the same seed on the card) and batch.  The
+    reduced configs' bf16-vs-f32 loss gap on the CPU (B = 4, S = 128,
+    ``tests/test_torch_train_models.py::test_bf16_loss_gap``) is at most
+    5e-5 for the dense ones and 1.07e-3 in all (olmoe: bf16 moves tokens
+    between experts); 5e-3 is five times the largest, for a model with
+    six times the reduced one's layers.  Then one more step profiled
+    (launches, device time), the step time against
+    ``costmodel.step_cost``'s bound and 6·N·tokens, and the peak memory.
+    (c) The restart contract of ``tests/test_train.py::
+    test_failure_restart_reproduces_run`` on the card: three
+    ``launch.train`` processes (qwen3-0.6b reduced, 14 steps, batch 2,
+    seq 32, a checkpoint every 5): uninterrupted, ``--fail-at-step 9``
+    (exit 42), ``--resume``; the final losses within rtol 1e-4.
+    """
+    import dataclasses
+    import os
+    import tempfile
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import ARCHS, get_config, reduced
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.synthetic import DataConfig, batch_at
+    from repro_torch.kernels import ops
+    from repro_torch.launch import costmodel
+    from repro_torch.launch import train as lm_train
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import steps
+    from repro_torch.tree import tree_items, tree_leaves, tree_map
+
+    def on(tree, device):
+        return tree_map(lambda a: a.to(device, copy=True), tree)
+
+    def rel(got, want) -> float:
+        return abs(float(got) - float(want)) / max(abs(float(want)), 1e-30)
+
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    # ------------------------------------------------ (a) reduced configs
+    ops.reset_launch_counts()
+    t18 = time.perf_counter()
+    opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    worst = {"loss": 0.0, "grad": 0.0, "step": 0.0}
+    for arch in sorted(ARCHS):
+        cfg = reduced(get_config(arch))
+        rng18 = np.random.default_rng(0)
+        batch = {k: torch.as_tensor(rng18.integers(0, cfg.vocab_size,
+                                                   (2, 40)))
+                 for k in ("tokens", "labels")}
+        if cfg.family == "encdec":
+            batch["frames"] = torch.as_tensor(rng18.normal(
+                size=(2, cfg.n_frames, cfg.d_model)), dtype=torch.float32)
+        host = steps.init_train_state(cfg, opt, seed=0, device="cpu")
+        card_state = on(host, dev)
+        card_batch = on(batch, dev)
+        grad_step = steps.make_grad_step(cfg, opt, loss_chunk=32)
+        lc, mc, gc = grad_step(card_state["params"], card_batch)
+        lh, mh, gh = grad_step(host["params"], batch)
+        at = f"LM train {arch}"
+        e_loss = max(rel(lc, lh), rel(mc["ce"], mh["ce"]),
+                     abs(float(mc["aux"]) - float(mh["aux"]))
+                     / max(abs(float(mh["aux"])), 1.0))
+        check(e_loss <= TRAIN_CARD_RTOL,
+              f"{at}: card vs cpu loss/ce/aux {e_loss:.3e}")
+        want = dict(tree_items(gh))
+        top = max(float(g.abs().max()) for g in want.values())
+        e_grad = 0.0
+        for path, g in tree_items(gc):
+            w = want[path]
+            g = g.cpu()
+            scale = float(w.abs().max())
+            if scale < 1e-6 * top:
+                check(float(g.abs().max()) < 1e-6 * top
+                      and "cross" in path and "bk" in path,
+                      f"{at}: gradient {path} is not a zero leaf")
+                continue
+            e = float((g - w).abs().max()) / scale
+            check(e <= TRAIN_CARD_RTOL,
+                  f"{at}: gradient {path} card vs cpu {e:.3e}")
+            e_grad = max(e_grad, e)
+        del gc, gh
+        step = steps.make_train_step(cfg, opt, loss_chunk=32)
+        _, met_c = step(card_state, card_batch)
+        _, met_h = step(host, batch)
+        e_step = max(rel(met_c[k], met_h[k])
+                     for k in ("loss", "ce", "grad_norm"))
+        check(e_step <= TRAIN_CARD_RTOL,
+              f"{at}: train step card vs cpu {e_step:.3e}")
+        for k, e in (("loss", e_loss), ("grad", e_grad), ("step", e_step)):
+            worst[k] = max(worst[k], e)
+        print(f"{at}: card vs cpu loss/ce/aux {e_loss:.3e}, gradient "
+              f"leaves {e_grad:.3e}, train step loss/ce/grad norm "
+              f"{e_step:.3e} (<= {TRAIN_CARD_RTOL:g}) {card}", flush=True)
+
+    # the reference's accumulation contract and convergence stream, on
+    # the mini config of tests/test_train.py
+    mini = dataclasses.replace(
+        reduced(get_config("qwen3-0.6b")), n_layers=2, d_model=64,
+        d_ff=128, n_heads=2, n_kv_heads=1, head_dim=32, vocab_size=64,
+        vocab_pad_multiple=64)
+    opt_acc = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    dacc = DataConfig(vocab_size=64, seq_len=32, global_batch=8)
+    b_acc = {k: torch.as_tensor(v, device=dev)
+             for k, v in batch_at(dacc, 0).items()}
+    outs = []
+    for accum in (1, 2):
+        st = steps.init_train_state(mini, opt_acc, seed=0, device=dev)
+        st, _ = steps.make_train_step(mini, opt_acc, accum=accum,
+                                      loss_chunk=256)(st, b_acc)
+        outs.append(tree_leaves(st["params"]))
+    d_acc = max(float((a - b).abs().max()) for a, b in zip(*outs))
+    check(d_acc < 5e-3, f"accum 2 vs 1: {d_acc:.3e}")
+    opt_mini = OptConfig(lr=3e-3, warmup_steps=5, total_steps=60)
+    st = steps.init_train_state(mini, opt_mini, seed=0, device=dev)
+    step = steps.make_train_step(mini, opt_mini, loss_chunk=256)
+    dmini = DataConfig(vocab_size=64, seq_len=64, global_batch=8,
+                       pattern="cyclic")
+    ces = []
+    for i in range(60):
+        st, m = step(st, {k: torch.as_tensor(v, device=dev)
+                          for k, v in batch_at(dmini, i).items()})
+        ces.append(float(m["ce"]))
+    check(ces[0] > 3.0 and ces[-1] < 0.5 * ces[0],
+          f"the mini stream's CE went {ces[0]:.4f} -> {ces[-1]:.4f}")
+    counts_a = ops.launch_counts()
+    check(not any(counts_a.values()),
+          f"the reduced train steps launched {counts_a}")
+    add(counts_a)
+    print(f"LM train reduced: ten configs held in "
+          f"{time.perf_counter() - t18:.2f} s, worst {worst}; accum 2 vs 1 "
+          f"{d_acc:.3e} (< 5e-3); mini cyclic stream CE {ces[0]:.4f} -> "
+          f"{ces[-1]:.4f} in 60 steps {card}", flush=True)
+    del st, step, outs
+    t_a = time.perf_counter() - t18
+
+    # ------------------------------------- (b) qwen2-0.5b, published width
+    B18, S18, A18 = TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM
+    n_steps = TRAIN_WARM + TRAIN_TIMED
+    rec = {}
+    ops.reset_launch_counts()
+    t_run = time.perf_counter()
+    check(lm_train.main(["--arch", TRAIN_ARCH, "--batch", str(B18),
+                         "--seq", str(S18), "--accum", str(A18),
+                         "--steps", str(n_steps), "--data-pattern",
+                         "cyclic", "--log-every", "1", "--seed", "0"],
+                        record=rec) == 0, "launch.train.main failed")
+    t_run = time.perf_counter() - t_run
+    counts_b = ops.launch_counts()
+    check(not any(counts_b.values()), f"LM training launched {counts_b}")
+    add(counts_b)
+    cfg = rec["cfg"]
+    check((cfg.name, cfg.n_layers, cfg.d_model, cfg.n_heads,
+           cfg.n_kv_heads, cfg.hd, cfg.d_ff, cfg.vocab_size, cfg.qkv_bias,
+           cfg.tie_embeddings, cfg.dtype)
+          == ("qwen2-0.5b", 24, 896, 14, 2, 64, 4864, 151936, True, True,
+              "bfloat16"),
+          f"qwen2-0.5b is not at its published width: {cfg}")
+    hist = rec["history"]
+    check(len(hist) == n_steps and all(np.isfinite(h["loss"])
+                                       and np.isfinite(h["grad_norm"])
+                                       for h in hist),
+          f"non-finite train metrics {hist}")
+    n_params = sum(p.numel() for p in tree_leaves(rec["state"]["params"]))
+    timed = rec["times"][TRAIN_WARM:]
+    s_step = statistics.median(timed)
+    tokens = B18 * S18
+    cost = costmodel.step_cost(cfg, ShapeSpec("train", S18, B18, "train"),
+                               n_chips=1, tp=1)
+    t_ops = cost.flops / costmodel.PEAK_FLOPS
+    t_bytes = cost.hbm_bytes / costmodel.HBM_BW
+    bound_s, bound_by = max((t_ops, "FLOPs"), (t_bytes, "bytes"))
+    mfu = 6 * n_params * tokens / (s_step * costmodel.PEAK_FLOPS)
+
+    # one more step, profiled: launches and device time
+    state, step_fn = rec["state"], rec["step_fn"]
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in batch_at(rec["data_cfg"], n_steps).items()}
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, m = step_fn(state, batch)
+        float(m["loss"])
+        t_read = time.perf_counter()
+        t_prof = t_read - t0
+    counts_p = ops.launch_counts()
+    check(not any(counts_p.values()), f"the profiled step launched "
+          f"{counts_p}")
+    add(counts_p)
+    # the device events summed from the profiler's raw records: building
+    # its FunctionEvents (events(), key_averages()) for a few hundred
+    # thousand launches takes minutes
+    by_kernel = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            n, ns = by_kernel.get(e.name(), (0, 0))
+            by_kernel[e.name()] = (n + 1, ns + e.duration_ns())
+    launches = sum(n for n, _ in by_kernel.values())
+    busy_s = sum(ns for _, ns in by_kernel.values()) * 1e-9
+    t_read = time.perf_counter() - t_read
+    check(launches > 0 and busy_s > 0,
+          "the profiler saw no device event of a train step")
+    top5 = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:5]
+    state_bytes, held = rec["state_bytes"], rec["held_bytes"]
+    above = rec["peak_bytes"] - held - state_bytes
+    del state, step_fn, rec, m, prof, by_kernel
+    torch.cuda.empty_cache()
+
+    # the gate: the first step's bf16 loss against a float32 loss of the
+    # same weights (same seed on the card) and batch, microbatch for
+    # microbatch as the trainer takes them
+    t_gate = time.perf_counter()
+    params = tfm.init_params(cfg, seed=0, device=dev)
+    first = {k: torch.as_tensor(v, device=dev) for k, v in batch_at(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=S18, global_batch=B18,
+                   seed=0, pattern="cyclic"), 0).items()}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    mb = B18 // A18
+    losses = {}
+    with torch.no_grad():
+        for name, c in (("float32", cfg32), ("bfloat16", cfg)):
+            loss_fn = steps.make_loss_fn(c, loss_chunk=min(2048, tokens))
+            p = steps.cast_tree(params, c.cdtype)
+            losses[name] = float(sum(
+                loss_fn(p, first["tokens"][i:i + mb],
+                        first["labels"][i:i + mb])[0]
+                for i in range(0, B18, mb)) / A18)
+            del p
+    del params
+    torch.cuda.empty_cache()
+    t_gate = time.perf_counter() - t_gate
+    e_gate = rel(hist[0]["loss"], losses["float32"])
+    check(e_gate <= TRAIN_BF16_RTOL,
+          f"{TRAIN_ARCH} first-step bf16 loss {hist[0]['loss']:.6f} vs "
+          f"float32 {losses['float32']:.6f}: {e_gate:.3e}")
+    print(f"LM train {TRAIN_ARCH} (published width, {n_params} "
+          f"parameters, param_count() {cfg.param_count()}), bf16 compute, f32 masters: batch {B18} x seq "
+          f"{S18}, accum {A18}; first-step loss {hist[0]['loss']:.6f} vs "
+          f"float32 {losses['float32']:.6f} on the same weights and batch: "
+          f"{e_gate:.3e} (<= {TRAIN_BF16_RTOL:g}); the same weights' bf16 "
+          f"loss without gradients {losses['bfloat16']:.6f} (both losses "
+          f"in {t_gate:.2f} s); losses "
+          f"{[round(h['loss'], 4) for h in hist]}, grad norms "
+          f"{[round(h['grad_norm'], 3) for h in hist]} {card}", flush=True)
+    print(f"LM train {TRAIN_ARCH} step: {s_step:.4f} s per step (median of "
+          f"{TRAIN_TIMED} after {TRAIN_WARM} warm-up: "
+          f"{', '.join(f'{t:.4f}' for t in timed)}; host clock ending in "
+          f"the loss read), {tokens / s_step:,.0f} tokens/s; cost model "
+          f"{cost.flops / 1e12:.2f} TFLOP and {cost.hbm_bytes / 1e9:.2f} GB "
+          f"per step: bound {bound_s:.4f} s by {bound_by} ({t_ops:.4f} s "
+          f"at 989 TFLOP/s, {t_bytes:.4f} s at 3.35 TB/s), "
+          f"{100 * bound_s / s_step:.1f}% of the step; MFU "
+          f"{100 * mfu:.2f}% (6·N·tokens = "
+          f"{6 * n_params * tokens / 1e12:.2f} TFLOP); run of {n_steps} "
+          f"steps {t_run:.2f} s {card}", flush=True)
+    print(f"LM train {TRAIN_ARCH} profiled step: {launches} launches, "
+          f"device busy {busy_s:.4f} s of the {t_prof:.4f} s profiled step "
+          f"({100 * busy_s / s_step:.1f}% of the median step; the trace "
+          f"closed and read in {t_read:.2f} s); top kernels "
+          f"(name, launches, ms) "
+          f"{[(k[:60], n, round(ns * 1e-6, 1)) for k, (n, ns) in top5]}; "
+          f"peak device memory above what was held before the run "
+          f"{(above + state_bytes) / 2**30:.2f} GiB: masters + moments "
+          f"{state_bytes / 2**30:.2f} GiB, the step {above / 2**30:.2f} GiB "
+          f"above them; kernel launches {counts_b} {card}", flush=True)
+
+    t_b = time.perf_counter() - t18 - t_a
+
+    # ------------------------------------------ (c) the restart contract
+    ops.reset_launch_counts()
+    t_c = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            "qwen3-0.6b", "--reduced", "--steps", "14", "--batch", "2",
+            "--seq", "32", "--ckpt-every", "5", "--log-every", "1"]
+
+    def final_loss(out: str) -> float:
+        lines = [ln for ln in out.splitlines() if "step    13" in ln]
+        check(bool(lines), f"no step 13 in {out}")
+        return float(lines[-1].split("loss")[1].split()[0])
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt-") as tmp:
+        ck1, ck2 = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        runs = [subprocess.Popen(base + ["--ckpt-dir", d] + extra, env=env,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+                for d, extra in ((ck1, []), (ck2, ["--fail-at-step", "9"]))]
+        (o1, e1), (o2, e2) = [r.communicate(timeout=300) for r in runs]
+        check(runs[0].returncode == 0, f"uninterrupted run: {o1}{e1}")
+        check(runs[1].returncode == 42 and "SIMULATED NODE FAILURE" in o2,
+              f"--fail-at-step 9 exited {runs[1].returncode}: {o2}{e2}")
+        r3 = subprocess.run(base + ["--ckpt-dir", ck2, "--resume"],
+                            env=env, capture_output=True, text=True,
+                            timeout=300)
+        check(r3.returncode == 0 and "resumed from step 5" in r3.stdout,
+              f"resumed run: {r3.stdout}{r3.stderr}")
+    l1, l3 = final_loss(o1), final_loss(r3.stdout)
+    check(abs(l1 - l3) <= 1e-4 * abs(l1),
+          f"resumed final loss {l3} != uninterrupted {l1}")
+    counts_c = ops.launch_counts()
+    add(counts_c)
+    print(f"LM train restart: qwen3-0.6b reduced, 14 steps, failure at "
+          f"step 9 (exit 42), resumed from step 5: final loss {l3:.6f} vs "
+          f"uninterrupted {l1:.6f} ({abs(l1 - l3) / abs(l1):.3e}, rtol "
+          f"1e-4) in {time.perf_counter() - t_c:.2f} s; the processes "
+          f"count their own launches (none of the three kernels runs in "
+          f"training) {card}", flush=True)
+    print(f"LM train: phase 18 in {time.perf_counter() - t18:.2f} s ((a) "
+          f"{t_a:.2f} s, (b) {t_b:.2f} s, (c) "
+          f"{time.perf_counter() - t_c:.2f} s) {card}", flush=True)
+    return total
 
 
 def main() -> int:
@@ -2129,6 +2495,11 @@ def main() -> int:
         launches[k] += counts16[k] + server16[k]
 
     lm_serve_phase(dev, card)
+    counts18 = lm_train_phase(dev, card)
+    for r in rows:
+        r["launches"] += counts18.get(r["name"], 0)
+    for k in build.KERNELS:
+        launches[k] += counts18.get(k, 0)
 
     loaded = [m for m in sys.modules
               if m.split(".")[0] == "jax" or m.startswith("repro.")

@@ -32,6 +32,14 @@ server's lifted cap/out ceilings.  On the LM side: the models of the
 ten configs' six families (``models``: dense, moe, ssm, hybrid, encdec,
 vlm) with their KV/SSM decode caches, the serve steps
 (``train.steps``), the input shapes (``configs.shapes``) and the
-batched serving driver (``launch.serve``); LM training and its launch
-tooling are not ported.
+batched serving driver (``launch.serve``); and LM training on one
+device: the train steps (``train.steps``: chunked cross-entropy,
+per-layer recomputation under ``remat``, gradient accumulation,
+compressed gradients with error feedback), AdamW (``optim.adamw``),
+checkpoints in the reference's file format (``checkpoint.ckpt``), the
+synthetic data stream (``data.synthetic``), the fault-tolerant driver
+(``launch.train``) and the analytic step cost model
+(``launch.costmodel``).  The LM meshes and the dry-run tooling
+(``launch.{dryrun,hlo_parse,specs}``, ``models.sharding``) are not
+ported.
 """

@@ -6,7 +6,8 @@ a ``repro.core.querygraph.QueryGraph`` and its (2^n,) float64 table;
 ``plan_key`` turns a plan into what the two packages are compared on —
 the optimum's ``float.hex`` and the tree's string.  The LM side carries
 parameter and cache pytrees over path for path
-(``lm_params_from_reference``, ``lm_cache_from_reference``): the port
+(``lm_params_from_reference``, ``lm_cache_from_reference``), and a
+train state leaf for leaf (``train_state_from_reference``): the port
 keeps the reference's paths and shapes, so nothing is transposed.  Plain
 values only: this module imports nothing of ``repro``.
 """
@@ -18,7 +19,7 @@ import torch
 from repro_torch.core.querygraph import QueryGraph
 from repro_torch.device import resolve_device
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.transformer import LM
+from repro_torch.models.transformer import LM, layer_plan
 
 
 def from_reference(n: int, edges, hyperedges, card, device=None):
@@ -58,3 +59,20 @@ def lm_cache_from_reference(cache_np, device=None) -> dict:
     """A ``repro`` decode cache (nested numpy arrays) as the port's cache
     tree on ``device`` (CUDA unless given)."""
     return _tensor_tree(cache_np, resolve_device(device))
+
+
+def train_state_from_reference(cfg: ModelConfig, state_np,
+                               device=None) -> dict:
+    """The port's train state (``train.steps.init_train_state``'s tree:
+    ``{"params", "opt": {"mu", "nu", "step"}[, "residual"]}``) holding
+    the values of a ``repro`` train state given as nested numpy arrays,
+    on ``device`` (CUDA unless given).  Every leaf keeps its path, shape
+    and dtype."""
+    params = state_np["params"]
+    embed = tuple(np.shape(params["embed"]))
+    if (embed != (cfg.padded_vocab, cfg.d_model)
+            or len(params["segments"]) != len(layer_plan(cfg))):
+        raise ValueError(f"the state's parameters (embed {embed}, "
+                         f"{len(params['segments'])} segments) do not fit "
+                         f"{cfg.name}")
+    return _tensor_tree(state_np, resolve_device(device))

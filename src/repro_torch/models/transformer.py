@@ -12,8 +12,17 @@ Parameters are nested dicts of tensors with the reference's paths and
 shapes: ``(d_in, d_out)`` matrices, and a leading ``(repeats,)`` axis on
 the leaves of each segment slot.  The reference's ``lax.scan`` over
 repeats is a Python loop over that axis.  ``LM`` holds such a tree as an
-``nn.Module``.  ``remat`` and ``unroll`` are accepted and change nothing
-in a forward without gradients; ``act_sharding`` must be ``None``.
+``nn.Module``.  ``unroll`` is accepted and changes nothing (there is no
+compiled loop); ``act_sharding`` must be ``None``.
+
+``remat`` is the reference's policy for one repeat of a segment (its
+scan body), applied when gradients are recorded: ``True``/``"full"``
+recomputes the repeat in the backward pass
+(``torch.utils.checkpoint``, non-reentrant), ``"dots"`` saves the
+outputs of the non-batched matrix products (``aten.mm``/``addmm``) and
+recomputes the rest (selective checkpointing, the counterpart of
+``dots_with_no_batch_dims_saveable``), anything else saves everything.
+Under ``torch.no_grad`` (the serving paths) nothing is wrapped.
 
 Decode caches mirror the segment structure as in the reference, and
 ``decode_step`` updates them in place (the reference returns a new
@@ -26,6 +35,8 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -229,25 +240,59 @@ def _apply_slot(sp: dict, slot: Slot, x, positions, cfg, shared,
     return x, aux
 
 
+def _unstack(tree, repeats: int) -> list:
+    """The ``repeats`` subtrees of a stacked segment, as views.  One
+    ``unbind`` per leaf: its backward stacks the per-repeat gradients
+    once, where indexing each repeat would add a leaf-sized gradient per
+    repeat."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, repeats) for k, v in tree.items()}
+        return [{k: v[r] for k, v in per.items()} for r in range(repeats)]
+    return list(tree.unbind(0))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_dots():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _remat(body, remat):
+    """``body`` under the reference's remat policy (see the module
+    docstring)."""
+    if not torch.is_grad_enabled() or remat not in (True, "full", "dots"):
+        return body
+    kw = {"context_fn": _save_dots} if remat == "dots" else {}
+    return lambda *args: checkpoint(body, *args, use_reentrant=False,
+                                    preserve_rng_state=False, **kw)
+
+
 def _run_stack(segments_params: list, plan: list, x, positions, cfg,
                shared=None, enc_out=None, enc_pos=None,
                remat: bool = True, act_sharding=None,
                unroll: bool = False, attn_scheme: str = "simple"):
-    """The layer stack; ``remat`` and ``unroll`` change nothing here (no
-    gradients, no compiled loop)."""
+    """The layer stack, one repeat of a segment at a time under
+    ``remat``; ``unroll`` changes nothing (no compiled loop)."""
     if act_sharding is not None:
         raise ValueError("act_sharding has no counterpart in the port; "
                          "pass None")
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg_p, (repeats, slots) in zip(segments_params, plan):
-        for r in range(repeats):
-            layer_p = _layer(seg_p, r)
-            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        def body(h, layer_p, slots=slots):
+            aux = torch.zeros((), dtype=torch.float32, device=h.device)
             for si, slot in enumerate(slots):
-                x, a = _apply_slot(layer_p[f"slot{si}"], slot, x,
+                h, a = _apply_slot(layer_p[f"slot{si}"], slot, h,
                                    positions, cfg, shared, enc_out,
                                    enc_pos, attn_scheme=attn_scheme)
                 aux = aux + a
+            return h, aux
+        step = _remat(body, remat)
+        for layer_p in _unstack(seg_p, repeats):
+            x, aux = step(x, layer_p)
             aux_total = aux_total + aux
     return x, aux_total
 

@@ -1,2 +1,2 @@
 """Step builders of the port (see ``repro.train`` for the reference):
-the serving steps of ``train.steps``."""
+the train and serve steps of ``train.steps``."""

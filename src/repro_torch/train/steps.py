@@ -1,22 +1,81 @@
-"""Serve step builders (counterpart of the serving part of
-``repro.train.steps``): ``cast_tree``, ``make_prefill_step`` and
-``make_decode_step``.  The loss and the train step come with the
-optimizer.
+"""Train and serve step builders (counterpart of ``repro.train.steps``).
 
+Training: ``chunked_ce_loss``, ``make_loss_fn``, ``make_grad_step``,
+``make_train_step`` and ``init_train_state``.
+  * Chunked cross-entropy: the hidden states are projected V-wards
+    ``chunk`` tokens at a time, and each chunk's (chunk, V) logits are
+    recomputed in the backward pass (``torch.utils.checkpoint``,
+    non-reentrant; the reference's ``jax.checkpoint`` scan body), so no
+    (tokens, V) logits are kept.
+  * Gradients are taken with respect to a compute-dtype copy of the
+    float32 masters, made once per step as fresh leaves: ``bfloat16``
+    with ``grad_dtype="bfloat16"`` (compressed gradients), else
+    ``cfg.cdtype`` (a float32 leaf is aliased, not copied).
+  * ``accum`` microbatches run in turn; their gradients add up in the
+    leaves' ``.grad`` and are divided by ``accum``, as the reference's
+    scan does.  With compression, ``ef-sim`` error feedback keeps the
+    rounding residual in ``state["residual"]``.
+  * The state (``{"params", "opt": {"mu", "nu", "step"}[, "residual"]}``,
+    the reference's paths) is updated in place by
+    ``optim.adamw.apply_updates`` and returned.
+
+Serving: ``cast_tree``, ``make_prefill_step`` and ``make_decode_step``.
 The reference casts the float32 parameters to the compute dtype inside
 every jitted step, where XLA fuses the cast away.  Run eagerly, that
 cast would read and write every weight on every decode step, so each
-step here casts once, the first time it sees a parameter tree, and
+serve step casts once, the first time it sees a parameter tree, and
 keeps the cast copy for as long as it is handed the same tree (the same
 ``LM`` or dict object).  The cast is deterministic, so the numbers are
-those of a cast per call.
+those of a cast per call.  The train steps do not cache the cast: the
+masters change every step.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import ModelConfig
+from repro_torch.optim.adamw import OptConfig, apply_updates, init_opt_state
+from repro_torch.tree import tree_leaves, tree_map
+
+
+def _ce_chunk(xc, unembed, lc, vc):
+    logits = (xc @ unembed).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, 1, lc[:, None])[:, 0]
+    ce = ((lse - ll) * vc).sum()
+    z = ((lse * lse) * vc).sum()
+    return ce, z, vc.sum()
+
+
+def chunked_ce_loss(x: torch.Tensor, unembed: torch.Tensor,
+                    labels: torch.Tensor, valid: torch.Tensor,
+                    chunk: int = 1024, z_coef: float = 1e-4):
+    """x: (B,S,D) hidden; labels/valid: (B,S).  Mean CE over valid tokens
+    (and the z-loss), computed ``chunk`` tokens at a time so that peak
+    logits memory is (chunk, V).  Returns (loss, ce)."""
+    B, S, D = x.shape
+    n = B * S
+    chunk = min(chunk, n)
+    n_pad = ((n + chunk - 1) // chunk) * chunk
+    xf = F.pad(x.reshape(n, D), (0, 0, 0, n_pad - n))
+    lf = F.pad(labels.reshape(n).long(), (0, n_pad - n))
+    vf = F.pad(valid.reshape(n).float(), (0, n_pad - n))
+    body = _ce_chunk
+    if torch.is_grad_enabled():
+        def body(*args):
+            return checkpoint(_ce_chunk, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    ce, z, cnt = zero, zero, zero
+    for i in range(0, n_pad, chunk):
+        c_ce, c_z, c_cnt = body(xf[i:i + chunk], unembed,
+                                lf[i:i + chunk], vf[i:i + chunk])
+        ce, z, cnt = ce + c_ce, z + c_z, cnt + c_cnt
+    cnt = torch.clamp(cnt, min=1.0)
+    return ce / cnt + z_coef * z / cnt, ce / cnt
 
 
 def cast_tree(tree, dtype):
@@ -44,6 +103,123 @@ class _CastOnce:
         return self._cast
 
 
+def make_loss_fn(cfg: ModelConfig, aux_coef: float = 1e-2,
+                 z_coef: float = 1e-4, loss_chunk: int = 1024,
+                 remat="full", act_sharding=None,
+                 attn_scheme: str = "simple"):
+    """loss_fn(params, tokens, labels, frames=None) -> (loss, {"ce",
+    "aux"}); the forward casts floating leaves to ``cfg.cdtype`` at
+    use."""
+    def loss_fn(params, tokens, labels, frames=None):
+        x, aux = tfm.forward(params, cfg, tokens, frames=frames,
+                             remat=remat, return_hidden=True,
+                             act_sharding=act_sharding,
+                             attn_scheme=attn_scheme)
+        unembed = tfm.unembed_matrix(params, cfg)
+        valid = labels < cfg.vocab_size       # padded vocab ids are masked
+        loss, ce = chunked_ce_loss(x, unembed, labels, valid,
+                                   chunk=loss_chunk, z_coef=z_coef)
+        loss = loss + aux_coef * aux
+        return loss, {"ce": ce, "aux": aux}
+    return loss_fn
+
+
+def make_grad_step(cfg: ModelConfig, opt_cfg: OptConfig, accum: int = 1,
+                   loss_chunk: int = 1024, remat="full",
+                   aux_coef: float = 1e-2, act_sharding=None,
+                   attn_scheme: str = "simple"):
+    """grad_step(params, batch) -> (loss, {"ce", "aux"}, grads): the
+    train step's forward and backward over ``accum`` microbatches, before
+    error feedback and the update.  ``grads`` has the tree of ``params``
+    in the gradient dtype (``bfloat16`` with compression, else
+    ``cfg.cdtype``)."""
+    loss_fn = make_loss_fn(cfg, aux_coef=aux_coef, loss_chunk=loss_chunk,
+                           remat=remat, act_sharding=act_sharding,
+                           attn_scheme=attn_scheme)
+    gdt = (torch.bfloat16 if opt_cfg.grad_dtype == "bfloat16"
+           else cfg.cdtype)
+
+    def fresh_leaf(a):
+        return a.detach().to(gdt).requires_grad_() \
+            if a.is_floating_point() else a
+
+    def grad_step(params, batch):
+        params_c = tree_map(fresh_leaf, tfm._as_tree(params))
+        tokens, labels = batch["tokens"], batch["labels"]
+        frames = batch.get("frames")
+        mb = tokens.shape[0] // accum
+        losses, ces, auxs = [], [], []
+        for i in range(accum):
+            rows = slice(i * mb, (i + 1) * mb)
+            loss, met = loss_fn(params_c, tokens[rows], labels[rows],
+                                None if frames is None else frames[rows])
+            loss.backward()
+            losses.append(loss.detach())
+            ces.append(met["ce"].detach())
+            auxs.append(met["aux"].detach())
+        grads = tree_map(lambda a: a.grad if a.grad is not None
+                         else torch.zeros_like(a), params_c)
+        if accum == 1:
+            return losses[0], {"ce": ces[0], "aux": auxs[0]}, grads
+        for g in tree_leaves(grads):
+            g.div_(accum)
+        met = {"ce": torch.stack(ces).mean(), "aux": torch.stack(auxs).mean()}
+        return sum(losses) / accum, met, grads
+    return grad_step
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
+                    accum: int = 1, loss_chunk: int = 1024,
+                    remat="full", aux_coef: float = 1e-2,
+                    act_sharding=None, attn_scheme: str = "simple"):
+    """Returns train_step(state, batch) -> (state, metrics); the state is
+    updated in place.
+
+    state = {"params": f32 tree, "opt": {...}, "residual": optional}
+    batch = {"tokens": (B,S) integer, "labels": (B,S) integer
+             [, "frames": ...]}, tensors on the state's device.
+    """
+    grad_step = make_grad_step(cfg, opt_cfg, accum=accum,
+                               loss_chunk=loss_chunk, remat=remat,
+                               aux_coef=aux_coef, act_sharding=act_sharding,
+                               attn_scheme=attn_scheme)
+    compress = opt_cfg.grad_dtype == "bfloat16"
+
+    def train_step(state, batch):
+        loss, met, grads = grad_step(state["params"], batch)
+        if compress and opt_cfg.error_feedback and "residual" in state:
+            # ef-sim: quantize (grads + residual), carry the error
+            with torch.no_grad():
+                for g, r in zip(tree_leaves(grads),
+                                tree_leaves(state["residual"])):
+                    s = g.float() + r
+                    gq = s.to(torch.bfloat16)
+                    r.copy_(s - gq.float())
+                    g.copy_(gq)
+        _, _, omet = apply_updates(state["params"], grads, state["opt"],
+                                   opt_cfg)
+        return state, {"loss": loss, **met, **omet}
+
+    return train_step
+
+
+def init_train_state(cfg: ModelConfig, opt_cfg: OptConfig,
+                     seed: int = 0, error_feedback_state: bool = False,
+                     device=None) -> dict:
+    """Fresh float32 parameters (``init_params``), zero moments and a
+    zero step on ``device`` (CUDA unless given), and a float32 residual
+    with ``error_feedback_state``."""
+    params = tfm.init_params(cfg, seed=seed, device=device)
+    state = {"params": params, "opt": init_opt_state(params)}
+    if error_feedback_state:
+        state["residual"] = tree_map(
+            lambda a: torch.zeros(a.shape, dtype=torch.float32
+                                  if a.is_floating_point() else a.dtype,
+                                  device=a.device), params)
+    return state
+
+
+# ------------------------------------------------------------------ serve
 def make_prefill_step(cfg: ModelConfig, attn_scheme: str = "simple"):
     cast = _CastOnce(cfg)
 
