@@ -137,10 +137,24 @@ Phases (any failed check exits non-zero; nothing is caught):
                accum 2 against 1, and the mini cyclic stream's CE halving
                on the card; (b) qwen2-0.5b at its published width in bf16
                through ``launch.train.main`` (batch 8 × seq 4096, accum
-               2), its first-step loss against a float32 loss of the same
-               weights and batch, then one step profiled; (c) the
-               fail-at-step-9-and-resume contract as three
-               ``launch.train`` processes on the card.
+               2) on cuda:0 alone, its first-step loss and gradient norm
+               against a float32 step of the same weights and batch, then
+               one step profiled; (c) the fail-at-step-9-and-resume
+               contract as three ``launch.train`` processes on cuda:0;
+19. LM data parallel — ``launch.train --data-mesh D`` over the D visible
+               cards (D worker processes, NCCL; D = 1 on a one-card host
+               still goes through the process group), which runs none of
+               the three kernels (see ``lm_dp_phase``): (a) qwen2-0.5b at
+               its published width, the first step of phase 18 (b)'s run
+               at D cards, its loss and gradient norm against phase 18's
+               one-card first step; (b) weak scaling, 8·D sequences a
+               step (each card runs phase 18's rows): s per step,
+               tokens/s against D times phase 18's, the share of
+               ``costmodel.roofline_terms``'s bound, each card's masters
+               + moments, its peak while the state is built and its peak
+               above them in the steps, and the step's collective time
+               (each collective's least time over the ranks, and rank
+               0's with its waits).
 
 Phases 8 and 9 print wall time, solved queries per second, peak device
 memory and host syncs per solve; phase 10 prints each pass's wall time,
@@ -156,13 +170,15 @@ its bound, launches per step, device busy share and peak memory above
 the weights; phase 18 prints s per step, tokens per second, the share
 of the step that ``launch.costmodel.step_cost``'s bound is, MFU against
 6·N·tokens, launches and device busy time of one profiled step, and the
-peak memory split into masters + moments and what the step adds.
+peak memory split into masters + moments and what the step adds; phase
+19 prints the same per card of D, with the collectives' time.
 Launch counters are set to 0 just before each main-path phase (5, 6, 8,
 9, 12, 13, 14's loopback passes, 16's direct solves and its server
 pass, 17's two parts, 18's three parts and its profiled step), each
-server pass and each runtime pass, and read just after;
-spawned replicas count in their own processes, which the table does not
-read.  Data comes from fixed seeds through numpy.  The second-to-last
+server pass and each runtime pass, and read just after; phase 19's
+worker processes count from 0 each and hand their counts back, which
+the table adds; spawned replicas count in their own processes, which
+the table does not read.  Data comes from fixed seeds through numpy.  The second-to-last
 line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a card, and
 in a directory without the port.
@@ -204,9 +220,19 @@ RUNTIME_REQUESTS, RUNTIME_SEED, CHAOS_SEED = 96, 12, 139
 # |logit|
 LM_CARD_RTOL, LM_BF16_RTOL = 1e-4, 5e-2
 # phase 18: the card's float32 train step against the port's on the CPU,
-# relative to each leaf's largest |value|; (b)'s run and its gate (see
-# lm_train_phase for how TRAIN_BF16_RTOL was set)
-TRAIN_CARD_RTOL, TRAIN_BF16_RTOL = 1e-4, 5e-3
+# relative to each leaf's largest |value|; (b)'s run and its gates on the
+# first step's loss and gradient norm (see lm_train_phase for how
+# TRAIN_BF16_RTOL and TRAIN_BF16_GNORM_RTOL were set)
+TRAIN_CARD_RTOL, TRAIN_BF16_RTOL, TRAIN_BF16_GNORM_RTOL = 1e-4, 5e-3, 2e-2
+# phase 19 (a): the D-card first step's loss and gradient norm against
+# phase 18's one-card step, relative.  On the CPU, bf16 reduced configs
+# (qwen2, qwen3, gemma3, olmoe, mamba2; B = 8, S = 128, accum 2) in 2 and
+# 4 gloo processes land within 1.6e-7 (loss) and 3.7e-5 (gradient norm)
+# of one process; the card's bf16 products of a rank's rows may round
+# otherwise than the whole microbatch's (cuBLAS picks kernels by shape),
+# which the CPU does not show, so 1e-3, about 27 times the largest CPU
+# gap.  At D = 1 the step is bitwise the one-card step's on the CPU.
+TRAIN_DP_RTOL = 1e-3
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM = "qwen2-0.5b", 8, 4096, 2
 # a step takes about 10 s on the card (PERF.md §5): one warm-up and two
 # timed steps keep the phase near two minutes
@@ -519,10 +545,11 @@ def lm_serve_phase(dev, card: str) -> None:
     torch.cuda.empty_cache()
 
 
-def lm_train_phase(dev, card: str) -> dict:
+def lm_train_phase(dev, card: str) -> tuple:
     """Phase 18, LM training on the card; a failed check exits.  Returns
     the three kernels' launch counts over its parts (all 0: training
-    runs none of them).
+    runs none of them) and (b)'s first step and tokens/s, which phase 19
+    holds its D-card run to.
 
     (a) The ten reduced configs in float32 (TF32 off since phase 1), the
     state from a seeded CPU generator copied to the card, B = 2, S = 40,
@@ -537,21 +564,29 @@ def lm_train_phase(dev, card: str) -> dict:
     ``test_loss_decreases_on_learnable_data`` (60 steps, cyclic) ending
     below half its first CE.
     (b) qwen2-0.5b at its published width (arXiv:2407.10671) through
-    ``launch.train.main``: bf16 compute, float32 masters and moments,
+    ``launch.train.main`` on cuda:0 alone (one process, no process
+    group, on any host): bf16 compute, float32 masters and moments,
     ``--batch 8 --seq 4096 --accum 2`` (32768 tokens a step, two
     microbatches of 4 × 4096), the cyclic pattern, TRAIN_WARM warm-up
-    and TRAIN_TIMED timed steps, no checkpoints.  Gate: the first step's
-    bf16 loss within TRAIN_BF16_RTOL (relative) of the float32 loss of
-    the same weights (the same seed on the card) and batch.  The
-    reduced configs' bf16-vs-f32 loss gap on the CPU (B = 4, S = 128,
-    ``tests/test_torch_train_models.py::test_bf16_loss_gap``) is at most
-    5e-5 for the dense ones and 1.07e-3 in all (olmoe: bf16 moves tokens
-    between experts); 5e-3 is five times the largest, for a model with
-    six times the reduced one's layers.  Then one more step profiled
+    and TRAIN_TIMED timed steps, no checkpoints.  Gates: the first
+    step's bf16 loss within TRAIN_BF16_RTOL and its gradient norm (before
+    the clip) within TRAIN_BF16_GNORM_RTOL (relative) of a float32 step's
+    on the same weights (the same seed on the card) and batch, microbatch
+    for microbatch.  The reduced configs' bf16-vs-f32 loss gap on the CPU
+    (B = 4, S = 128, ``tests/test_torch_train_models.py::
+    test_bf16_loss_gap``) is at most 5e-5 for the dense ones and 1.07e-3
+    in all (olmoe: bf16 moves tokens between experts); 5e-3 is five times
+    the largest, for a model with six times the reduced one's layers.
+    Their gradient-norm gap (accum 2, ``test_bf16_grad_norm_gap``) is
+    4.3e-4 to 1.28e-3 for the dense, SSM and hybrid configs and up to
+    7.8e-3 for the MoE ones; 2e-2 is about fifteen times the dense
+    largest.  At initialisation the loss sits at ln V and bf16 barely
+    moves it (1.6e-7 on the H100); the gradients carry bf16's rounding
+    through every layer.  Then one more step profiled
     (launches, device time), the step time against
     ``costmodel.step_cost``'s bound and 6·N·tokens, and the peak memory.
     (c) The restart contract of ``tests/test_train.py::
-    test_failure_restart_reproduces_run`` on the card: three
+    test_failure_restart_reproduces_run`` on cuda:0: three
     ``launch.train`` processes (qwen3-0.6b reduced, 14 steps, batch 2,
     seq 32, a checkpoint every 5): uninterrupted, ``--fail-at-step 9``
     (exit 42), ``--resume``; the final losses within rtol 1e-4.
@@ -571,7 +606,7 @@ def lm_train_phase(dev, card: str) -> dict:
     from repro_torch.launch import costmodel
     from repro_torch.launch import train as lm_train
     from repro_torch.models import transformer as tfm
-    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.optim.adamw import OptConfig, global_norm
     from repro_torch.train import steps
     from repro_torch.tree import tree_items, tree_leaves, tree_map
 
@@ -693,7 +728,8 @@ def lm_train_phase(dev, card: str) -> dict:
     check(lm_train.main(["--arch", TRAIN_ARCH, "--batch", str(B18),
                          "--seq", str(S18), "--accum", str(A18),
                          "--steps", str(n_steps), "--data-pattern",
-                         "cyclic", "--log-every", "1", "--seed", "0"],
+                         "cyclic", "--log-every", "1", "--seed", "0",
+                         "--device", str(dev)],
                         record=rec) == 0, "launch.train.main failed")
     t_run = time.perf_counter() - t_run
     counts_b = ops.launch_counts()
@@ -757,40 +793,39 @@ def lm_train_phase(dev, card: str) -> dict:
     del state, step_fn, rec, m, prof, by_kernel
     torch.cuda.empty_cache()
 
-    # the gate: the first step's bf16 loss against a float32 loss of the
-    # same weights (same seed on the card) and batch, microbatch for
-    # microbatch as the trainer takes them
+    # the gates: the first step's bf16 loss and gradient norm against a
+    # float32 step of the same weights (same seed on the card) and batch,
+    # microbatch for microbatch as the trainer takes them
     t_gate = time.perf_counter()
     params = tfm.init_params(cfg, seed=0, device=dev)
     first = {k: torch.as_tensor(v, device=dev) for k, v in batch_at(
         DataConfig(vocab_size=cfg.vocab_size, seq_len=S18, global_batch=B18,
                    seed=0, pattern="cyclic"), 0).items()}
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    mb = B18 // A18
-    losses = {}
-    with torch.no_grad():
-        for name, c in (("float32", cfg32), ("bfloat16", cfg)):
-            loss_fn = steps.make_loss_fn(c, loss_chunk=min(2048, tokens))
-            p = steps.cast_tree(params, c.cdtype)
-            losses[name] = float(sum(
-                loss_fn(p, first["tokens"][i:i + mb],
-                        first["labels"][i:i + mb])[0]
-                for i in range(0, B18, mb)) / A18)
-            del p
-    del params
+    loss32, _, grads32 = steps.make_grad_step(
+        cfg32, OptConfig(), accum=A18, loss_chunk=min(2048, tokens))(
+            params, first)
+    loss32, gnorm32 = float(loss32), float(global_norm(grads32))
+    del params, grads32
     torch.cuda.empty_cache()
     t_gate = time.perf_counter() - t_gate
-    e_gate = rel(hist[0]["loss"], losses["float32"])
+    e_gate = rel(hist[0]["loss"], loss32)
     check(e_gate <= TRAIN_BF16_RTOL,
           f"{TRAIN_ARCH} first-step bf16 loss {hist[0]['loss']:.6f} vs "
-          f"float32 {losses['float32']:.6f}: {e_gate:.3e}")
+          f"float32 {loss32:.6f}: {e_gate:.3e}")
+    e_gnorm = rel(hist[0]["grad_norm"], gnorm32)
+    check(e_gnorm <= TRAIN_BF16_GNORM_RTOL,
+          f"{TRAIN_ARCH} first-step bf16 gradient norm "
+          f"{hist[0]['grad_norm']:.6f} vs float32 {gnorm32:.6f}: "
+          f"{e_gnorm:.3e}")
     print(f"LM train {TRAIN_ARCH} (published width, {n_params} "
-          f"parameters, param_count() {cfg.param_count()}), bf16 compute, f32 masters: batch {B18} x seq "
-          f"{S18}, accum {A18}; first-step loss {hist[0]['loss']:.6f} vs "
-          f"float32 {losses['float32']:.6f} on the same weights and batch: "
-          f"{e_gate:.3e} (<= {TRAIN_BF16_RTOL:g}); the same weights' bf16 "
-          f"loss without gradients {losses['bfloat16']:.6f} (both losses "
-          f"in {t_gate:.2f} s); losses "
+          f"parameters, param_count() {cfg.param_count()}), bf16 compute, "
+          f"f32 masters: batch {B18} x seq {S18}, accum {A18}; first-step "
+          f"loss {hist[0]['loss']:.6f} vs float32 {loss32:.6f} on the same "
+          f"weights and batch: {e_gate:.3e} (<= {TRAIN_BF16_RTOL:g}); "
+          f"gradient norm {hist[0]['grad_norm']:.6f} vs float32 "
+          f"{gnorm32:.6f}: {e_gnorm:.3e} (<= {TRAIN_BF16_GNORM_RTOL:g}); "
+          f"the float32 step in {t_gate:.2f} s; losses "
           f"{[round(h['loss'], 4) for h in hist]}, grad norms "
           f"{[round(h['grad_norm'], 3) for h in hist]} {card}", flush=True)
     print(f"LM train {TRAIN_ARCH} step: {s_step:.4f} s per step (median of "
@@ -823,7 +858,8 @@ def lm_train_phase(dev, card: str) -> dict:
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
             "qwen3-0.6b", "--reduced", "--steps", "14", "--batch", "2",
-            "--seq", "32", "--ckpt-every", "5", "--log-every", "1"]
+            "--seq", "32", "--ckpt-every", "5", "--log-every", "1",
+            "--device", str(dev)]
 
     def final_loss(out: str) -> float:
         lines = [ln for ln in out.splitlines() if "step    13" in ln]
@@ -859,6 +895,137 @@ def lm_train_phase(dev, card: str) -> dict:
     print(f"LM train: phase 18 in {time.perf_counter() - t18:.2f} s ((a) "
           f"{t_a:.2f} s, (b) {t_b:.2f} s, (c) "
           f"{time.perf_counter() - t_c:.2f} s) {card}", flush=True)
+    return total, hist[0], tokens / s_step
+
+
+def lm_dp_phase(card: str, first18: dict, tok_s18: float) -> dict:
+    """Phase 19, LM training data-parallel over the D visible cards
+    through ``launch.train.main(["--data-mesh", D])``: D worker processes,
+    rank r on cuda:r under NCCL, each holding its block of the masters
+    and moments (``train.dp``); on a one-card host D = 1 goes through the
+    same process group.  A failed check exits.  The workers run the step
+    that phase 18 ran in this process, which launches none of the three
+    kernels: each worker counts its launches from 0 and hands them back
+    in its rank's record; their sums over both runs are checked to be 0
+    and returned.
+
+    (a) Parity: qwen2-0.5b at its published width, phase 18 (b)'s
+    arguments (bf16, ``--batch 8 --seq 4096 --accum 2``, seed 0, cyclic
+    data), one step at ``--data-mesh D``: its loss and gradient norm
+    within TRAIN_DP_RTOL (relative) of phase 18's one-card first step on
+    the same weights and batch (bitwise expected at D = 1).
+    (b) Weak scaling: ``--batch 8·D``, so that each card runs phase 18's
+    rows, TRAIN_WARM warm-up and TRAIN_TIMED timed steps: s per step
+    (host clock on rank 0 ending in the loss read), tokens/s against D
+    times phase 18's, the share of the step that
+    ``costmodel.roofline_terms(n_chips=D, tp=1)``'s bound is, each card's
+    masters + moments at rest, its peak while the state was built and
+    its peak above them in the steps, and the step's collective time
+    (CUDA events around each gather, reduce-scatter and all-reduce on
+    every rank): ``collective_s`` sums each collective's least time over
+    the ranks (the last rank to arrive waits for no one), and
+    ``collective_rank0_s`` rank 0's own, its waits for slower ranks
+    included.
+    """
+    import torch
+
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch import costmodel
+    from repro_torch.launch import train as lm_train
+
+    def rel(got, want) -> float:
+        return abs(float(got) - float(want)) / max(abs(float(want)), 1e-30)
+
+    d = torch.cuda.device_count()
+    total = {}
+    t19 = time.perf_counter()
+    base = ["--arch", TRAIN_ARCH, "--seq", str(TRAIN_SEQ), "--accum",
+            str(TRAIN_ACCUM), "--data-pattern", "cyclic", "--log-every",
+            "1", "--seed", "0", "--data-mesh", str(d)]
+
+    def run(batch: int, steps: int) -> dict:
+        rec = {}
+        check(lm_train.main(base + ["--batch", str(batch), "--steps",
+                                    str(steps)], record=rec) == 0,
+              f"launch.train --data-mesh {d} failed")
+        check(rec["data_mesh"] == d and len(rec["ranks"]) == d,
+              f"data-parallel record: D {rec.get('data_mesh')}, "
+              f"{len(rec.get('ranks', []))} ranks")
+        for r in rec["ranks"]:
+            check(set(r["launches"]) == set(ops.launch_counts())
+                  and not any(r["launches"].values()),
+                  f"a data-parallel worker launched {r['launches']}")
+            for k, v in r["launches"].items():
+                total[k] = total.get(k, 0) + v
+        check(len(rec["history"]) == steps
+              and all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                      for h in rec["history"]),
+              f"data-parallel record: D {rec.get('data_mesh')}, history "
+              f"{rec.get('history')}")
+        return rec
+
+    # ------------------------------------------------------- (a) parity
+    t_a = time.perf_counter()
+    h = run(TRAIN_BATCH, 1)["history"][0]
+    t_a = time.perf_counter() - t_a
+    e_loss = rel(h["loss"], first18["loss"])
+    e_gnorm = rel(h["grad_norm"], first18["grad_norm"])
+    check(e_loss <= TRAIN_DP_RTOL and e_gnorm <= TRAIN_DP_RTOL,
+          f"D = {d} first step: loss {h['loss']!r} vs one card "
+          f"{first18['loss']!r} ({e_loss:.3e}), gradient norm "
+          f"{h['grad_norm']!r} vs {first18['grad_norm']!r} ({e_gnorm:.3e})")
+    bitwise = (h["loss"] == first18["loss"]
+               and h["grad_norm"] == first18["grad_norm"])
+    print(f"LM data parallel {TRAIN_ARCH} D = {d} (NCCL, {d} worker "
+          f"process(es)), batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, accum "
+          f"{TRAIN_ACCUM}: first-step loss {h['loss']!r} vs phase 18's one "
+          f"card {first18['loss']!r} ({e_loss:.3e}), gradient norm "
+          f"{h['grad_norm']!r} vs {first18['grad_norm']!r} ({e_gnorm:.3e}) "
+          f"(<= {TRAIN_DP_RTOL:g}; bitwise: {bitwise}); run {t_a:.2f} s "
+          f"{card}", flush=True)
+
+    # ------------------------------------------------- (b) weak scaling
+    B19 = TRAIN_BATCH * d
+    t_b = time.perf_counter()
+    rec = run(B19, TRAIN_WARM + TRAIN_TIMED)
+    t_b = time.perf_counter() - t_b
+    timed = rec["times"][TRAIN_WARM:]
+    s_step = statistics.median(timed)
+    tokens = B19 * TRAIN_SEQ
+    tok_s = tokens / s_step
+    rt = costmodel.roofline_terms(
+        rec["cfg"], ShapeSpec("train", TRAIN_SEQ, B19, "train"),
+        n_chips=d, tp=1)
+    coll = [(hh["collective_s"], hh["collective_rank0_s"])
+            for hh in rec["history"][TRAIN_WARM:]]
+    per_card = [(r["state_bytes"] / 2**30,
+                 (r["init_peak_bytes"] - r["held_bytes"]) / 2**30,
+                 (r["peak_bytes"] - r["held_bytes"] - r["state_bytes"])
+                 / 2**30) for r in rec["ranks"]]
+    print(f"LM data parallel {TRAIN_ARCH} weak scaling D = {d}: batch "
+          f"{B19} x seq {TRAIN_SEQ}, accum {TRAIN_ACCUM}; {s_step:.4f} s "
+          f"per step (median of {TRAIN_TIMED} after {TRAIN_WARM} warm-up: "
+          f"{', '.join(f'{t:.4f}' for t in timed)}; rank 0's host clock "
+          f"ending in the loss read), {tok_s:,.0f} tokens/s, "
+          f"{tok_s / (d * tok_s18):.3f} of D x phase 18's "
+          f"{tok_s18:,.0f}; roofline_terms(n_chips={d}, tp=1) bound "
+          f"{rt['step_time_lb']:.4f} s by {rt['bottleneck']} (compute "
+          f"{rt['t_compute']:.4f} s, memory {rt['t_memory']:.4f} s, "
+          f"collective {rt['t_collective']:.4f} s), "
+          f"{100 * rt['step_time_lb'] / s_step:.1f}% of the step; losses "
+          f"{[round(hh['loss'], 4) for hh in rec['history']]}; collectives "
+          f"of the timed steps (CUDA events on every rank), least over the "
+          f"ranks / rank 0's with its waits: "
+          f"{', '.join(f'{a:.6f} / {b:.6f}' for a, b in coll)} s; per card "
+          f"masters + moments / peak while built / peak above them in the "
+          f"steps (GiB) "
+          f"{[tuple(round(x, 3) for x in c) for c in per_card]}; run "
+          f"{t_b:.2f} s {card}", flush=True)
+    print(f"LM data parallel: phase 19 in {time.perf_counter() - t19:.2f} s "
+          f"((a) {t_a:.2f} s, (b) {t_b:.2f} s); kernel launches of the "
+          f"{d} worker(s), summed over both runs {total} {card}",
+          flush=True)
     return total
 
 
@@ -2495,11 +2662,13 @@ def main() -> int:
         launches[k] += counts16[k] + server16[k]
 
     lm_serve_phase(dev, card)
-    counts18 = lm_train_phase(dev, card)
+    counts18, first18, tok_s18 = lm_train_phase(dev, card)
+    counts19 = lm_dp_phase(card, first18, tok_s18)
     for r in rows:
-        r["launches"] += counts18.get(r["name"], 0)
+        r["launches"] += counts18.get(r["name"], 0) + counts19.get(
+            r["name"], 0)
     for k in build.KERNELS:
-        launches[k] += counts18.get(k, 0)
+        launches[k] += counts18.get(k, 0) + counts19.get(k, 0)
 
     loaded = [m for m in sys.modules
               if m.split(".")[0] == "jax" or m.startswith("repro.")

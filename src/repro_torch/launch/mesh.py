@@ -1,18 +1,46 @@
-"""The solve mesh of sharded lattice solves (counterpart of the
-solve-mesh part of ``repro.launch.mesh``).
+"""The port's meshes (counterpart of ``repro.launch.mesh``): the LM
+meshes of training and of the dry-run cells, and the solve mesh of
+sharded lattice solves.
 
-A mesh is a tuple of D ``torch.device``s; its first entry is the lead
-device.  One Python process drives every device (a single controller, as
-``shard_map`` is): the lead device runs every replicated part of a
-solve, and each sharded layer sends its blocks of work to the mesh's
-devices and writes what comes back into one layer on the lead device
-(``core.lattice``).
+**LM meshes** are ``torch.distributed`` ``DeviceMesh``es with the
+reference's axis names, over the ranks of a process group (one process
+per card; gloo processes on the CPU).
 
-By default a mesh takes the visible devices of its lead device's type:
-every card for CUDA, starting at the lead's index; the one CPU device
-otherwise.  ``force_device_count(k)`` is the counterpart of XLA's
-``--xla_force_host_platform_device_count``: one device then fills k
-mesh slots, so a D-way solve runs on one CPU or one card (a mesh that
+``make_production_mesh`` keeps the reference's world sizes, 256 cards
+for a pod and 512 for two (the dry-run cells' ``n_chips``), but not its
+v5e layout.  The reference's (16, 16) puts 'model' on a pod's ICI torus,
+where every card has fast links to its neighbours.  An H100 node holds 8
+cards joined all to all by NVLink (450 GB/s a direction a card), and
+nodes talk over InfiniBand at about a tenth of that.  Tensor
+parallelism all-reduces activations in every layer, so 'model' must stay
+inside a node: 'model' = 8, one HGX node, and the data axes cross nodes,
+where FSDP's all-gathers and reduce-scatters (once per layer, and
+overlappable) bear the slower links.  So a pod is (32, 8) as ('data',
+'model'), and two pods are (2, 32, 8) as ('pod', 'data', 'model'), with
+'pod' the outermost axis as in the reference.
+
+``make_host_mesh(data, model)`` is the small mesh of one run: the
+``launch.train`` workers build it over their process group (NCCL on
+cards, gloo on the CPU).  Unlike the reference, which takes the first
+``data * model`` devices, it covers the whole group: the trainer starts
+exactly as many ranks as the mesh has slots.
+
+A ``DeviceMesh`` has no axis types, so the reference's mesh fault
+(``jax.make_mesh`` gives Explicit axes in JAX 0.9.0, which its sharding
+constraints refuse; ROADMAP queue 3) has no counterpart here.
+
+**The solve mesh** is a tuple of D ``torch.device``s; its first entry is
+the lead device.  One Python process drives every device (a single
+controller, as ``shard_map`` is): the lead device runs every replicated
+part of a solve, and each sharded layer sends its blocks of work to the
+mesh's devices and writes what comes back into one layer on the lead
+device (``core.lattice``).
+
+By default a solve mesh takes the visible devices of its lead device's
+type: every card for CUDA, starting at the lead's index; the one CPU
+device otherwise.  ``force_device_count(k)`` is the counterpart of
+XLA's ``--xla_force_host_platform_device_count``: one device then fills
+k mesh slots, so a D-way solve runs on one CPU or one card (a mesh that
 repeats a device copies nothing between its slots).
 """
 from __future__ import annotations
@@ -20,6 +48,36 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
+
+PRODUCTION_SHAPES = {False: ((32, 8), ("data", "model")),
+                     True: ((2, 32, 8), ("pod", "data", "model"))}
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """The production mesh of 256 cards, or of 512 with ``multi_pod``
+    (see the module docstring for the shapes).  Needs a process group of
+    that world size; one on the fake backend (``torch.testing._internal.
+    distributed.fake_pg``) builds it in one process."""
+    from torch.distributed.device_mesh import init_device_mesh
+    shape, axes = PRODUCTION_SHAPES[bool(multi_pod)]
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def make_host_mesh(data: int, model: int):
+    """A ('data', 'model') mesh over the ranks of this run's process
+    group, which must hold ``data * model`` of them: on cards under
+    NCCL, on the CPU under gloo."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    n = dist.get_world_size()
+    if data * model != n:
+        raise ValueError(f"a ({data}, {model}) mesh needs {data * model} "
+                         f"ranks; the process group has {n}")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, (data, model),
+                            mesh_dim_names=("data", "model"))
+
 
 SOLVE_AXIS = "solve"
 

@@ -1,53 +1,99 @@
 """Fault-tolerant training driver (counterpart of ``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
-        --batch 8 --seq 4096 --accum 2 --steps 6
+        --batch 8 --seq 4096 --accum 2 --steps 6 [--data-mesh D]
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --reduced --steps 14 --batch 2 --seq 32 --ckpt-dir CKPT \\
-        --ckpt-every 5 [--fail-at-step 9] [--resume] --device cpu
+        --ckpt-every 5 [--fail-at-step 9] [--resume] --device cpu \\
+        [--data-mesh 2]
 
-Trains on one device: the CUDA card unless ``--device`` names another,
-and it raises without a card.  ``--data-mesh`` above 1 is refused; the
-LM meshes and multi-card data parallelism are not ported yet.
+Trains on CUDA cards unless ``--device`` names another device (``cpu``,
+or one card as ``cuda:k``), and raises without a card.
+
+**Data parallelism.**  ``--data-mesh D`` is the data axis of the
+reference's host mesh (D, devices // D); 0 (the default) takes every
+visible card (one on the CPU or on ``cuda:k``).  The 'model' axis must
+come out 1: tensor parallelism is not ported (ROADMAP queue 1, item
+7d), and D must divide ``batch / accum`` (the reference would replicate
+the batch there; ROADMAP queue 3).  With ``--data-mesh`` above 0, or
+more than one card visible, ``main`` spawns D worker processes (start
+method ``spawn``, a ``FileStore`` rendezvous in a temporary directory),
+one per rank of a process group: NCCL with rank r on ``cuda:r`` (it
+raises if fewer than D cards are visible), gloo with ``--device cpu``
+(D CPU processes, the counterpart of XLA's forced host device count).
+There is no fallback: no gloo on cards, no single process instead of D.
+Each worker builds ``launch.mesh.make_host_mesh(D, 1)`` and trains
+through ``train.dp.DataParallel`` over its 'data' group: explicit
+collectives over the port's parameter dicts (see ``train.dp`` for the
+step and why not FSDP2).  Each rank holds its block of the float32
+masters, both moments and the ef-sim residual by ``models.sharding``'s
+rules, from the start: a fresh state is drawn one leaf at a time and
+each rank keeps its block of each (the blocks of the one-process draw
+with the same seed), so no rank ever holds the whole state.  It runs
+its 1/D of every microbatch's rows.  A worker that
+fails stops the others; ``main`` returns when all have ended.
+Otherwise (the default on one card or the CPU) it trains in this
+process, with no process group.
+
   * checkpoint every k steps (atomic) + ``--resume`` picks up from the
-    latest complete checkpoint;
-  * ``--fail-at-step`` simulates a node failure (exit code 42); a
-    relaunch with ``--resume`` reproduces the same loss trajectory
-    (deterministic data keyed by step — a restart-safe pipeline);
+    latest complete checkpoint; under data parallelism rank 0 writes the
+    state gathered to the host (the reference's files and keys) and
+    every rank waits for the write, and on ``--resume`` every rank loads
+    the whole file and keeps its blocks, so a run resumes at another D;
+  * ``--fail-at-step`` simulates a node failure (exit code 42, also of
+    the launcher); a relaunch with ``--resume`` reproduces the same loss
+    trajectory (deterministic data keyed by step — a restart-safe
+    pipeline);
   * straggler watchdog: logs any step slower than ``straggler_factor`` ×
     the running median.
 The batch goes to the device once per step; a step's time is taken on
-the host clock and ends in the host read of its loss (a sync).
+the host clock and ends in the host read of its loss (a sync).  Only
+rank 0 prints.
 
 ``main(argv, record=...)`` also hands a caller what the run made: pass a
-dict and it receives the config, the state, the step function, each
-step's metrics and time, and the memory figures (the device memory held
-before the run, the bytes of the masters and moments, and the peak from
-the first step on).
+dict and it receives the config, each step's metrics and time, ``D``
+(``data_mesh``) and per rank (``ranks``) the device memory held before
+the run (``held_bytes``), the bytes of its masters and moments at rest
+(``state_bytes``), its peak while the state was built
+(``init_peak_bytes``) and from the first step on (``peak_bytes``), and
+the kernel launch counts of its process at the end (``launches``; a
+worker counts from 0).  Under data parallelism rank 0 sends it, and
+each step's metrics also hold ``collective_s`` and
+``collective_rank0_s`` (``train.dp.DataParallel.collective_times``); in
+this process it also holds the state, the step function and the figures
+of its one rank at the top level.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import pickle
 import statistics
 import sys
+import tempfile
 import time
+from multiprocessing.connection import wait
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import ckpt as ckpt_lib
 from repro_torch.configs import get_config, reduced as make_reduced
 from repro_torch.data.synthetic import DataConfig, batch_at
 from repro_torch.device import resolve_device
+from repro_torch.kernels.build import launch_counts, reset_launch_counts
 from repro_torch.optim.adamw import OptConfig
 from repro_torch.train.steps import init_train_state, make_train_step
 from repro_torch.tree import tree_leaves
+
+FAILURE_EXIT = 42          # --fail-at-step's simulated node failure
 
 
 def _nbytes(tree) -> int:
     return sum(a.numel() * a.element_size() for a in tree_leaves(tree))
 
 
-def main(argv=None, record: dict | None = None) -> int:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -64,21 +110,144 @@ def main(argv=None, record: dict | None = None) -> int:
     ap.add_argument("--fail-at-step", type=int, default=-1)
     ap.add_argument("--straggler-factor", type=float, default=3.0)
     ap.add_argument("--data-mesh", type=int, default=0,
-                    help="data axis size; the port trains on one device "
-                         "(0 or 1)")
+                    help="data axis size (0 = all devices)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--data-pattern", default="random",
                     choices=["random", "cyclic"])
     ap.add_argument("--device", default="cuda",
-                    help="torch device to train on (default cuda)")
-    args = ap.parse_args(argv)
-    if args.data_mesh not in (0, 1):
-        ap.error(f"--data-mesh {args.data_mesh}: the port trains on one "
-                 "device; the LM meshes and multi-card data parallelism "
-                 "come with ROADMAP queue 1 item 7c")
+                    help="torch device to train on (default cuda: every "
+                         "visible card; cuda:k trains on card k alone)")
+    return ap
 
+
+def _data_mesh(ap, args, dev: torch.device) -> int:
+    """D, the data axis of the (D, devices // D) mesh; refuses what the
+    port cannot run."""
+    if dev.type == "cuda" and dev.index is None:
+        ndev = torch.cuda.device_count()
+    elif dev.type == "cpu":
+        ndev = max(args.data_mesh, 1)     # D gloo processes
+    else:
+        ndev = 1
+    d = args.data_mesh or ndev
+    if d < 1 or d > ndev:
+        ap.error(f"--data-mesh {args.data_mesh}: {ndev} {dev} "
+                 f"device(s) visible")
+    if ndev // d > 1:
+        ap.error(f"--data-mesh {d} on {ndev} devices makes the 'model' "
+                 f"axis {ndev // d}: tensor parallelism is not ported "
+                 "(ROADMAP queue 1, item 7d)")
+    if (args.batch // args.accum) % d:
+        ap.error(f"--data-mesh {d} must divide batch / accum = "
+                 f"{args.batch // args.accum}")
+    return d
+
+
+def main(argv=None, record: dict | None = None) -> int:
+    ap = _parser()
+    args = ap.parse_args(argv)
     dev = resolve_device(args.device)
+    d = _data_mesh(ap, args, dev)
+    if args.data_mesh == 0 and d == 1:
+        _train(args, dev, record=record)
+        return 0
+    return _launch(args, d, dev, record)
+
+
+def _launch(args, d: int, dev: torch.device, record) -> int:
+    """D worker processes, one per rank; returns when all have ended."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="repro_torch_train-") as tmp:
+        procs = [ctx.Process(target=_worker,
+                             args=(r, d, args, dev.type, tmp,
+                                   torch.get_num_threads()))
+                 for r in range(d)]
+        for p in procs:
+            p.start()
+        code = _wait(procs)
+        out = os.path.join(tmp, "record.pkl")
+        if code == 0 and record is not None:
+            with open(out, "rb") as f:
+                record.update(pickle.load(f))
+    if code == FAILURE_EXIT:
+        sys.exit(FAILURE_EXIT)
+    if code:
+        raise RuntimeError(f"a training worker exited with {code}")
+    return 0
+
+
+def _wait(procs) -> int:
+    """Waits for every worker; the first nonzero exit code stops the
+    others (they would wait for it in a collective) and is returned."""
+    pending, code = list(procs), 0
+    while pending:
+        ready = wait([p.sentinel for p in pending])
+        for p in [p for p in pending if p.sentinel in ready]:
+            p.join()
+            pending.remove(p)
+            if p.exitcode and not code:
+                code = p.exitcode
+                for q in pending:
+                    q.terminate()
+    return code
+
+
+def _worker(rank: int, world: int, args, device_type: str, tmp: str,
+            threads: int) -> None:
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    if device_type == "cuda":
+        dev = torch.device("cuda", rank)
+        torch.cuda.set_device(dev)
+        backend = "nccl"
+    else:
+        dev = torch.device(device_type)
+        torch.set_num_threads(max(1, threads // world))
+        backend = "gloo"
+    dist.init_process_group(
+        backend, init_method="file://" + os.path.join(tmp, "store"),
+        rank=rank, world_size=world,
+        device_id=dev if device_type == "cuda" else None)
+    try:
+        rec = {}
+        reset_launch_counts()
+        _train(args, dev, record=rec, mesh=make_host_mesh(world, 1))
+        if rank == 0:
+            part = os.path.join(tmp, "record.pkl.tmp")
+            with open(part, "wb") as f:
+                pickle.dump(rec, f)
+            os.replace(part, os.path.join(tmp, "record.pkl"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _rank_rows(batch: dict, accum: int, rank: int, world: int) -> dict:
+    """This rank's rows of each microbatch, microbatch by microbatch:
+    rows [i·mb + r·mb/D, i·mb + (r+1)·mb/D) of microbatch i."""
+    mb = batch["tokens"].shape[0] // accum
+    per = mb // world
+    rows = np.concatenate([np.arange(i * mb + rank * per,
+                                     i * mb + (rank + 1) * per)
+                           for i in range(accum)])
+    return {k: v[rows] for k, v in batch.items()}
+
+
+def _save(state, dp, ckpt_dir: str, step: int) -> None:
+    if dp is None:
+        ckpt_lib.save(state, ckpt_dir, step)
+        return
+    whole = dp.gather_state(state)
+    if dp.rank == 0:
+        ckpt_lib.save(whole, ckpt_dir, step)
+    dp.barrier()
+
+
+def _train(args, dev: torch.device, record=None, mesh=None) -> None:
+    """The training loop of one process: alone, or one rank of
+    ``mesh``'s process group."""
     cuda = dev.type == "cuda"
     held = torch.cuda.memory_allocated(dev) if cuda else 0
     cfg = get_config(args.arch)
@@ -88,23 +257,49 @@ def main(argv=None, record: dict | None = None) -> int:
     opt_cfg = OptConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 5),
                         total_steps=args.steps,
                         grad_dtype=args.grad_dtype)
-    state = init_train_state(
-        cfg, opt_cfg, seed=args.seed,
-        error_feedback_state=(args.grad_dtype == "bfloat16"), device=dev)
+    ef = args.grad_dtype == "bfloat16"
+    if cuda:
+        torch.cuda.synchronize(dev)        # initialises CUDA, if not yet
+        torch.cuda.reset_peak_memory_stats(dev)
+    dp = keep = None
+    if mesh is not None:
+        from repro_torch.models.sharding import param_placements
+        from repro_torch.models.transformer import init_params
+        from repro_torch.train.dp import DataParallel, keep_blocks
+        shapes = init_params(cfg, device="meta")
+        dp = DataParallel(mesh.get_group("data"),
+                          param_placements(mesh, shapes), dev)
+        keep = keep_blocks(shapes, dp.placements, dp.rank, dp.world)
+    state = init_train_state(cfg, opt_cfg, seed=args.seed,
+                             error_feedback_state=ef, device=dev, keep=keep)
+    init_peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+    rank = 0 if dp is None else dp.rank
 
     start_step = 0
     if args.resume and args.ckpt_dir:
         try:
-            state, start_step = ckpt_lib.load(state, args.ckpt_dir)
-            print(f"[train] resumed from step {start_step}")
+            if dp is None:
+                state, start_step = ckpt_lib.load(state, args.ckpt_dir)
+            else:
+                whole = init_train_state(cfg, opt_cfg,
+                                         error_feedback_state=ef,
+                                         device="meta")
+                whole, start_step = ckpt_lib.load(whole, args.ckpt_dir,
+                                                  device="cpu")
+                state = dp.shard_state(whole)
+                del whole
+            if rank == 0:
+                print(f"[train] resumed from step {start_step}")
         except FileNotFoundError:
-            print("[train] no checkpoint found — fresh start")
+            if rank == 0:
+                print("[train] no checkpoint found — fresh start")
 
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                       global_batch=args.batch, seed=args.seed,
                       pattern=args.data_pattern)
     step_fn = make_train_step(cfg, opt_cfg, accum=args.accum,
-                              loss_chunk=min(2048, args.batch * args.seq))
+                              loss_chunk=min(2048, args.batch * args.seq),
+                              dp=dp)
 
     if cuda:
         torch.cuda.synchronize(dev)
@@ -113,11 +308,14 @@ def main(argv=None, record: dict | None = None) -> int:
     history: list = []
     for step in range(start_step, args.steps):
         if step == args.fail_at_step:
-            print(f"[train] SIMULATED NODE FAILURE at step {step}",
-                  flush=True)
-            sys.exit(42)
-        batch = {k: torch.as_tensor(v, device=dev)
-                 for k, v in batch_at(dcfg, step).items()}
+            if rank == 0:
+                print(f"[train] SIMULATED NODE FAILURE at step {step}",
+                      flush=True)
+            sys.exit(FAILURE_EXIT)
+        batch = batch_at(dcfg, step)
+        if dp is not None:
+            batch = _rank_rows(batch, args.accum, dp.rank, dp.world)
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch)
         loss = float(metrics["loss"])
@@ -126,32 +324,44 @@ def main(argv=None, record: dict | None = None) -> int:
         history.append({"step": step, "loss": loss,
                         **{k: float(metrics[k])
                            for k in ("ce", "aux", "grad_norm", "lr")}})
+        if dp is not None:
+            history[-1].update(dp.collective_times())
         if len(times) > 5:
             med = statistics.median(times[1:])
-            if dt > args.straggler_factor * med:
+            if dt > args.straggler_factor * med and rank == 0:
                 print(f"[train] STRAGGLER step {step}: {dt:.2f}s "
                       f"(median {med:.2f}s)", flush=True)
-        if step % args.log_every == 0 or step == args.steps - 1:
+        if rank == 0 and (step % args.log_every == 0
+                          or step == args.steps - 1):
             tok_s = args.batch * args.seq / dt
             print(f"[train] step {step:5d} loss {loss:.4f} "
                   f"ce {history[-1]['ce']:.4f} "
                   f"gnorm {history[-1]['grad_norm']:.3f} "
                   f"{tok_s:,.0f} tok/s", flush=True)
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-            ckpt_lib.save(state, args.ckpt_dir, step + 1)
+            _save(state, dp, args.ckpt_dir, step + 1)
     if args.ckpt_dir:
-        ckpt_lib.save(state, args.ckpt_dir, args.steps)
-    print("[train] done")
-    if record is not None:
-        record.update(
-            cfg=cfg, opt_cfg=opt_cfg, data_cfg=dcfg, state=state,
-            step_fn=step_fn, times=times, history=history,
-            held_bytes=held,
-            state_bytes=_nbytes(state["params"]) + _nbytes(
+        _save(state, dp, args.ckpt_dir, args.steps)
+    if rank == 0:
+        print("[train] done")
+    if record is None:
+        return
+    mine = {"held_bytes": held,
+            "state_bytes": _nbytes(state["params"]) + _nbytes(
                 [state["opt"]["mu"], state["opt"]["nu"]]),
-            peak_bytes=(torch.cuda.max_memory_allocated(dev)
-                        if cuda else None))
-    return 0
+            "init_peak_bytes": init_peak,
+            "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                           if cuda else None),
+            "launches": launch_counts()}
+    record.update(cfg=cfg, opt_cfg=opt_cfg, data_cfg=dcfg, times=times,
+                  history=history, data_mesh=1 if dp is None else dp.world)
+    if dp is None:
+        record.update(state=state, step_fn=step_fn, ranks=[mine], **mine)
+    else:
+        import torch.distributed as dist
+        ranks = [None] * dp.world
+        dist.all_gather_object(ranks, mine, group=dp.group)
+        record.update(ranks=ranks)
 
 
 if __name__ == "__main__":

@@ -205,9 +205,35 @@ def sinusoidal_at(pos: torch.Tensor, d: int) -> torch.Tensor:
 
 
 # ------------------------------------------------------------ initializers
+class BlockGenerator:
+    """A generator whose initializers keep a part of each leaf: ``keep``
+    holds one function per leaf, in the order the leaves are drawn,
+    mapping the whole leaf to the part to hold (a data-parallel rank's
+    block).  Each leaf is drawn whole from ``gen`` and dropped once its
+    part is taken, so no more than one whole leaf exists at a time, and
+    the parts are those of the whole draw.  The initializers scale a
+    draw by constants only, which commutes with taking a block."""
+
+    def __init__(self, gen: torch.Generator, keep):
+        self.gen, self.device = gen, gen.device
+        self._keep = iter(keep)
+
+    def take(self, whole: torch.Tensor) -> torch.Tensor:
+        return next(self._keep)(whole)
+
+    def check_done(self) -> None:
+        if next(self._keep, None) is not None:
+            raise ValueError("fewer leaves were drawn than keep holds")
+
+
 def normal(gen: torch.Generator, shape: tuple) -> torch.Tensor:
     """Standard normal float32 draws of ``shape`` on the generator's
-    device."""
+    device; on the meta device, the shape alone (nothing is drawn)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    if isinstance(gen, BlockGenerator):
+        return gen.take(torch.randn(shape, generator=gen.gen,
+                                    dtype=torch.float32, device=gen.device))
     return torch.randn(shape, generator=gen, dtype=torch.float32,
                        device=gen.device)
 
@@ -225,5 +251,6 @@ def full(lead: tuple, shape: tuple, value: float,
          gen: torch.Generator) -> torch.Tensor:
     """A constant float32 leaf (norm scales, biases) on the generator's
     device."""
-    return torch.full(tuple(lead) + tuple(shape), value,
-                      dtype=torch.float32, device=gen.device)
+    x = torch.full(tuple(lead) + tuple(shape), value,
+                   dtype=torch.float32, device=gen.device)
+    return gen.take(x) if isinstance(gen, BlockGenerator) else x

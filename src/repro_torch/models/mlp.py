@@ -11,6 +11,10 @@ MoE dispatch is the grouped GShard/Switch scheme of the reference:
     back.
 
 The router's Switch load-balance loss (f·P) is returned to the caller.
+Under data parallelism its fractions are those of the whole batch: the
+per-expert sums are all-reduced over the ranks (with autograd, since
+P's gradient reaches every rank's router), then divided by the global
+token count.
 """
 from __future__ import annotations
 
@@ -53,8 +57,9 @@ def init_moe(cfg: ModelConfig, gen: torch.Generator, lead: tuple = ()) -> dict:
     return p
 
 
-def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig):
-    """x: (B, S, D) -> (y, aux_loss)."""
+def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, group=None):
+    """x: (B, S, D) -> (y, aux_loss); ``group`` is the data-parallel
+    process group whose ranks hold the other rows of the batch."""
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     dt = x.dtype
@@ -74,8 +79,17 @@ def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig):
     keep = pos < cap
 
     # load-balance aux: Switch f·P (fraction routed × mean prob)
-    f_e = (oh.sum(dim=2) > 0).float().mean(dim=(0, 1))
-    p_e = probs.mean(dim=(0, 1))
+    if group is None:
+        f_e = (oh.sum(dim=2) > 0).float().mean(dim=(0, 1))
+        p_e = probs.mean(dim=(0, 1))
+    else:
+        import torch.distributed as dist
+        from torch.distributed.nn.functional import all_reduce
+        f_e = (oh.sum(dim=2) > 0).float().sum(dim=(0, 1))
+        dist.all_reduce(f_e, group=group)
+        p_e = all_reduce(probs.sum(dim=(0, 1)), group=group)
+        n = B * S * dist.get_world_size(group)
+        f_e, p_e = f_e / n, p_e / n
     aux = E * torch.sum(f_e * p_e)
 
     bidx = torch.arange(B, device=x.device)[:, None].expand(B, S)

@@ -42,8 +42,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (ModelConfig, dense_init, full,
-                                       normal, rms_norm,
+from repro_torch.models.common import (BlockGenerator, ModelConfig,
+                                       dense_init, full, normal, rms_norm,
                                        sinusoidal_at, sinusoidal_positions)
 
 
@@ -121,15 +121,46 @@ def _init_segment(cfg: ModelConfig, repeats: int, slots: list,
             for si, slot in enumerate(slots)}
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
+class _MetaGenerator:
+    """Stands in for a generator on the meta device, which has none."""
+    device = torch.device("meta")
+
+
+def _in_draw_order(tree):
+    """The leaves of a tree in its insertion order: the order in which
+    ``init_params`` draws them."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _in_draw_order(v)
+    else:
+        yield tree
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None,
+                keep=None) -> dict:
     """Random float32 parameters drawn from a ``torch.Generator`` seeded
     with ``seed`` on ``device`` (CUDA unless given).  The values differ
     from the reference's ``jax.random`` draws; the shapes and paths are
     the same (``convert.lm_params_from_reference`` carries the
-    reference's values over)."""
+    reference's values over).  On ``device="meta"`` it builds the shapes
+    alone, allocating and drawing nothing (the reference's
+    ``jax.eval_shape``).
+
+    ``keep``, a tree shaped like the parameters (as one built on
+    ``"meta"``), holds for each leaf a function from the whole leaf to
+    the part of it to build: the leaves are then drawn one at a time and
+    only those parts are held (``common.BlockGenerator``), equal to the
+    parts of the whole draw."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    if dev.type == "meta":
+        gen = _MetaGenerator()
+    else:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        if keep is not None:
+            gen = BlockGenerator(gen, _in_draw_order(keep))
     V, D = cfg.padded_vocab, cfg.d_model
     params: dict[str, Any] = {
         "embed": normal(gen, (V, D)) * 0.02,
@@ -152,6 +183,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
                          for r, slots in enc_plan(cfg)],
             "final_norm": full((), (D,), 0.0, gen),
         }
+    if isinstance(gen, BlockGenerator):
+        gen.check_done()
     return params
 
 
@@ -209,7 +242,8 @@ def _layer(tree, r: int):
 
 # ---------------------------------------------------------------- forward
 def _apply_slot(sp: dict, slot: Slot, x, positions, cfg, shared,
-                enc_out=None, enc_pos=None, attn_scheme: str = "simple"):
+                enc_out=None, enc_pos=None, attn_scheme: str = "simple",
+                dp_group=None):
     """One sub-layer application (training/prefill path)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if slot.kind == "ssm":
@@ -226,7 +260,7 @@ def _apply_slot(sp: dict, slot: Slot, x, positions, cfg, shared,
             x = x + hx
         if slot.moe:
             h, aux = mlp_mod.moe_forward(sp["mlp"], rms_norm(x, sp["ln2"]),
-                                         cfg)
+                                         cfg, group=dp_group)
         else:
             h = mlp_mod.mlp_forward(sp["mlp"], rms_norm(x, sp["ln2"]))
         x = x + h
@@ -274,9 +308,12 @@ def _remat(body, remat):
 def _run_stack(segments_params: list, plan: list, x, positions, cfg,
                shared=None, enc_out=None, enc_pos=None,
                remat: bool = True, act_sharding=None,
-               unroll: bool = False, attn_scheme: str = "simple"):
+               unroll: bool = False, attn_scheme: str = "simple",
+               dp_group=None):
     """The layer stack, one repeat of a segment at a time under
-    ``remat``; ``unroll`` changes nothing (no compiled loop)."""
+    ``remat``; ``unroll`` changes nothing (no compiled loop).
+    ``dp_group`` sums the MoE load-balance statistics over data-parallel
+    ranks (``mlp.moe_forward``)."""
     if act_sharding is not None:
         raise ValueError("act_sharding has no counterpart in the port; "
                          "pass None")
@@ -287,7 +324,8 @@ def _run_stack(segments_params: list, plan: list, x, positions, cfg,
             for si, slot in enumerate(slots):
                 h, a = _apply_slot(layer_p[f"slot{si}"], slot, h,
                                    positions, cfg, shared, enc_out,
-                                   enc_pos, attn_scheme=attn_scheme)
+                                   enc_pos, attn_scheme=attn_scheme,
+                                   dp_group=dp_group)
                 aux = aux + a
             return h, aux
         step = _remat(body, remat)
@@ -313,10 +351,13 @@ def encode(params: dict, cfg: ModelConfig, frames: torch.Tensor):
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             frames: torch.Tensor | None = None, remat: bool = True,
             return_hidden: bool = False, act_sharding=None,
-            unroll: bool = False, attn_scheme: str = "simple"):
+            unroll: bool = False, attn_scheme: str = "simple",
+            dp_group=None):
     """Training / prefill forward.  tokens: (B, S) integer.
     Returns (logits (B, S, V) — or the final hidden (B, S, D) with
-    ``return_hidden`` — and the aux loss scalar)."""
+    ``return_hidden`` — and the aux loss scalar).  With ``dp_group`` the
+    rows are one data-parallel rank's part of the batch, and the aux is
+    that of the whole batch (``mlp.moe_forward``)."""
     params = _as_tree(params)
     B, S = tokens.shape
     dt = cfg.cdtype
@@ -334,7 +375,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                         cfg, shared=params.get("shared_block"),
                         enc_out=enc_out, enc_pos=enc_pos, remat=remat,
                         act_sharding=act_sharding, unroll=unroll,
-                        attn_scheme=attn_scheme)
+                        attn_scheme=attn_scheme, dp_group=dp_group)
     x = rms_norm(x, params["final_norm"])
     if return_hidden:
         return x, aux

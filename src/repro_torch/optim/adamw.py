@@ -67,18 +67,26 @@ def init_opt_state(params) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=step_dev)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+def global_norm(tree, all_reduce=None) -> torch.Tensor:
+    """The norm of every leaf together, squares summed in tree order.
+    ``all_reduce`` sums the partial sum of squares over data-parallel
+    ranks before the root (``train.dp``)."""
+    sq = sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree))
+    if all_reduce is not None:
+        sq = all_reduce(sq)
+    return torch.sqrt(sq)
 
 
 @torch.no_grad()
-def apply_updates(params, grads, opt_state, cfg: OptConfig):
+def apply_updates(params, grads, opt_state, cfg: OptConfig, gnorm=None):
     """One AdamW step, in place.  Returns (params, opt_state, metrics):
-    the trees it was given, updated."""
+    the trees it was given, updated.  ``gnorm`` is the clip's global
+    norm when the caller has it (data-parallel shards), else the norm
+    of ``grads``."""
     opt_state["step"] += 1
     step = opt_state["step"]
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(_f32(cfg.clip_norm, gnorm.device)
                         / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = lr_at(cfg, step)

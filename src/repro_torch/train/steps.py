@@ -52,10 +52,12 @@ def _ce_chunk(xc, unembed, lc, vc):
 
 def chunked_ce_loss(x: torch.Tensor, unembed: torch.Tensor,
                     labels: torch.Tensor, valid: torch.Tensor,
-                    chunk: int = 1024, z_coef: float = 1e-4):
+                    chunk: int = 1024, z_coef: float = 1e-4, count=None):
     """x: (B,S,D) hidden; labels/valid: (B,S).  Mean CE over valid tokens
     (and the z-loss), computed ``chunk`` tokens at a time so that peak
-    logits memory is (chunk, V).  Returns (loss, ce)."""
+    logits memory is (chunk, V).  Returns (loss, ce).  ``count`` is the
+    number of valid tokens to divide by, where these rows are one rank's
+    part of a microbatch (by default the valid tokens of ``valid``)."""
     B, S, D = x.shape
     n = B * S
     chunk = min(chunk, n)
@@ -74,7 +76,7 @@ def chunked_ce_loss(x: torch.Tensor, unembed: torch.Tensor,
         c_ce, c_z, c_cnt = body(xf[i:i + chunk], unembed,
                                 lf[i:i + chunk], vf[i:i + chunk])
         ce, z, cnt = ce + c_ce, z + c_z, cnt + c_cnt
-    cnt = torch.clamp(cnt, min=1.0)
+    cnt = torch.clamp(cnt if count is None else count, min=1.0)
     return ce / cnt + z_coef * z / cnt, ce / cnt
 
 
@@ -106,20 +108,34 @@ class _CastOnce:
 def make_loss_fn(cfg: ModelConfig, aux_coef: float = 1e-2,
                  z_coef: float = 1e-4, loss_chunk: int = 1024,
                  remat="full", act_sharding=None,
-                 attn_scheme: str = "simple"):
+                 attn_scheme: str = "simple", dp=None):
     """loss_fn(params, tokens, labels, frames=None) -> (loss, {"ce",
     "aux"}); the forward casts floating leaves to ``cfg.cdtype`` at
-    use."""
+    use.
+
+    With ``dp`` (a ``train.dp.DataParallel``) the rows are this rank's
+    part of a microbatch: CE and z-loss sums are divided by the
+    microbatch's valid tokens over all ranks, the MoE load-balance
+    statistics are summed over the ranks, and the loss carries 1/D of
+    that global aux, so that the ranks' losses add up to the
+    microbatch's loss; "ce" is this rank's part, "aux" the global
+    value."""
+    group = None if dp is None else dp.group
+
     def loss_fn(params, tokens, labels, frames=None):
         x, aux = tfm.forward(params, cfg, tokens, frames=frames,
                              remat=remat, return_hidden=True,
                              act_sharding=act_sharding,
-                             attn_scheme=attn_scheme)
+                             attn_scheme=attn_scheme, dp_group=group)
         unembed = tfm.unembed_matrix(params, cfg)
         valid = labels < cfg.vocab_size       # padded vocab ids are masked
+        count = None
+        if dp is not None:
+            count = dp.all_reduce(valid.sum().float())
         loss, ce = chunked_ce_loss(x, unembed, labels, valid,
-                                   chunk=loss_chunk, z_coef=z_coef)
-        loss = loss + aux_coef * aux
+                                   chunk=loss_chunk, z_coef=z_coef,
+                                   count=count)
+        loss = loss + aux_coef * (aux if dp is None else aux / dp.world)
         return loss, {"ce": ce, "aux": aux}
     return loss_fn
 
@@ -127,24 +143,36 @@ def make_loss_fn(cfg: ModelConfig, aux_coef: float = 1e-2,
 def make_grad_step(cfg: ModelConfig, opt_cfg: OptConfig, accum: int = 1,
                    loss_chunk: int = 1024, remat="full",
                    aux_coef: float = 1e-2, act_sharding=None,
-                   attn_scheme: str = "simple"):
+                   attn_scheme: str = "simple", dp=None):
     """grad_step(params, batch) -> (loss, {"ce", "aux"}, grads): the
     train step's forward and backward over ``accum`` microbatches, before
     error feedback and the update.  ``grads`` has the tree of ``params``
     in the gradient dtype (``bfloat16`` with compression, else
-    ``cfg.cdtype``)."""
+    ``cfg.cdtype``).
+
+    With ``dp``, ``params`` are this rank's blocks, gathered whole in the
+    gradient dtype; ``batch`` holds this rank's rows of each microbatch
+    (microbatch i is rows [i·mb, (i+1)·mb) of the global batch, and rank
+    r holds the r-th 1/D of them); ``grads`` are whole leaves over this
+    rank's rows, and the loss and "ce" are summed over the ranks."""
     loss_fn = make_loss_fn(cfg, aux_coef=aux_coef, loss_chunk=loss_chunk,
                            remat=remat, act_sharding=act_sharding,
-                           attn_scheme=attn_scheme)
+                           attn_scheme=attn_scheme, dp=dp)
     gdt = (torch.bfloat16 if opt_cfg.grad_dtype == "bfloat16"
            else cfg.cdtype)
 
-    def fresh_leaf(a):
-        return a.detach().to(gdt).requires_grad_() \
-            if a.is_floating_point() else a
+    def fresh_leaf(a, d=None):
+        if not a.is_floating_point():
+            return a
+        c = a.detach().to(gdt)
+        if dp is not None:
+            c = dp.gather_leaf(c, d)
+        return c.requires_grad_()
 
     def grad_step(params, batch):
-        params_c = tree_map(fresh_leaf, tfm._as_tree(params))
+        params = tfm._as_tree(params)
+        params_c = (tree_map(fresh_leaf, params) if dp is None
+                    else tree_map(fresh_leaf, params, dp.placements))
         tokens, labels = batch["tokens"], batch["labels"]
         frames = batch.get("frames")
         mb = tokens.shape[0] // accum
@@ -159,6 +187,10 @@ def make_grad_step(cfg: ModelConfig, opt_cfg: OptConfig, accum: int = 1,
             auxs.append(met["aux"].detach())
         grads = tree_map(lambda a: a.grad if a.grad is not None
                          else torch.zeros_like(a), params_c)
+        if dp is not None:
+            tot = dp.all_reduce(torch.stack(losses + ces))
+            losses, ces = list(tot[:accum].unbind()), list(
+                tot[accum:].unbind())
         if accum == 1:
             return losses[0], {"ce": ces[0], "aux": auxs[0]}, grads
         for g in tree_leaves(grads):
@@ -171,22 +203,30 @@ def make_grad_step(cfg: ModelConfig, opt_cfg: OptConfig, accum: int = 1,
 def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
                     accum: int = 1, loss_chunk: int = 1024,
                     remat="full", aux_coef: float = 1e-2,
-                    act_sharding=None, attn_scheme: str = "simple"):
+                    act_sharding=None, attn_scheme: str = "simple",
+                    dp=None):
     """Returns train_step(state, batch) -> (state, metrics); the state is
     updated in place.
 
     state = {"params": f32 tree, "opt": {...}, "residual": optional}
     batch = {"tokens": (B,S) integer, "labels": (B,S) integer
              [, "frames": ...]}, tensors on the state's device.
+
+    With ``dp`` (``train.dp.DataParallel``) the state holds this rank's
+    blocks and the batch its rows (see ``make_grad_step``): the gradients
+    are reduce-scattered in float32, and error feedback and AdamW run on
+    the blocks, clipped by the norm over every block.
     """
     grad_step = make_grad_step(cfg, opt_cfg, accum=accum,
                                loss_chunk=loss_chunk, remat=remat,
                                aux_coef=aux_coef, act_sharding=act_sharding,
-                               attn_scheme=attn_scheme)
+                               attn_scheme=attn_scheme, dp=dp)
     compress = opt_cfg.grad_dtype == "bfloat16"
 
     def train_step(state, batch):
         loss, met, grads = grad_step(state["params"], batch)
+        if dp is not None:
+            grads = dp.reduce_grads(grads)
         if compress and opt_cfg.error_feedback and "residual" in state:
             # ef-sim: quantize (grads + residual), carry the error
             with torch.no_grad():
@@ -196,8 +236,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
                     gq = s.to(torch.bfloat16)
                     r.copy_(s - gq.float())
                     g.copy_(gq)
-        _, _, omet = apply_updates(state["params"], grads, state["opt"],
-                                   opt_cfg)
+        _, _, omet = apply_updates(
+            state["params"], grads, state["opt"], opt_cfg,
+            gnorm=None if dp is None else dp.global_norm(grads))
         return state, {"loss": loss, **met, **omet}
 
     return train_step
@@ -205,11 +246,13 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
 
 def init_train_state(cfg: ModelConfig, opt_cfg: OptConfig,
                      seed: int = 0, error_feedback_state: bool = False,
-                     device=None) -> dict:
+                     device=None, keep=None) -> dict:
     """Fresh float32 parameters (``init_params``), zero moments and a
     zero step on ``device`` (CUDA unless given), and a float32 residual
-    with ``error_feedback_state``."""
-    params = tfm.init_params(cfg, seed=seed, device=device)
+    with ``error_feedback_state``.  With ``keep`` (see ``init_params``)
+    every leaf holds only the part ``keep`` takes of it, drawn one leaf
+    at a time (a data-parallel rank's blocks)."""
+    params = tfm.init_params(cfg, seed=seed, device=device, keep=keep)
     state = {"params": params, "opt": init_opt_state(params)}
     if error_feedback_state:
         state["residual"] = tree_map(

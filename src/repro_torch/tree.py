@@ -36,3 +36,18 @@ def tree_map(fn, tree, *rest):
         return [tree_map(fn, v, *(r[i] for r in rest))
                 for i, v in enumerate(tree)]
     return fn(tree, *rest)
+
+
+def tree_map_with_path(fn, tree, is_leaf=None, prefix: tuple = ()):
+    """``fn(path, leaf)`` over the leaves of ``tree`` (paths as in
+    ``tree_items``); a tree of the results.  ``is_leaf(node)`` true stops
+    the walk at a node (a tuple spec, say)."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(prefix, tree)
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, is_leaf, prefix + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map_with_path(fn, v, is_leaf, prefix + (i,))
+                for i, v in enumerate(tree)]
+    return fn(prefix, tree)

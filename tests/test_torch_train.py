@@ -13,6 +13,7 @@ on the port, and the port held to ``repro`` on the same inputs.
   * a checkpoint written by either package loads into the other,
     bitwise;
   * the restart contract through the port's CLI with ``--device cpu``
+    (its data-parallel runs are in ``tests/test_torch_train_dp.py``)
     (the reference's own CLI cannot run it in this JAX: its embedding
     gather under the host mesh's shardings raises
     ``DuplicateSpecError``).
@@ -393,12 +394,22 @@ def test_train_cli_raises_without_a_card(monkeypatch):
     assert len(rec["history"]) == 1 and rec["peak_bytes"] is None
 
 
-def test_train_cli_refuses_a_data_mesh(capsys):
+def test_train_cli_refuses_a_data_mesh(capsys, monkeypatch):
+    """The data meshes the port cannot run: D not dividing batch / accum,
+    and a 'model' axis above 1 (four cards, D = 2; the refusal comes
+    before any card is touched)."""
+    argv = ["--arch", "qwen3-0.6b", "--reduced", "--batch", "4",
+            "--accum", "2"]
     with pytest.raises(SystemExit) as e:
-        train_cli.main(["--arch", "qwen3-0.6b", "--reduced", "--device",
-                        "cpu", "--data-mesh", "2"])
+        train_cli.main(argv + ["--device", "cpu", "--data-mesh", "4"])
     assert e.value.code == 2
-    assert "7c" in capsys.readouterr().err
+    assert "divide batch / accum = 2" in capsys.readouterr().err
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    with pytest.raises(SystemExit) as e:
+        train_cli.main(argv + ["--data-mesh", "2"])
+    assert e.value.code == 2
+    assert "item 7d" in capsys.readouterr().err
 
 
 def test_example_trains_on_the_cpu():

@@ -21,7 +21,8 @@ paths of the attention blocks, the SSM chunks and the loss chunks:
   * the reference's ``tests/test_models.py::test_train_step_smoke`` on
     the port;
   * bf16 compute against float32 on the same weights and batch, the
-    measurement behind smoke phase 18 (b)'s gate ``GATE``.
+    measurements behind smoke phase 18 (b)'s gates ``GATE`` (the loss)
+    and ``GNORM_GATE`` (the first step's gradient norm).
 The trajectories of five train steps are in
 ``tests/test_torch_train_track.py``.
 """
@@ -43,13 +44,14 @@ from repro.train import steps as ref_steps
 from repro_torch import convert
 from repro_torch.configs import get_config, reduced
 from repro_torch.models import transformer as T
-from repro_torch.optim.adamw import OptConfig
+from repro_torch.optim.adamw import OptConfig, global_norm
 from repro_torch.train import steps
 from repro_torch.tree import tree_items, tree_leaves, tree_map
 
 ALL_ARCHS = sorted(REF_ARCHS)
 RTOL, ZERO = 1e-4, 1e-6
 GATE = 5e-3      # chip_smoke.py's TRAIN_BF16_RTOL
+GNORM_GATE = 2e-2   # chip_smoke.py's TRAIN_BF16_GNORM_RTOL
 B, S, CHUNK = 2, 40, 32
 
 
@@ -217,3 +219,33 @@ def test_bf16_loss_gap(arch):
                 steps.cast_tree(params, c.cdtype), tok, lab, frames)[0])
     gap = abs(loss["bfloat16"] - loss["float32"]) / loss["float32"]
     assert gap < GATE / 2, (arch, loss)
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_bf16_grad_norm_gap(arch):
+    """The first step's gradient norm (before the clip) in bf16 compute
+    against float32 on the same weights and batch (B = 4, S = 128, accum
+    2, as the trainer takes a step): 4.3e-4 to 1.28e-3 relative for the
+    dense, SSM and hybrid configs, 6.5e-3 and 7.8e-3 for the MoE ones
+    (bf16 moves tokens between experts).  Smoke phase 18 (b) holds
+    qwen2-0.5b at its published width to ``GNORM_GATE``, about fifteen
+    times the dense configs' largest gap (a model with six times their
+    layers and a 300 times wider vocabulary); every gap stays below half
+    of it."""
+    _, cfg = _cfgs(arch)
+    params = T.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.tensor(rng.integers(0, cfg.vocab_size, (4, 128)))
+             for k in ("tokens", "labels")}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.tensor(
+            rng.normal(size=(4, cfg.n_frames, cfg.d_model)),
+            dtype=torch.float32)
+    norm = {}
+    for dt in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=dt)
+        _, _, grads = steps.make_grad_step(c, OptConfig(), accum=2,
+                                           loss_chunk=256)(params, batch)
+        norm[dt] = float(global_norm(grads))
+    gap = abs(norm["bfloat16"] - norm["float32"]) / norm["float32"]
+    assert gap < GNORM_GATE / 2, (arch, norm)
