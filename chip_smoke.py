@@ -154,7 +154,21 @@ Phases (any failed check exits non-zero; nothing is caught):
                + moments, its peak while the state is built and its peak
                above them in the steps, and the step's collective time
                (each collective's least time over the ranks, and rank
-               0's with its waits).
+               0's with its waits);
+20. LM tensor parallel — ``launch.train`` on ('data', 'model') = (D, T)
+               meshes of the visible cards (NCCL worker processes),
+               qwen3-0.6b at its published width, which runs none of the
+               three kernels (see ``lm_tp_phase``): one card in this
+               process, then (1, 1) through the spawned ranks on a
+               one-card host (bitwise one card's first step), or (1, N)
+               and (2, N // 2) on N cards (within 1e-3): s per step and
+               tokens/s against one card's, the share of
+               ``roofline_terms(n_chips=D·T, tp=T)``'s bound, each
+               card's masters + moments and peaks, the 'data' and
+               'model' collective seconds, the gathered leaves; then the
+               same meshes in float32 (within 1e-5).
+               ``python3 chip_smoke.py --phase 20`` runs phases 1 and 20
+               alone.
 
 Phases 8 and 9 print wall time, solved queries per second, peak device
 memory and host syncs per solve; phase 10 prints each pass's wall time,
@@ -171,13 +185,14 @@ the weights; phase 18 prints s per step, tokens per second, the share
 of the step that ``launch.costmodel.step_cost``'s bound is, MFU against
 6·N·tokens, launches and device busy time of one profiled step, and the
 peak memory split into masters + moments and what the step adds; phase
-19 prints the same per card of D, with the collectives' time.
+19 prints the same per card of D, with the collectives' time; phase 20
+per (D, T) mesh, with the 'data' and 'model' collectives apart.
 Launch counters are set to 0 just before each main-path phase (5, 6, 8,
 9, 12, 13, 14's loopback passes, 16's direct solves and its server
 pass, 17's two parts, 18's three parts and its profiled step), each
-server pass and each runtime pass, and read just after; phase 19's
-worker processes count from 0 each and hand their counts back, which
-the table adds; spawned replicas count in their own processes, which
+server pass and each runtime pass, and read just after; phases 19's
+and 20's worker processes count from 0 each and hand their counts back,
+which the table adds; spawned replicas count in their own processes, which
 the table does not read.  Data comes from fixed seeds through numpy.  The second-to-last
 line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a card, and
@@ -234,9 +249,44 @@ TRAIN_CARD_RTOL, TRAIN_BF16_RTOL, TRAIN_BF16_GNORM_RTOL = 1e-4, 5e-3, 2e-2
 # gap.  At D = 1 the step is bitwise the one-card step's on the CPU.
 TRAIN_DP_RTOL = 1e-3
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM = "qwen2-0.5b", 8, 4096, 2
+# phase 20: the (D, T) mesh's first step against one card's, relative;
+# 1e-3, phase 19's gate.  Split sums over heads, d_ff and the vocabulary
+# round each rank's part to bf16 before they are added (in float32,
+# train.tp).  On the CPU, bf16 reduced configs (qwen2, qwen3, gemma3,
+# olmoe, mamba2; B = 8, S = 128, accum 2) at (1, 2), (1, 4) and (2, 2)
+# land within 2.3e-5 (loss) and 9.3e-4 (gradient norm) of one process
+# for the dense ones, 7.7e-4 for qwen3, and 4.0e-4 / 1.4e-3 for olmoe
+# (bf16 moves tokens between experts).  At (1, 1) the step is bitwise
+# one card's (the collectives are copies).
+TRAIN_TP_RTOL = 1e-3
+TP_ARCH = "qwen3-0.6b"
+# phase 20 (c): the same meshes in float32 (TF32 off), first step within
+# TRAIN_TP_F32_RTOL of one card's: on the CPU the ten reduced configs at
+# (1, 2) and qwen3, olmoe and mamba2 at (2, 2) and (1, 4) land within
+# 2.8e-7 (tests/test_torch_train_tp.py), so 1e-5.  Batch 4 × 1024 in two
+# microbatches: one row a data rank at (2, 2).  launch.train's workers
+# resolve the float32 config by name; they import this script as their
+# main module, which registers it (_register_f32).
+TRAIN_TP_F32_RTOL = 1e-5
+TP_F32_ARCH, TP_F32_BATCH, TP_F32_SEQ = TP_ARCH + "-f32", 4, 1024
 # a step takes about 10 s on the card (PERF.md §5): one warm-up and two
 # timed steps keep the phase near two minutes
 TRAIN_WARM, TRAIN_TIMED = 1, 2
+
+
+def _register_f32() -> None:
+    """TP_F32_ARCH: TP_ARCH in float32, in the port's registry (phase 20
+    (c)); a no-op where the port is not importable."""
+    import dataclasses
+    try:
+        from repro_torch import configs
+    except ImportError:
+        return
+    configs.ARCHS[TP_F32_ARCH] = dataclasses.replace(
+        configs.ARCHS[TP_ARCH], name=TP_F32_ARCH, dtype="float32")
+
+
+_register_f32()
 
 
 def fail(msg: str) -> None:
@@ -1029,6 +1079,212 @@ def lm_dp_phase(card: str, first18: dict, tok_s18: float) -> dict:
     return total
 
 
+def lm_tp_phase(card: str) -> dict:
+    """Phase 20, LM training with tensor parallelism over 'model': qwen3-
+    0.6b at its published width through ``launch.train.main`` on the
+    ('data', 'model') = (D, T) meshes of the N visible cards (NCCL worker
+    processes, rank r on cuda:r, each holding its block of the masters
+    and moments on both axes; ``train.tp``).  A failed check exits.  The
+    workers launch none of the three kernels: each counts from 0 and
+    hands its counts back; their sums are checked to be 0 and returned.
+
+    Arguments as phase 18 (b)'s, for TP_ARCH: bf16 compute, f32 masters
+    and moments, seed 0, cyclic data, ``--batch 8 --seq 4096 --accum 2``
+    (two microbatches of 4 × 4096), remat ``"full"``, loss chunks of
+    2048, TRAIN_WARM warm-up and TRAIN_TIMED timed steps.  Cut:
+    ``train_4k``'s 256 sequences to 8.
+
+    (a) One card in this process (``--device cuda:0``, no process
+        group): the baseline of s per step and tokens/s, and the first
+        step's loss and gradient norm.
+    (b) The meshes: (1, 1) through the spawned-rank path on a one-card
+        host (``--data-mesh 1``), whose first step must equal (a)'s
+        bitwise; on N cards (1, N), and (2, N // 2) when N >= 4, whose
+        first step must be within TRAIN_TP_RTOL of (a)'s.  Each prints
+        s per step and tokens/s against (a)'s, the share of
+        ``costmodel.roofline_terms(n_chips=D·T, tp=T)``'s bound, each
+        card's masters + moments, its peak while the state was built and
+        its peak above the state in the steps, the 'data' and 'model'
+        collective seconds of each timed step (least over the ranks /
+        rank 0's), the gathered leaves and the workers' launches.
+    (c) The same meshes for TP_ARCH in float32, batch 4 × 1024 (one
+        step): the first step within TRAIN_TP_F32_RTOL of one card's
+        (bitwise at (1, 1)), the check of the split math that bf16's
+        rounding would hide.
+    """
+    import torch
+
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch import costmodel
+    from repro_torch.launch import train as lm_train
+
+    def rel(got, want) -> float:
+        return abs(float(got) - float(want)) / max(abs(float(want)), 1e-30)
+
+    n = torch.cuda.device_count()
+    total = {}
+    t20 = time.perf_counter()
+    steps_n = TRAIN_WARM + TRAIN_TIMED
+    base = ["--arch", TP_ARCH, "--batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--accum", str(TRAIN_ACCUM), "--steps",
+            str(steps_n), "--data-pattern", "cyclic", "--log-every", "1",
+            "--seed", "0"]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    def run(extra) -> dict:
+        rec = {}
+        check(lm_train.main(base + extra, record=rec) == 0,
+              f"launch.train {' '.join(extra)} failed")
+        for r in rec["ranks"]:
+            check(set(r["launches"]) == set(ops.launch_counts())
+                  and not any(r["launches"].values()),
+                  f"a tensor-parallel rank launched {r['launches']}")
+            for k, v in r["launches"].items():
+                total[k] = total.get(k, 0) + v
+        check(len(rec["history"]) == steps_n
+              and all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                      for h in rec["history"]),
+              f"{extra}: history {rec.get('history')}")
+        return rec
+
+    # ------------------------------------------------- (a) one card
+    ops.reset_launch_counts()
+    t_a = time.perf_counter()
+    one = run(["--device", "cuda:0"])
+    counts_a = ops.launch_counts()
+    check(not any(counts_a.values()), f"LM training launched {counts_a}")
+    t_a = time.perf_counter() - t_a
+    cfg = one["cfg"]
+    check((cfg.name, cfg.n_layers, cfg.d_model, cfg.n_heads,
+           cfg.n_kv_heads, cfg.hd, cfg.d_ff, cfg.vocab_size, cfg.qk_norm,
+           cfg.tie_embeddings, cfg.dtype)
+          == ("qwen3-0.6b", 28, 1024, 16, 8, 128, 3072, 151936, True, True,
+              "bfloat16"),
+          f"qwen3-0.6b is not at its published width: {cfg}")
+    first = one["history"][0]
+    s_one = statistics.median(one["times"][TRAIN_WARM:])
+    r0 = one["ranks"][0]
+    print(f"LM tensor parallel {TP_ARCH} (published width, "
+          f"{cfg.param_count()} parameters) one card in this process: "
+          f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, accum {TRAIN_ACCUM}; "
+          f"first-step loss {first['loss']!r}, gradient norm "
+          f"{first['grad_norm']!r}; {s_one:.4f} s per step (median of "
+          f"{TRAIN_TIMED} after {TRAIN_WARM} warm-up: "
+          f"{', '.join(f'{t:.4f}' for t in one['times'][TRAIN_WARM:])}), "
+          f"{tokens / s_one:,.0f} tokens/s; masters + moments "
+          f"{r0['state_bytes'] / 2**30:.3f} GiB, peak above them "
+          f"{(r0['peak_bytes'] - r0['held_bytes'] - r0['state_bytes']) / 2**30:.3f}"
+          f" GiB; run {t_a:.2f} s {card}", flush=True)
+    del one["state"], one["step_fn"]
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------- (b) the meshes
+    meshes = [(1, 1)] if n == 1 else [(1, n)] + (
+        [(2, n // 2)] if n >= 4 else [])
+    for d, t in meshes:
+        t_b = time.perf_counter()
+        rec = run(["--data-mesh", str(d)])
+        t_b = time.perf_counter() - t_b
+        check((rec["data_mesh"], rec["model_mesh"]) == (d, t)
+              and len(rec["ranks"]) == d * t,
+              f"mesh ({rec['data_mesh']}, {rec['model_mesh']}) with "
+              f"{len(rec['ranks'])} ranks, not ({d}, {t})")
+        h = rec["history"][0]
+        e_loss = rel(h["loss"], first["loss"])
+        e_gnorm = rel(h["grad_norm"], first["grad_norm"])
+        if d * t == 1:
+            check(h["loss"] == first["loss"]
+                  and h["grad_norm"] == first["grad_norm"],
+                  f"(1, 1) first step: loss {h['loss']!r} vs one card "
+                  f"{first['loss']!r}, gradient norm {h['grad_norm']!r} vs "
+                  f"{first['grad_norm']!r}: not bitwise")
+        check(e_loss <= TRAIN_TP_RTOL and e_gnorm <= TRAIN_TP_RTOL,
+              f"({d}, {t}) first step: loss {h['loss']!r} vs one card "
+              f"{first['loss']!r} ({e_loss:.3e}), gradient norm "
+              f"{h['grad_norm']!r} vs {first['grad_norm']!r} "
+              f"({e_gnorm:.3e})")
+        timed = rec["times"][TRAIN_WARM:]
+        s_step = statistics.median(timed)
+        rt = costmodel.roofline_terms(
+            cfg, ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+            n_chips=d * t, tp=t)
+        coll = [(hh["collective_s"], hh["collective_rank0_s"],
+                 hh["model_collective_s"], hh["model_collective_rank0_s"])
+                for hh in rec["history"][TRAIN_WARM:]]
+        per_card = [(r["coord"], round(r["state_bytes"] / 2**30, 3),
+                     round((r["init_peak_bytes"] - r["held_bytes"])
+                           / 2**30, 3),
+                     round((r["peak_bytes"] - r["held_bytes"]
+                            - r["state_bytes"]) / 2**30, 3),
+                     round(r["collective_s"]["data"], 4),
+                     round(r["collective_s"]["model"], 4))
+                    for r in rec["ranks"]]
+        print(f"LM tensor parallel {TP_ARCH} mesh ({d}, {t}) (NCCL, "
+              f"{d * t} worker process(es)): first-step loss {h['loss']!r} "
+              f"({e_loss:.3e}), gradient norm {h['grad_norm']!r} "
+              f"({e_gnorm:.3e}) against one card's (<= {TRAIN_TP_RTOL:g}"
+              f"{'; bitwise' if d * t == 1 else ''}); {s_step:.4f} s per "
+              f"step (median of {TRAIN_TIMED} after {TRAIN_WARM} warm-up: "
+              f"{', '.join(f'{x:.4f}' for x in timed)}; rank 0's host clock "
+              f"ending in the loss read), {tokens / s_step:,.0f} tokens/s, "
+              f"{s_step / s_one:.3f} of one card's s per step and "
+              f"{s_one / s_step:.3f} of its tokens/s; roofline_terms("
+              f"n_chips={d * t}, tp={t}) bound {rt['step_time_lb']:.4f} s by "
+              f"{rt['bottleneck']} (compute {rt['t_compute']:.4f} s, memory "
+              f"{rt['t_memory']:.4f} s, collective {rt['t_collective']:.4f} "
+              f"s), {100 * rt['step_time_lb'] / s_step:.2f}% of the step; "
+              f"losses {[round(x['loss'], 4) for x in rec['history']]}; "
+              f"collectives of the timed steps, 'data' least over the ranks "
+              f"/ rank 0's, 'model' least / rank 0's: "
+              f"{'; '.join(f'{a:.6f} / {b:.6f}, {c:.6f} / {e:.6f}' for a, b, c, e in coll)}"
+              f" s; per card (coord, masters + moments, peak while built, "
+              f"peak above the state in the steps, GiB; its own 'data' and "
+              f"'model' collective seconds over all steps, waits included) "
+              f"{per_card}; "
+              f"gathered leaves ({len(rec['gathered'])}) "
+              f"{rec['gathered'][:6]}{' ...' if len(rec['gathered']) > 6 else ''}"
+              f"; run {t_b:.2f} s {card}", flush=True)
+
+    # ----------------------------------------- (c) float32 on the meshes
+    t_c = time.perf_counter()
+    base = ["--arch", TP_F32_ARCH, "--batch", str(TP_F32_BATCH), "--seq",
+            str(TP_F32_SEQ), "--accum", str(TRAIN_ACCUM), "--steps", "1",
+            "--data-pattern", "cyclic", "--log-every", "1", "--seed", "0"]
+    steps_n = 1
+    one32 = run(["--device", "cuda:0"])["history"][0]
+    torch.cuda.empty_cache()
+    f32_meshes = [(1, 1)] if n == 1 else [(1, n)] + (
+        [(2, n // 2)] if n >= 4 else [])
+    gaps = []
+    for d, t in f32_meshes:
+        rec = run(["--data-mesh", str(d)])
+        check((rec["data_mesh"], rec["model_mesh"]) == (d, t),
+              f"float32 mesh ({rec['data_mesh']}, {rec['model_mesh']})")
+        h = rec["history"][0]
+        e = (rel(h["loss"], one32["loss"]),
+             rel(h["grad_norm"], one32["grad_norm"]))
+        check(d * t > 1 or (h["loss"] == one32["loss"]
+                            and h["grad_norm"] == one32["grad_norm"]),
+              f"float32 (1, 1) first step not bitwise one card's: {h}")
+        check(max(e) <= TRAIN_TP_F32_RTOL,
+              f"float32 ({d}, {t}) first step: loss {h['loss']!r} vs one "
+              f"card {one32['loss']!r}, gradient norm {h['grad_norm']!r} "
+              f"vs {one32['grad_norm']!r}: {e[0]:.3e}, {e[1]:.3e}")
+        gaps.append(((d, t), h["loss"], h["grad_norm"], e))
+    print(f"LM tensor parallel {TP_ARCH} in float32 (TF32 off), batch "
+          f"{TP_F32_BATCH} x seq {TP_F32_SEQ}, accum {TRAIN_ACCUM}, first "
+          f"step: one card loss {one32['loss']!r}, gradient norm "
+          f"{one32['grad_norm']!r}; "
+          f"{'; '.join(f'{m}: {lo!r}, {gn!r} ({e[0]:.3e}, {e[1]:.3e})' for m, lo, gn, e in gaps)}"
+          f" (<= {TRAIN_TP_F32_RTOL:g}); {time.perf_counter() - t_c:.2f} "
+          f"s {card}", flush=True)
+    print(f"LM tensor parallel: phase 20 in {time.perf_counter() - t20:.2f} "
+          f"s; kernel launches of the workers, summed {total} {card}",
+          flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1066,6 +1322,18 @@ def main() -> int:
     # exact float32 kernels: no TF32 anywhere in this run
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ["--phase", "20"]:
+        # phase 20 alone (a four-card call): its lines, no kernel table
+        counts20 = lm_tp_phase(card)
+        print("kernels: " + ", ".join(f"{k} {counts20.get(k, 0)}"
+                                      for k in build.KERNELS))
+        print(smi_line)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": kind,
+                                                 "count": count}}))
+        return 0
+    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}: none, or "
+          "--phase 20")
 
     # ----------------------------------------------------------- 2. build
     t0 = time.perf_counter()
@@ -2664,11 +2932,13 @@ def main() -> int:
     lm_serve_phase(dev, card)
     counts18, first18, tok_s18 = lm_train_phase(dev, card)
     counts19 = lm_dp_phase(card, first18, tok_s18)
+    counts20 = lm_tp_phase(card)
     for r in rows:
-        r["launches"] += counts18.get(r["name"], 0) + counts19.get(
-            r["name"], 0)
+        r["launches"] += sum(c.get(r["name"], 0)
+                             for c in (counts18, counts19, counts20))
     for k in build.KERNELS:
-        launches[k] += counts18.get(k, 0) + counts19.get(k, 0)
+        launches[k] += sum(c.get(k, 0) for c in (counts18, counts19,
+                                                  counts20))
 
     loaded = [m for m in sys.modules
               if m.split(".")[0] == "jax" or m.startswith("repro.")

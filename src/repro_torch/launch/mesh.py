@@ -21,7 +21,7 @@ overlappable) bear the slower links.  So a pod is (32, 8) as ('data',
 
 ``make_host_mesh(data, model)`` is the small mesh of one run: the
 ``launch.train`` workers build it over their process group (NCCL on
-cards, gloo on the CPU).  Unlike the reference, which takes the first
+cards, gloo on the CPU) and train over its 'data' and 'model' groups.  Unlike the reference, which takes the first
 ``data * model`` devices, it covers the whole group: the trainer starts
 exactly as many ranks as the mesh has slots.
 
@@ -67,7 +67,8 @@ def make_production_mesh(*, multi_pod: bool = False,
 def make_host_mesh(data: int, model: int):
     """A ('data', 'model') mesh over the ranks of this run's process
     group, which must hold ``data * model`` of them: on cards under
-    NCCL, on the CPU under gloo."""
+    NCCL, on the CPU under gloo.  Rank r sits at (r // model, r % model),
+    row-major as in the reference's mesh."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     n = dist.get_world_size()

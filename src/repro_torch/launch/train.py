@@ -10,36 +10,41 @@
 Trains on CUDA cards unless ``--device`` names another device (``cpu``,
 or one card as ``cuda:k``), and raises without a card.
 
-**Data parallelism.**  ``--data-mesh D`` is the data axis of the
-reference's host mesh (D, devices // D); 0 (the default) takes every
-visible card (one on the CPU or on ``cuda:k``).  The 'model' axis must
-come out 1: tensor parallelism is not ported (ROADMAP queue 1, item
-7d), and D must divide ``batch / accum`` (the reference would replicate
-the batch there; ROADMAP queue 3).  With ``--data-mesh`` above 0, or
-more than one card visible, ``main`` spawns D worker processes (start
-method ``spawn``, a ``FileStore`` rendezvous in a temporary directory),
-one per rank of a process group: NCCL with rank r on ``cuda:r`` (it
-raises if fewer than D cards are visible), gloo with ``--device cpu``
-(D CPU processes, the counterpart of XLA's forced host device count).
-There is no fallback: no gloo on cards, no single process instead of D.
-Each worker builds ``launch.mesh.make_host_mesh(D, 1)`` and trains
-through ``train.dp.DataParallel`` over its 'data' group: explicit
-collectives over the port's parameter dicts (see ``train.dp`` for the
-step and why not FSDP2).  Each rank holds its block of the float32
-masters, both moments and the ef-sim residual by ``models.sharding``'s
-rules, from the start: a fresh state is drawn one leaf at a time and
-each rank keeps its block of each (the blocks of the one-process draw
-with the same seed), so no rank ever holds the whole state.  It runs
-its 1/D of every microbatch's rows.  A worker that
-fails stops the others; ``main`` returns when all have ended.
-Otherwise (the default on one card or the CPU) it trains in this
-process, with no process group.
+**The (D, T) mesh.**  As the reference's trainer, it trains on the host
+mesh ('data', 'model') = (D, N // D) over N devices: ``--data-mesh D``
+is the data axis, 0 (the default) takes D = N.  N is the visible cards
+with ``--device cuda``; one card with ``cuda:k``; on the CPU, the count
+``launch.mesh.force_device_count`` sets (the port's counterpart of XLA's
+forced host device count), else D.  D must divide ``batch / accum`` (the
+reference would replicate the batch there; ROADMAP queue 3).  With
+``--data-mesh`` above 0, or more than one device, ``main`` spawns D·T
+worker processes (start method ``spawn``, a ``FileStore`` rendezvous in
+a temporary directory), one per rank of a process group: NCCL with rank
+r on ``cuda:r``, gloo with ``--device cpu``.  There is no fallback: no
+gloo on cards, no single process instead of D·T.  Each worker builds
+``launch.mesh.make_host_mesh(D, T)`` (rank r at (r // T, r % T)) and
+trains through ``train.dp.DataParallel`` over its 'data' group and
+``train.tp.TensorParallel`` over its 'model' group: explicit collectives
+over the port's parameter dicts (see ``train.dp`` for the step and why
+not FSDP2, ``train.tp`` for the split math).  Each rank holds its block,
+on both axes, of the float32 masters, both moments and the ef-sim
+residual by ``models.sharding``'s rules, from the start: a fresh state
+is drawn one leaf at a time and each rank keeps its block of each (the
+blocks of the one-process draw with the same seed), so no rank ever
+holds the whole state.  The ranks of one data index run the same 1/D of
+every microbatch's rows, each its 1/T of the math; a leaf split over
+'model' at rest but not in its math is gathered over 'model' before use
+(``sharding.gathered_leaves``; the record lists them).  At T = 1 the
+same code runs, every 'model' collective a copy.  A worker that fails
+stops the others; ``main`` returns when all have ended.  Otherwise (the
+default on one card or the CPU) it trains in this process, with no
+process group.
 
   * checkpoint every k steps (atomic) + ``--resume`` picks up from the
-    latest complete checkpoint; under data parallelism rank 0 writes the
-    state gathered to the host (the reference's files and keys) and
-    every rank waits for the write, and on ``--resume`` every rank loads
-    the whole file and keeps its blocks, so a run resumes at another D;
+    latest complete checkpoint; on a mesh rank 0 writes the state
+    gathered to the host (the reference's files and keys) and every rank
+    waits for the write, and on ``--resume`` every rank loads the whole
+    file and keeps its blocks, so a run resumes at another (D, T);
   * ``--fail-at-step`` simulates a node failure (exit code 42, also of
     the launcher); a relaunch with ``--resume`` reproduces the same loss
     trajectory (deterministic data keyed by step — a restart-safe
@@ -52,16 +57,20 @@ rank 0 prints.
 
 ``main(argv, record=...)`` also hands a caller what the run made: pass a
 dict and it receives the config, each step's metrics and time, ``D``
-(``data_mesh``) and per rank (``ranks``) the device memory held before
-the run (``held_bytes``), the bytes of its masters and moments at rest
-(``state_bytes``), its peak while the state was built
-(``init_peak_bytes``) and from the first step on (``peak_bytes``), and
-the kernel launch counts of its process at the end (``launches``; a
-worker counts from 0).  Under data parallelism rank 0 sends it, and
-each step's metrics also hold ``collective_s`` and
-``collective_rank0_s`` (``train.dp.DataParallel.collective_times``); in
-this process it also holds the state, the step function and the figures
-of its one rank at the top level.
+and ``T`` (``data_mesh``, ``model_mesh``), the gathered leaves
+(``gathered``) and per rank (``ranks``) its mesh coordinates
+(``coord``), the device memory held before the run (``held_bytes``),
+the bytes of its masters and moments at rest (``state_bytes``), its
+peak while the state was built (``init_peak_bytes``) and from the first
+step on (``peak_bytes``), its own seconds in the 'data' and 'model'
+collectives of the steps (``collective_s``, waits included), and the
+kernel launch counts of its process at the end (``launches``; a worker
+counts from 0).  On a mesh rank 0 sends it, and each step's metrics
+also hold the 'data' collectives' seconds, ``collective_s`` and
+``collective_rank0_s`` (``train.dp.DataParallel.collective_times``),
+and the 'model' ones', ``model_collective_s`` and
+``model_collective_rank0_s``; in this process it also holds the state,
+the step function and the figures of its one rank at the top level.
 """
 from __future__ import annotations
 
@@ -82,6 +91,7 @@ from repro_torch.configs import get_config, reduced as make_reduced
 from repro_torch.data.synthetic import DataConfig, batch_at
 from repro_torch.device import resolve_device
 from repro_torch.kernels.build import launch_counts, reset_launch_counts
+from repro_torch.launch.mesh import forced_device_count
 from repro_torch.optim.adamw import OptConfig
 from repro_torch.train.steps import init_train_state, make_train_step
 from repro_torch.tree import tree_leaves
@@ -121,48 +131,46 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _data_mesh(ap, args, dev: torch.device) -> int:
-    """D, the data axis of the (D, devices // D) mesh; refuses what the
-    port cannot run."""
+def _mesh_shape(ap, args, dev: torch.device) -> tuple:
+    """(D, T), the (D, devices // D) mesh; refuses what the port cannot
+    run."""
     if dev.type == "cuda" and dev.index is None:
         ndev = torch.cuda.device_count()
-    elif dev.type == "cpu":
-        ndev = max(args.data_mesh, 1)     # D gloo processes
+    elif dev.type == "cpu":           # gloo processes
+        ndev = forced_device_count() or max(args.data_mesh, 1)
     else:
         ndev = 1
     d = args.data_mesh or ndev
     if d < 1 or d > ndev:
         ap.error(f"--data-mesh {args.data_mesh}: {ndev} {dev} "
                  f"device(s) visible")
-    if ndev // d > 1:
-        ap.error(f"--data-mesh {d} on {ndev} devices makes the 'model' "
-                 f"axis {ndev // d}: tensor parallelism is not ported "
-                 "(ROADMAP queue 1, item 7d)")
     if (args.batch // args.accum) % d:
         ap.error(f"--data-mesh {d} must divide batch / accum = "
                  f"{args.batch // args.accum}")
-    return d
+    return d, ndev // d
 
 
 def main(argv=None, record: dict | None = None) -> int:
     ap = _parser()
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    d = _data_mesh(ap, args, dev)
-    if args.data_mesh == 0 and d == 1:
+    d, t = _mesh_shape(ap, args, dev)
+    if args.data_mesh == 0 and d * t == 1:
         _train(args, dev, record=record)
         return 0
-    return _launch(args, d, dev, record)
+    return _launch(args, (d, t), dev, record)
 
 
-def _launch(args, d: int, dev: torch.device, record) -> int:
-    """D worker processes, one per rank; returns when all have ended."""
+def _launch(args, shape: tuple, dev: torch.device, record) -> int:
+    """D·T worker processes, one per rank; returns when all have
+    ended."""
     ctx = torch.multiprocessing.get_context("spawn")
+    world = shape[0] * shape[1]
     with tempfile.TemporaryDirectory(prefix="repro_torch_train-") as tmp:
         procs = [ctx.Process(target=_worker,
-                             args=(r, d, args, dev.type, tmp,
+                             args=(r, shape, args, dev.type, tmp,
                                    torch.get_num_threads()))
-                 for r in range(d)]
+                 for r in range(world)]
         for p in procs:
             p.start()
         code = _wait(procs)
@@ -193,12 +201,13 @@ def _wait(procs) -> int:
     return code
 
 
-def _worker(rank: int, world: int, args, device_type: str, tmp: str,
+def _worker(rank: int, shape: tuple, args, device_type: str, tmp: str,
             threads: int) -> None:
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_host_mesh
 
+    world = shape[0] * shape[1]
     if device_type == "cuda":
         dev = torch.device("cuda", rank)
         torch.cuda.set_device(dev)
@@ -214,7 +223,7 @@ def _worker(rank: int, world: int, args, device_type: str, tmp: str,
     try:
         rec = {}
         reset_launch_counts()
-        _train(args, dev, record=rec, mesh=make_host_mesh(world, 1))
+        _train(args, dev, record=rec, mesh=make_host_mesh(*shape))
         if rank == 0:
             part = os.path.join(tmp, "record.pkl.tmp")
             with open(part, "wb") as f:
@@ -240,7 +249,7 @@ def _save(state, dp, ckpt_dir: str, step: int) -> None:
         ckpt_lib.save(state, ckpt_dir, step)
         return
     whole = dp.gather_state(state)
-    if dp.rank == 0:
+    if whole is not None:               # rank 0 of the mesh
         ckpt_lib.save(whole, ckpt_dir, step)
     dp.barrier()
 
@@ -261,19 +270,18 @@ def _train(args, dev: torch.device, record=None, mesh=None) -> None:
     if cuda:
         torch.cuda.synchronize(dev)        # initialises CUDA, if not yet
         torch.cuda.reset_peak_memory_stats(dev)
-    dp = keep = None
+    dp = tp = keep = None
     if mesh is not None:
-        from repro_torch.models.sharding import param_placements
         from repro_torch.models.transformer import init_params
-        from repro_torch.train.dp import DataParallel, keep_blocks
-        shapes = init_params(cfg, device="meta")
-        dp = DataParallel(mesh.get_group("data"),
-                          param_placements(mesh, shapes), dev)
-        keep = keep_blocks(shapes, dp.placements, dp.rank, dp.world)
+        from repro_torch.train.dp import keep_blocks
+        from repro_torch.train.tp import mesh_layout
+        dp, tp = mesh_layout(cfg, mesh, dev)
+        keep = keep_blocks(init_params(cfg, device="meta"), dp.placements,
+                           dp.coord, dp.shape)
     state = init_train_state(cfg, opt_cfg, seed=args.seed,
                              error_feedback_state=ef, device=dev, keep=keep)
     init_peak = torch.cuda.max_memory_allocated(dev) if cuda else None
-    rank = 0 if dp is None else dp.rank
+    rank = 0 if dp is None else torch.distributed.get_rank()
 
     start_step = 0
     if args.resume and args.ckpt_dir:
@@ -299,13 +307,14 @@ def _train(args, dev: torch.device, record=None, mesh=None) -> None:
                       pattern=args.data_pattern)
     step_fn = make_train_step(cfg, opt_cfg, accum=args.accum,
                               loss_chunk=min(2048, args.batch * args.seq),
-                              dp=dp)
+                              dp=dp, tp=tp)
 
     if cuda:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
     times: list = []
     history: list = []
+    own = {"data": 0.0, "model": 0.0}   # this rank's collective seconds
     for step in range(start_step, args.steps):
         if step == args.fail_at_step:
             if rank == 0:
@@ -325,7 +334,11 @@ def _train(args, dev: torch.device, record=None, mesh=None) -> None:
                         **{k: float(metrics[k])
                            for k in ("ce", "aux", "grad_norm", "lr")}})
         if dp is not None:
-            history[-1].update(dp.collective_times())
+            for axis, c in (("data", dp), ("model", tp)):
+                got = c.collective_times()
+                own[axis] += got.pop("own_s")
+                history[-1].update({("" if axis == "data" else "model_")
+                                    + k: v for k, v in got.items()})
         if len(times) > 5:
             med = statistics.median(times[1:])
             if dt > args.straggler_factor * med and rank == 0:
@@ -346,22 +359,26 @@ def _train(args, dev: torch.device, record=None, mesh=None) -> None:
         print("[train] done")
     if record is None:
         return
-    mine = {"held_bytes": held,
+    mine = {"coord": (0, 0) if dp is None else dp.coord,
+            "held_bytes": held,
             "state_bytes": _nbytes(state["params"]) + _nbytes(
                 [state["opt"]["mu"], state["opt"]["nu"]]),
             "init_peak_bytes": init_peak,
             "peak_bytes": (torch.cuda.max_memory_allocated(dev)
                            if cuda else None),
+            "collective_s": own,
             "launches": launch_counts()}
     record.update(cfg=cfg, opt_cfg=opt_cfg, data_cfg=dcfg, times=times,
-                  history=history, data_mesh=1 if dp is None else dp.world)
+                  history=history, data_mesh=1 if dp is None else dp.world,
+                  model_mesh=1 if tp is None else tp.world)
     if dp is None:
-        record.update(state=state, step_fn=step_fn, ranks=[mine], **mine)
+        record.update(state=state, step_fn=step_fn, ranks=[mine],
+                      gathered=[], **mine)
     else:
         import torch.distributed as dist
-        ranks = [None] * dp.world
-        dist.all_gather_object(ranks, mine, group=dp.group)
-        record.update(ranks=ranks)
+        ranks = [None] * dist.get_world_size()
+        dist.all_gather_object(ranks, mine)
+        record.update(ranks=ranks, gathered=tp.gathered)
 
 
 if __name__ == "__main__":

@@ -56,8 +56,11 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator,
 
 def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
                  x_kv: torch.Tensor | None = None):
-    """x: (B, S, D) -> q (B,S,H,hd), k/v (B,T,K,hd)."""
-    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    """x: (B, S, D) -> q (B,S,H,hd), k/v (B,T,K,hd).  H and K are the
+    heads of the projections given: under tensor parallelism a rank's
+    query heads and the KV heads they read (``train.tp``)."""
+    hd = cfg.hd
+    H, K = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
     dt = x.dtype
     xkv = x if x_kv is None else x_kv
     q = x @ p["wq"].to(dt)
@@ -225,7 +228,9 @@ def attn_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
                  enc_out: torch.Tensor | None = None,
                  enc_pos: torch.Tensor | None = None,
                  theta: float | None = None, scheme: str = "simple"):
-    """Returns (out (B,S,D), (k, v)) — k/v returned for cache building."""
+    """Returns (out (B,S,D), (k, v)) — k/v returned for cache building.
+    With a rank's heads (``train.tp``) ``wo`` holds their rows, and the
+    output is the rank's part of the sum over heads."""
     theta = theta if theta is not None else cfg.rope_theta
     q, k, v = _project_qkv(p, x, cfg, x_kv=enc_out)
     if enc_out is None:
@@ -239,7 +244,7 @@ def attn_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
                           causal=causal and enc_out is None, window=window,
                           scheme=scheme)
     B, S = x.shape[:2]
-    out = o.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"].to(x.dtype)
+    out = o.reshape(B, S, -1) @ p["wo"].to(x.dtype)
     return out, (k, v)
 
 

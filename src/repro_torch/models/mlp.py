@@ -11,6 +11,9 @@ MoE dispatch is the grouped GShard/Switch scheme of the reference:
     back.
 
 The router's Switch load-balance loss (f·P) is returned to the caller.
+Under tensor parallelism (``train.tp``) a rank runs its block of the
+experts on the tokens routed to them; the routing is computed whole and
+alike on every model rank, in the reference's order.
 Under data parallelism its fractions are those of the whole batch: the
 per-expert sums are all-reduced over the ranks (with autograd, since
 P's gradient reaches every rank's router), then divided by the global
@@ -57,11 +60,19 @@ def init_moe(cfg: ModelConfig, gen: torch.Generator, lead: tuple = ()) -> dict:
     return p
 
 
-def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, group=None):
+def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, group=None,
+                tp=None):
     """x: (B, S, D) -> (y, aux_loss); ``group`` is the data-parallel
-    process group whose ranks hold the other rows of the batch."""
+    process group whose ranks hold the other rows of the batch.  With
+    ``tp`` (``train.tp.TensorParallel``) whose plan splits the experts,
+    ``p`` holds the rank's block of the experts (and of the shared
+    experts' ``d_ff``): routing is computed whole, as on every model
+    rank, each rank runs its experts, and ``y`` is its part of the sum
+    over ranks."""
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
+    El = p["wg"].shape[-3]
+    e0 = 0 if tp is None else tp.experts(El)
     dt = x.dtype
     cap = max(int(S * k / E * cfg.capacity_factor), 4)
     cap = min(cap, S)
@@ -91,9 +102,16 @@ def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, group=None):
         n = B * S * dist.get_world_size(group)
         f_e, p_e = f_e / n, p_e / n
     aux = E * torch.sum(f_e * p_e)
+    if tp is not None and tp.plan["moe"]:
+        # the aux is computed alike on every model rank: each carries
+        # 1/T of its gradient (train.tp)
+        aux = tp.scale_grad(aux, El / E)
+        local = eidx - e0
+        keep = keep & (local >= 0) & (local < El)
+        eidx = local.clamp(0, El - 1)
 
     bidx = torch.arange(B, device=x.device)[:, None].expand(B, S)
-    buf = torch.zeros((B, E, cap, D), dtype=dt, device=x.device)
+    buf = torch.zeros((B, El, cap, D), dtype=dt, device=x.device)
     slots = torch.where(keep, pos, cap - 1)                     # (B,S,k)
     for j in range(k):                                          # k scatters
         contrib = torch.where(keep[:, :, j, None], x, 0).to(dt)

@@ -13,11 +13,15 @@ object with ``axis_names`` and a ``shape`` mapping (as a JAX mesh has),
 or a ``torch.distributed`` ``DeviceMesh`` (``mesh_dim_names`` and a
 ``shape`` tuple).  So the rules need no process group.
 
-``param_placements`` turns the specs into what the data-parallel
-trainer (``train.dp``) shards by: the dimension of each leaf that the
-data axes split.  Tensor parallelism over 'model' is not ported yet
-(ROADMAP queue 1, item 7d): a leaf that a 'model' axis above 1 would
-split raises there.
+``param_placements`` turns the specs into what the trainer shards by:
+for each leaf, the dimension the data axes split and the dimension
+'model' splits (``train.dp`` keeps a rank's block on both axes).
+``tp_plan`` and ``model_compute`` say how each leaf computes under
+tensor parallelism over 'model' (``train.tp``): a leaf stays split at
+compute time only where the math of its sub-layer splits along that cut
+(query heads, KV heads, ``d_ff``, experts, the vocabulary); any other
+split over 'model' is storage-only, and the leaf is gathered whole over
+'model' before use.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ import math
 import re
 from collections.abc import Mapping
 
-from repro_torch.tree import tree_map_with_path
+from repro_torch.tree import subtree, tree_items, tree_map_with_path
 
 
 # (path regex, logical axes per trailing dim — leading (repeats,) axes of
@@ -126,27 +130,124 @@ def param_specs(mesh, params) -> dict:
 
 
 def param_placements(mesh, params) -> dict:
-    """Where each leaf of a param (or optimizer-state) tree lives over the
-    data axes ('pod', 'data'): the dimension they split, or ``None`` where
-    they replicate the leaf (the counterpart of ``param_shardings`` for
-    the data-parallel trainer).  A 'model' axis above 1 that would split
-    a leaf raises: tensor parallelism is not ported yet."""
+    """Where each leaf of a param (or optimizer-state) tree lives: a
+    ``(data dim, model dim)`` pair per leaf, the dimension the data axes
+    ('pod', 'data') split and the one 'model' splits, ``None`` where they
+    replicate it (the counterpart of ``param_shardings`` for the port's
+    trainer).  A rank at mesh coordinates (d, m) holds block m of the
+    leaf along the model dimension, and block d of that along the data
+    dimension, in rank order.  At an axis of size 1 the dimension is
+    still given (its one block is the whole leaf)."""
     data = set(data_axes(mesh))
-    model = _sizes(mesh).get("model", 1)
 
     def one(path, spec):
-        dims = []
+        dd = md = None
         for i, s in enumerate(spec):
-            axes = s if isinstance(s, tuple) else (s,)
-            if "model" in axes and model > 1:
-                raise NotImplementedError(
-                    f"{_path_str(path)}: split over 'model' ({model}); "
-                    "tensor parallelism is ROADMAP queue 1, item 7d")
-            if data & set(axes):
-                dims.append(i)
-        return dims[0] if dims else None     # the rules split one at most
+            axes = set(s if isinstance(s, tuple) else (s,))
+            if data & axes:
+                dd = i
+            if "model" in axes:
+                md = i
+        return dd, md                       # the rules split one of each
     return tree_map_with_path(one, param_specs(mesh, params),
                               is_leaf=lambda x: isinstance(x, tuple))
+
+
+def tp_plan(cfg, tp: int) -> dict:
+    """Which sub-layers split their math over a 'model' axis of ``tp``
+    ranks (the others run whole on every model rank):
+
+      * ``attn``: query heads (``n_heads % tp == 0``, and a rank's query
+        heads fall on whole KV groups or within one);
+      * ``kv``: KV heads as well (``n_kv_heads % tp == 0``); else each
+        rank takes the KV columns its query heads read;
+      * ``mlp``: the dense MLP's ``d_ff``;
+      * ``moe``: the experts (and the shared experts' ``d_ff``);
+      * ``vocab``: the embedding rows and the loss's vocabulary;
+      * ``layout``: the layer-boundary activations keep ``d_model`` split
+        (``launch/specs.py:act_sharding_for`` of the reference) when it
+        divides, else whole.
+    """
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    hl = H // tp if H and H % tp == 0 else 0
+    g = H // K if K else 0
+    attn = bool(hl) and (hl % g == 0 or g % hl == 0)
+    moe = bool(cfg.n_experts) and cfg.n_experts % tp == 0 and (
+        not cfg.n_shared_experts or cfg.d_ff % tp == 0)
+    return {"attn": attn, "kv": attn and K % tp == 0,
+            "mlp": bool(cfg.d_ff) and cfg.d_ff % tp == 0, "moe": moe,
+            "vocab": cfg.padded_vocab % tp == 0,
+            "layout": cfg.d_model % tp == 0}
+
+
+def _compute_for(path_s: str, ndim: int, plan: dict, moe_slot: bool):
+    """One leaf's compute under ``plan``: ``(kind, dim)`` with kind
+    "block" (the rank's 1/T block along ``dim``), "kv" (the KV columns of
+    the rank's query heads along ``dim``), "partial" (whole; each model
+    rank's gradient is a part of the sum) or "whole" (whole; each rank's
+    gradient is the whole gradient)."""
+    parts = path_s.split("/")
+    name, parent = parts[-1], (parts[-2] if len(parts) > 1 else "")
+
+    def block(split, dim):
+        return ("block", dim % ndim) if split else ("whole", None)
+
+    def partial(split):
+        return ("partial" if split else "whole"), None
+
+    if name in ("embed", "unembed"):
+        return block(plan["vocab"], 0 if name == "embed" else -1)
+    if path_s == "final_norm":
+        return partial(plan["vocab"])
+    if path_s == "encoder/final_norm" or name in ("ln1", "ln_x"):
+        return partial(plan["attn"])
+    if parent in ("attn", "cross"):
+        if name in ("wq", "bq", "wo"):
+            return block(plan["attn"], -2 if name == "wo" else -1)
+        if name in ("wk", "wv", "bk", "bv"):
+            if plan["attn"] and not plan["kv"]:
+                return "kv", ndim - 1
+            return block(plan["attn"], -1)
+        return partial(plan["attn"])            # q_norm, k_norm
+    if name == "ln2":
+        return partial(plan["moe" if moe_slot else "mlp"])
+    if parent == "mlp" and name == "router":
+        return partial(plan["moe"])
+    if name in ("wg", "wu", "wd") and parent in ("mlp", "shared"):
+        if parent == "mlp" and moe_slot:            # (R, E, d_in, d_out)
+            return block(plan["moe"], -3)
+        split = plan["moe"] if parent == "shared" else plan["mlp"]
+        return block(split, -2 if name == "wd" else -1)
+    return "whole", None                            # ssm, its norm
+
+
+def model_compute(cfg, mesh, params) -> dict:
+    """How each leaf of a param tree computes over the mesh's 'model'
+    axis (``_compute_for``), as a tree of ``(kind, dim)`` pairs."""
+    plan = tp_plan(cfg, _sizes(mesh).get("model", 1))
+    paths = {_path_str(p) for p, _ in tree_items(params)}
+
+    def one(path, leaf):
+        ps = _path_str(path)
+        slot = (ps.rsplit("/mlp/", 1)[0] if "/mlp/" in ps
+                else ps.rsplit("/", 1)[0])
+        return _compute_for(ps, leaf.ndim, plan,
+                            f"{slot}/mlp/router" in paths)
+    return tree_map_with_path(one, params)
+
+
+def is_gathered(place: tuple, comp: tuple) -> bool:
+    """Whether a leaf placed at ``place`` that computes as ``comp`` is
+    split over 'model' at rest but not in its math (storage-only)."""
+    return place[1] is not None and comp != ("block", place[1])
+
+
+def gathered_leaves(params, placements, compute) -> list:
+    """The paths of the leaves of ``params`` whose split over 'model' is
+    storage-only: stored split, gathered whole over 'model' before use."""
+    return [_path_str(path) for path, _ in tree_items(params)
+            if is_gathered(subtree(placements, path),
+                           subtree(compute, path))]
 
 
 # ------------------------------------------------------------ activations

@@ -241,36 +241,67 @@ def _layer(tree, r: int):
 
 
 # ---------------------------------------------------------------- forward
+def _split(tp, kind: str) -> bool:
+    """Whether a sub-layer of ``kind`` splits its math over 'model'."""
+    return tp is not None and tp.plan[kind]
+
+
+def enter(tp, x, split: bool):
+    """``tp.enter`` (``train.tp``); without ``tp``, a view of ``x``.  A
+    view so that the gradients of a sub-layer's reads of ``x`` add up
+    before they meet the residual's, as they do behind ``tp.enter``: the
+    sums then round alike, and one rank of a (1, 1) mesh computes what
+    one process does, bitwise."""
+    return x.view_as(x) if tp is None else tp.enter(x, split)
+
+
+def leave(tp, y, split: bool):
+    """``tp.leave``, or ``y`` itself without ``tp``."""
+    return y if tp is None else tp.leave(y, split)
+
+
 def _apply_slot(sp: dict, slot: Slot, x, positions, cfg, shared,
                 enc_out=None, enc_pos=None, attn_scheme: str = "simple",
-                dp_group=None):
-    """One sub-layer application (training/prefill path)."""
+                dp_group=None, tp=None):
+    """One sub-layer application (training/prefill path).  Under tensor
+    parallelism ``x`` is in the boundary layout, and each sub-layer reads
+    it whole and adds its output back (``train.tp``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if slot.kind == "ssm":
-        x = x + ssm_mod.ssm_forward(sp["ssm"], rms_norm(x, sp["ln"]), cfg)
+        h = ssm_mod.ssm_forward(sp["ssm"],
+                                rms_norm(enter(tp, x, False), sp["ln"]), cfg)
+        x = x + leave(tp, h, False)
     else:
+        a = _split(tp, "attn")
         h, _ = attn_mod.attn_forward(
-            sp["attn"], rms_norm(x, sp["ln1"]), positions, cfg,
-            window=slot.window, theta=slot.theta, scheme=attn_scheme)
-        x = x + h
+            sp["attn"], rms_norm(enter(tp, x, a), sp["ln1"]), positions,
+            cfg, window=slot.window, theta=slot.theta, scheme=attn_scheme)
+        x = x + leave(tp, h, a)
         if slot.cross and enc_out is not None:
             hx, _ = attn_mod.attn_forward(
-                sp["cross"], rms_norm(x, sp["ln_x"]), positions, cfg,
-                window=0, enc_out=enc_out, enc_pos=enc_pos)
-            x = x + hx
+                sp["cross"], rms_norm(enter(tp, x, a), sp["ln_x"]),
+                positions, cfg, window=0, enc_out=enc_out, enc_pos=enc_pos)
+            x = x + leave(tp, hx, a)
         if slot.moe:
-            h, aux = mlp_mod.moe_forward(sp["mlp"], rms_norm(x, sp["ln2"]),
-                                         cfg, group=dp_group)
+            m = _split(tp, "moe")
+            h, aux = mlp_mod.moe_forward(
+                sp["mlp"], rms_norm(enter(tp, x, m), sp["ln2"]), cfg,
+                group=dp_group, tp=tp)
         else:
-            h = mlp_mod.mlp_forward(sp["mlp"], rms_norm(x, sp["ln2"]))
-        x = x + h
+            m = _split(tp, "mlp")
+            h = mlp_mod.mlp_forward(sp["mlp"],
+                                    rms_norm(enter(tp, x, m), sp["ln2"]))
+        x = x + leave(tp, h, m)
     if slot.shared_attn and shared is not None:
+        a, m = _split(tp, "attn"), _split(tp, "mlp")
         h, _ = attn_mod.attn_forward(
-            shared["attn"], rms_norm(x, shared["ln1"]), positions, cfg,
-            window=0, theta=cfg.rope_theta, scheme=attn_scheme)
-        x = x + h
-        x = x + mlp_mod.mlp_forward(shared["mlp"],
-                                    rms_norm(x, shared["ln2"]))
+            shared["attn"], rms_norm(enter(tp, x, a), shared["ln1"]),
+            positions, cfg, window=0, theta=cfg.rope_theta,
+            scheme=attn_scheme)
+        x = x + leave(tp, h, a)
+        h = mlp_mod.mlp_forward(shared["mlp"],
+                                rms_norm(enter(tp, x, m), shared["ln2"]))
+        x = x + leave(tp, h, m)
     return x, aux
 
 
@@ -309,11 +340,13 @@ def _run_stack(segments_params: list, plan: list, x, positions, cfg,
                shared=None, enc_out=None, enc_pos=None,
                remat: bool = True, act_sharding=None,
                unroll: bool = False, attn_scheme: str = "simple",
-               dp_group=None):
+               dp_group=None, tp=None):
     """The layer stack, one repeat of a segment at a time under
     ``remat``; ``unroll`` changes nothing (no compiled loop).
     ``dp_group`` sums the MoE load-balance statistics over data-parallel
-    ranks (``mlp.moe_forward``)."""
+    ranks (``mlp.moe_forward``).  With ``tp`` (``train.tp``) ``x`` and
+    the output are in the layer-boundary layout, under every remat
+    policy (a repeat's collectives are recomputed with it)."""
     if act_sharding is not None:
         raise ValueError("act_sharding has no counterpart in the port; "
                          "pass None")
@@ -325,7 +358,7 @@ def _run_stack(segments_params: list, plan: list, x, positions, cfg,
                 h, a = _apply_slot(layer_p[f"slot{si}"], slot, h,
                                    positions, cfg, shared, enc_out,
                                    enc_pos, attn_scheme=attn_scheme,
-                                   dp_group=dp_group)
+                                   dp_group=dp_group, tp=tp)
                 aux = aux + a
             return h, aux
         step = _remat(body, remat)
@@ -335,16 +368,22 @@ def _run_stack(segments_params: list, plan: list, x, positions, cfg,
     return x, aux_total
 
 
-def encode(params: dict, cfg: ModelConfig, frames: torch.Tensor):
-    """Whisper-style encoder over stub frame embeddings (B, T, D)."""
+def encode(params: dict, cfg: ModelConfig, frames: torch.Tensor,
+           tp=None):
+    """Whisper-style encoder over stub frame embeddings (B, T, D).  With
+    ``tp`` the stack runs in the boundary layout, and the output is whole
+    (the cross-attention reads it)."""
     params = _as_tree(params)
     B, T, D = frames.shape
     pos_tab = torch.as_tensor(sinusoidal_positions(T, D),
                               device=frames.device).to(frames.dtype)
     x = frames + pos_tab[None]
+    if tp is not None:
+        x = tp.local(x)
     positions = torch.arange(T, device=frames.device)[None].expand(B, T)
     x, _ = _run_stack(params["encoder"]["segments"], enc_plan(cfg), x,
-                      positions, cfg)
+                      positions, cfg, tp=tp)
+    x = enter(tp, x, _split(tp, "attn"))
     return rms_norm(x, params["encoder"]["final_norm"]), positions
 
 
@@ -352,37 +391,46 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             frames: torch.Tensor | None = None, remat: bool = True,
             return_hidden: bool = False, act_sharding=None,
             unroll: bool = False, attn_scheme: str = "simple",
-            dp_group=None):
+            dp_group=None, tp=None):
     """Training / prefill forward.  tokens: (B, S) integer.
     Returns (logits (B, S, V) — or the final hidden (B, S, D) with
     ``return_hidden`` — and the aux loss scalar).  With ``dp_group`` the
     rows are one data-parallel rank's part of the batch, and the aux is
-    that of the whole batch (``mlp.moe_forward``)."""
+    that of the whole batch (``mlp.moe_forward``).  With ``tp``
+    (``train.tp.TensorParallel``) ``params`` are the rank's compute
+    leaves: the embedding is looked up in the rank's vocabulary block,
+    the stack runs in the boundary layout, the final hidden is whole and
+    the logits are those of the rank's vocabulary block."""
     params = _as_tree(params)
     B, S = tokens.shape
     dt = cfg.cdtype
-    x = params["embed"].to(dt)[tokens]
+    if tp is None:
+        x = params["embed"].to(dt)[tokens]
+    else:
+        x = tp.embed(params["embed"].to(dt), tokens)
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     enc_out = enc_pos = None
     if cfg.family == "encdec":
         if frames is None:
             raise ValueError("encdec needs stub frame embeddings")
-        enc_out, enc_pos = encode(params, cfg, frames.to(dt))
+        enc_out, enc_pos = encode(params, cfg, frames.to(dt), tp=tp)
         pos_tab = torch.as_tensor(sinusoidal_positions(S, cfg.d_model),
                                   device=x.device).to(dt)
-        x = x + pos_tab[None]
+        x = x + (pos_tab if tp is None else tp.local(pos_tab))[None]
     x, aux = _run_stack(params["segments"], layer_plan(cfg), x, positions,
                         cfg, shared=params.get("shared_block"),
                         enc_out=enc_out, enc_pos=enc_pos, remat=remat,
                         act_sharding=act_sharding, unroll=unroll,
-                        attn_scheme=attn_scheme, dp_group=dp_group)
-    x = rms_norm(x, params["final_norm"])
+                        attn_scheme=attn_scheme, dp_group=dp_group, tp=tp)
+    x = rms_norm(enter(tp, x, _split(tp, "vocab")), params["final_norm"])
     if return_hidden:
         return x, aux
     return x @ unembed_matrix(params, cfg), aux
 
 
 def unembed_matrix(params: dict, cfg: ModelConfig) -> torch.Tensor:
+    """(D, V) in the compute dtype: the transposed embedding when tied.
+    From a rank's compute leaves (``train.tp``), its vocabulary block."""
     params = _as_tree(params)
     return (params["embed"].t() if cfg.tie_embeddings
             else params["unembed"]).to(cfg.cdtype)

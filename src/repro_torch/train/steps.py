@@ -41,10 +41,13 @@ from repro_torch.optim.adamw import OptConfig, apply_updates, init_opt_state
 from repro_torch.tree import tree_leaves, tree_map
 
 
-def _ce_chunk(xc, unembed, lc, vc):
+def _ce_chunk(xc, unembed, lc, vc, tp=None):
     logits = (xc @ unembed).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, 1, lc[:, None])[:, 0]
+    if tp is not None and tp.plan["vocab"]:
+        lse, ll = tp.vocab_ce(logits, lc)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, 1, lc[:, None])[:, 0]
     ce = ((lse - ll) * vc).sum()
     z = ((lse * lse) * vc).sum()
     return ce, z, vc.sum()
@@ -52,12 +55,17 @@ def _ce_chunk(xc, unembed, lc, vc):
 
 def chunked_ce_loss(x: torch.Tensor, unembed: torch.Tensor,
                     labels: torch.Tensor, valid: torch.Tensor,
-                    chunk: int = 1024, z_coef: float = 1e-4, count=None):
+                    chunk: int = 1024, z_coef: float = 1e-4, count=None,
+                    tp=None):
     """x: (B,S,D) hidden; labels/valid: (B,S).  Mean CE over valid tokens
     (and the z-loss), computed ``chunk`` tokens at a time so that peak
     logits memory is (chunk, V).  Returns (loss, ce).  ``count`` is the
     number of valid tokens to divide by, where these rows are one rank's
-    part of a microbatch (by default the valid tokens of ``valid``)."""
+    part of a microbatch (by default the valid tokens of ``valid``).
+    With ``tp`` whose plan splits the vocabulary, ``unembed`` is the
+    rank's (D, V/T) block and each chunk's logsumexp and label logit are
+    taken over every rank's block (``train.tp.TensorParallel.vocab_ce``);
+    every model rank then returns the same loss."""
     B, S, D = x.shape
     n = B * S
     chunk = min(chunk, n)
@@ -74,7 +82,7 @@ def chunked_ce_loss(x: torch.Tensor, unembed: torch.Tensor,
     ce, z, cnt = zero, zero, zero
     for i in range(0, n_pad, chunk):
         c_ce, c_z, c_cnt = body(xf[i:i + chunk], unembed,
-                                lf[i:i + chunk], vf[i:i + chunk])
+                                lf[i:i + chunk], vf[i:i + chunk], tp)
         ce, z, cnt = ce + c_ce, z + c_z, cnt + c_cnt
     cnt = torch.clamp(cnt if count is None else count, min=1.0)
     return ce / cnt + z_coef * z / cnt, ce / cnt
@@ -108,7 +116,7 @@ class _CastOnce:
 def make_loss_fn(cfg: ModelConfig, aux_coef: float = 1e-2,
                  z_coef: float = 1e-4, loss_chunk: int = 1024,
                  remat="full", act_sharding=None,
-                 attn_scheme: str = "simple", dp=None):
+                 attn_scheme: str = "simple", dp=None, tp=None):
     """loss_fn(params, tokens, labels, frames=None) -> (loss, {"ce",
     "aux"}); the forward casts floating leaves to ``cfg.cdtype`` at
     use.
@@ -119,14 +127,18 @@ def make_loss_fn(cfg: ModelConfig, aux_coef: float = 1e-2,
     statistics are summed over the ranks, and the loss carries 1/D of
     that global aux, so that the ranks' losses add up to the
     microbatch's loss; "ce" is this rank's part, "aux" the global
-    value."""
+    value.  With ``tp`` (a ``train.tp.TensorParallel``) ``params`` are
+    the rank's compute leaves, and every rank of a 'model' group has the
+    same rows and returns the same loss; the valid tokens are counted
+    over the data ranks only."""
     group = None if dp is None else dp.group
 
     def loss_fn(params, tokens, labels, frames=None):
         x, aux = tfm.forward(params, cfg, tokens, frames=frames,
                              remat=remat, return_hidden=True,
                              act_sharding=act_sharding,
-                             attn_scheme=attn_scheme, dp_group=group)
+                             attn_scheme=attn_scheme, dp_group=group,
+                             tp=tp)
         unembed = tfm.unembed_matrix(params, cfg)
         valid = labels < cfg.vocab_size       # padded vocab ids are masked
         count = None
@@ -134,7 +146,7 @@ def make_loss_fn(cfg: ModelConfig, aux_coef: float = 1e-2,
             count = dp.all_reduce(valid.sum().float())
         loss, ce = chunked_ce_loss(x, unembed, labels, valid,
                                    chunk=loss_chunk, z_coef=z_coef,
-                                   count=count)
+                                   count=count, tp=tp)
         loss = loss + aux_coef * (aux if dp is None else aux / dp.world)
         return loss, {"ce": ce, "aux": aux}
     return loss_fn
@@ -143,7 +155,7 @@ def make_loss_fn(cfg: ModelConfig, aux_coef: float = 1e-2,
 def make_grad_step(cfg: ModelConfig, opt_cfg: OptConfig, accum: int = 1,
                    loss_chunk: int = 1024, remat="full",
                    aux_coef: float = 1e-2, act_sharding=None,
-                   attn_scheme: str = "simple", dp=None):
+                   attn_scheme: str = "simple", dp=None, tp=None):
     """grad_step(params, batch) -> (loss, {"ce", "aux"}, grads): the
     train step's forward and backward over ``accum`` microbatches, before
     error feedback and the update.  ``grads`` has the tree of ``params``
@@ -154,32 +166,46 @@ def make_grad_step(cfg: ModelConfig, opt_cfg: OptConfig, accum: int = 1,
     gradient dtype; ``batch`` holds this rank's rows of each microbatch
     (microbatch i is rows [i·mb, (i+1)·mb) of the global batch, and rank
     r holds the r-th 1/D of them); ``grads`` are whole leaves over this
-    rank's rows, and the loss and "ce" are summed over the ranks."""
+    rank's rows, and the loss and "ce" are summed over the ranks.  With
+    ``tp`` as well (``train.tp.TensorParallel``, the 'model' axis) the
+    blocks gathered over 'data' are the rank's model blocks: a leaf split
+    over 'model' only at rest is gathered over 'model' too, and the model
+    reads the part of each leaf its math needs (``tp.view``); ``grads``
+    are the gradients of those compute leaves."""
     loss_fn = make_loss_fn(cfg, aux_coef=aux_coef, loss_chunk=loss_chunk,
                            remat=remat, act_sharding=act_sharding,
-                           attn_scheme=attn_scheme, dp=dp)
+                           attn_scheme=attn_scheme, dp=dp, tp=tp)
     gdt = (torch.bfloat16 if opt_cfg.grad_dtype == "bfloat16"
            else cfg.cdtype)
 
-    def fresh_leaf(a, d=None):
+    def fresh_leaf(a, place=None, comp=None):
         if not a.is_floating_point():
             return a
         c = a.detach().to(gdt)
         if dp is not None:
-            c = dp.gather_leaf(c, d)
+            c = dp.gather_leaf(c, place[0])
+        if tp is not None:
+            c = tp.gather_leaf(c, place, comp)
         return c.requires_grad_()
 
     def grad_step(params, batch):
         params = tfm._as_tree(params)
-        params_c = (tree_map(fresh_leaf, params) if dp is None
-                    else tree_map(fresh_leaf, params, dp.placements))
+        if dp is None:
+            params_c = tree_map(fresh_leaf, params)
+        elif tp is None:
+            params_c = tree_map(fresh_leaf, params, dp.placements)
+        else:
+            params_c = tree_map(fresh_leaf, params, dp.placements,
+                                tp.compute)
+        view = params_c if tp is None else tree_map(
+            tp.view, params_c, tp.placements, tp.compute)
         tokens, labels = batch["tokens"], batch["labels"]
         frames = batch.get("frames")
         mb = tokens.shape[0] // accum
         losses, ces, auxs = [], [], []
         for i in range(accum):
             rows = slice(i * mb, (i + 1) * mb)
-            loss, met = loss_fn(params_c, tokens[rows], labels[rows],
+            loss, met = loss_fn(view, tokens[rows], labels[rows],
                                 None if frames is None else frames[rows])
             loss.backward()
             losses.append(loss.detach())
@@ -204,7 +230,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
                     accum: int = 1, loss_chunk: int = 1024,
                     remat="full", aux_coef: float = 1e-2,
                     act_sharding=None, attn_scheme: str = "simple",
-                    dp=None):
+                    dp=None, tp=None):
     """Returns train_step(state, batch) -> (state, metrics); the state is
     updated in place.
 
@@ -215,16 +241,20 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
     With ``dp`` (``train.dp.DataParallel``) the state holds this rank's
     blocks and the batch its rows (see ``make_grad_step``): the gradients
     are reduce-scattered in float32, and error feedback and AdamW run on
-    the blocks, clipped by the norm over every block.
+    the blocks, clipped by the norm over every block.  With ``tp`` the
+    blocks are on both axes: the compute leaves' gradients are first
+    reduced over 'model' (``tp.reduce_grads``), then over 'data'.
     """
     grad_step = make_grad_step(cfg, opt_cfg, accum=accum,
                                loss_chunk=loss_chunk, remat=remat,
                                aux_coef=aux_coef, act_sharding=act_sharding,
-                               attn_scheme=attn_scheme, dp=dp)
+                               attn_scheme=attn_scheme, dp=dp, tp=tp)
     compress = opt_cfg.grad_dtype == "bfloat16"
 
     def train_step(state, batch):
         loss, met, grads = grad_step(state["params"], batch)
+        if tp is not None:
+            grads = tp.reduce_grads(grads)
         if dp is not None:
             grads = dp.reduce_grads(grads)
         if compress and opt_cfg.error_feedback and "residual" in state:

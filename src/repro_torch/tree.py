@@ -22,6 +22,13 @@ def tree_items(tree, prefix: tuple = ()):
         yield prefix, tree
 
 
+def subtree(tree, path: tuple):
+    """The node of ``tree`` at ``path`` (as ``tree_items`` gives it)."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def tree_leaves(tree) -> list:
     return [leaf for _, leaf in tree_items(tree)]
 

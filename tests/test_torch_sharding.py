@@ -13,7 +13,9 @@
     cache, batch 1 (the sequence-sharded branch) and int8 caches (the
     ``_scale`` leaves); ``batch_spec`` and ``data_axes``;
   * the reference's ``test_param_sharding_rules_shapes`` contract, and
-    ``param_placements`` (what the data-parallel trainer shards by);
+    ``param_placements`` (what the trainer shards by, on both axes) on
+    (1, 2), (2, 2) and (1, 8) meshes against the reference's specs;
+    ``model_compute`` (how each leaf computes over 'model');
   * the reference's ``test_production_mesh_shapes`` contract on the
     port's H100 shapes, and the rules on a ``DeviceMesh``, in a
     subprocess on the fake process-group backend.
@@ -150,25 +152,72 @@ def test_param_sharding_rules_shapes():
         assert len(spec) <= leaf.ndim + 1
 
 
+TP_MESHES = ((1, 2), (2, 2), (1, 8))
+
+
 def test_param_placements_follow_the_rules():
-    """The dimension the data axes split, per leaf; a 'model' axis above
-    1 that would split a leaf raises (tensor parallelism is not
-    ported)."""
-    cfg = reduced(get_config("olmoe-1b-7b"))
+    """Each leaf's (data dim, model dim) pair on the (1, 2), (2, 2) and
+    (1, 8) ('data', 'model') meshes: where the reference's
+    ``param_specs`` puts 'data' and 'model', leaf for leaf, for the ten
+    configs reduced and at their published widths."""
+    for arch in ALL_ARCHS:
+        for width in ("reduced", "published"):
+            rcfg, cfg = _cfgs(arch, width)
+            ref_params = jax.eval_shape(
+                lambda: ref_T.init_params(rcfg, seed=0))
+            params = T.init_params(cfg, device="meta")
+            for shape in TP_MESHES:
+                mesh = AbstractMesh(shape, ("data", "model"))
+                want = _ref_items(ref_shd.param_specs(mesh, ref_params))
+                got = _port_items(shd.param_placements(mesh, params))
+                assert got.keys() == want.keys()
+                for k, spec in want.items():
+                    dims = [[i for i, s in enumerate(spec) if s == a]
+                            for a in ("data", "model")]
+                    assert got[k] == tuple(d[0] if d else None
+                                           for d in dims), \
+                        (arch, width, shape, k, got[k], spec)
+                assert got["embed"][1] == 0, (arch, shape, got["embed"])
+    params = T.init_params(reduced(get_config("olmoe-1b-7b")), device="meta")
+    places = _port_items(shd.param_placements(
+        AbstractMesh((2, 2), ("data", "model")), params))
+    assert places["embed"] == (1, 0)
+    assert places["final_norm"] == (None, None)
+    assert places["segments/0/slot0/mlp/wd"] == (3, 1)      # (R, E, F, D)
+    assert places["segments/0/slot0/attn/wq"] == (1, 2)
+
+
+@pytest.mark.parametrize("tp", [2, 4, 8])
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_model_compute_splits_only_on_the_math(arch, tp):
+    """``model_compute`` on a (1, tp) mesh, reduced configs: a leaf's
+    compute block divides its dimension; a leaf whose block at rest is
+    its compute block is not gathered; KV columns only where the query
+    heads split and the KV heads do not; the SSM always runs whole."""
+    cfg = reduced(get_config(arch))
     params = T.init_params(cfg, device="meta")
-    mesh = AbstractMesh((2, 1), ("data", "model"))
-    specs = _port_items(shd.param_specs(mesh, params))
+    mesh = AbstractMesh((1, tp), ("data", "model"))
+    plan = shd.tp_plan(cfg, tp)
     places = _port_items(shd.param_placements(mesh, params))
-    assert places.keys() == specs.keys()
-    for k, spec in specs.items():
-        want = [i for i, s in enumerate(spec) if s == "data"]
-        assert places[k] == (want[0] if want else None), (k, spec)
-    assert places["embed"] == 1 and places["final_norm"] is None
-    assert places["segments/0/slot0/mlp/wd"] == 3       # (R, E, F, D)
-    assert sum(v is not None for v in places.values()) > len(places) // 2
-    with pytest.raises(NotImplementedError, match="7d"):
-        shd.param_placements(AbstractMesh((1, 2), ("data", "model")),
-                             params)
+    comp = _port_items(shd.model_compute(cfg, mesh, params))
+    shapes = {k: tuple(v.shape) for k, v in _port_items(params).items()}
+    gathered = set(shd.gathered_leaves(
+        params, shd.param_placements(mesh, params),
+        shd.model_compute(cfg, mesh, params)))
+    for k, (kind, d) in comp.items():
+        assert kind in ("block", "kv", "partial", "whole"), (k, kind)
+        if kind == "block":
+            assert shapes[k][d] % tp == 0, (k, shapes[k], d)
+        if kind == "kv":
+            assert plan["attn"] and not plan["kv"], k
+        if "/ssm/" in k:
+            assert kind == "whole", k
+        at_rest = places[k][1] is not None
+        assert (k in gathered) == (at_rest and (kind, d) != ("block",
+                                                               places[k][1]))
+    if arch == "qwen3-0.6b" and tp == 4:
+        assert {k.rsplit("/", 1)[-1] for k in gathered} >= {"wk", "wv"}
+        assert comp["segments/0/slot0/attn/wk"][0] == "kv"
 
 
 def test_production_mesh_shapes():

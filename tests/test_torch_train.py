@@ -395,9 +395,10 @@ def test_train_cli_raises_without_a_card(monkeypatch):
 
 
 def test_train_cli_refuses_a_data_mesh(capsys, monkeypatch):
-    """The data meshes the port cannot run: D not dividing batch / accum,
-    and a 'model' axis above 1 (four cards, D = 2; the refusal comes
-    before any card is touched)."""
+    """The data mesh the port cannot run, D not dividing batch / accum,
+    is refused; on four (mocked) cards ``--data-mesh 2`` resolves to the
+    (2, 2) mesh, as the reference's (D, devices // D), and nothing is
+    launched here."""
     argv = ["--arch", "qwen3-0.6b", "--reduced", "--batch", "4",
             "--accum", "2"]
     with pytest.raises(SystemExit) as e:
@@ -406,10 +407,12 @@ def test_train_cli_refuses_a_data_mesh(capsys, monkeypatch):
     assert "divide batch / accum = 2" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(SystemExit) as e:
-        train_cli.main(argv + ["--data-mesh", "2"])
-    assert e.value.code == 2
-    assert "item 7d" in capsys.readouterr().err
+    launched = []
+    monkeypatch.setattr(train_cli, "_launch",
+                        lambda args, shape, dev, record:
+                        launched.append((shape, dev.type)) or 0)
+    assert train_cli.main(argv + ["--data-mesh", "2"]) == 0
+    assert launched == [((2, 2), "cuda")]
 
 
 def test_example_trains_on_the_cpu():

@@ -58,7 +58,7 @@ from repro_torch.launch import train as train_cli
 from repro_torch.models import sharding as shd
 from repro_torch.models import transformer as T
 from repro_torch.train import dp as dp_mod
-from repro_torch.tree import tree_items
+from repro_torch.tree import subtree, tree_items
 
 RTOL = 1e-5
 REF_RTOL, UPDATE_RTOL = 1e-4, 1e-3
@@ -162,10 +162,11 @@ def test_sharded_state_gathers_back_bitwise(tmp_path):
     mesh = type("Mesh", (), {"axis_names": ("data", "model"),
                              "shape": {"data": 2, "model": 1}})
     params = T.init_params(cfg, device="meta")
-    places = dict(tree_items(shd.param_placements(mesh, params)))
-    held = sum(a.numel() * 4 // (1 if places[p] is None else 2)
+    places = shd.param_placements(mesh, params)
+    data_dim = {p: subtree(places, p)[0] for p, _ in tree_items(params)}
+    held = sum(a.numel() * 4 // (1 if data_dim[p] is None else 2)
                for p, a in tree_items(params))
-    assert sum(v is not None for v in places.values()) >= 5
+    assert sum(v is not None for v in data_dim.values()) >= 5
     assert [r["state_bytes"] for r in rec["ranks"]] == [3 * held] * 2
 
 
@@ -256,11 +257,12 @@ def test_sharded_init_equals_blocks_of_whole_draw(arch):
     shapes = T.init_params(cfg, device="meta")
     places = shd.param_placements(mesh, shapes)
     whole = dict(tree_items(T.init_params(cfg, seed=5, device="cpu")))
-    dims = dict(tree_items(places))
+    dims = {p: subtree(places, p)[0] for p in whole}
     assert any(d is not None for d in dims.values())
     for rank in range(2):
         part = T.init_params(cfg, seed=5, device="cpu",
-                             keep=dp_mod.keep_blocks(shapes, places, rank, 2))
+                             keep=dp_mod.keep_blocks(shapes, places,
+                                                     (rank, 0), (2, 1)))
         got = dict(tree_items(part))
         assert got.keys() == whole.keys()
         for p, a in whole.items():
