@@ -168,6 +168,28 @@ Phases (any failed check exits non-zero; nothing is caught):
                'model' collective seconds, the gathered leaves; then the
                same meshes in float32 (within 1e-5).
                ``python3 chip_smoke.py --phase 20`` runs phases 1 and 20
+               alone;
+21. LM serve over 'model' — ``launch.serve.serve_on_mesh`` (NCCL worker
+               processes, each rank its part of the model and its block
+               of the KV cache; ``train.tp``'s "Serving"), which runs
+               none of the three kernels (see ``lm_serve_tp_phase``):
+               (a) qwen3-0.6b at its published width in bf16, batch 8,
+               prompt 512 + gen 64, in this process and through one
+               spawned rank at (1, 1): tokens, decode and prefill logits
+               bitwise; (b) on N >= 2 cards, (1, 2) and (1, 4) for
+               qwen3-0.6b and (1, 2) for gemma3-1b (one KV head: the
+               cache's sequence axis split over 'model'), fed one card's
+               tokens, decode and prefill logits within LM_TP_BF16_RTOL
+               of one card's, and in float32 qwen3-0.6b at (1, min(N, 4))
+               and gemma3-1b at (1, 2) (the partial softmaxes' combine
+               and the slot owner's writes over NCCL) within
+               LM_TP_F32_RTOL: ms per decode step and tokens/s
+               against one card's, KV-cache and parameter bytes a card
+               at rest and as served, 'model' collective seconds a step;
+               (c) both dry-run contract cells (``python -m
+               repro_torch.launch.dryrun``, on the ``meta`` device under
+               the fake process group, no card), run beside (a) and (b).
+               ``python3 chip_smoke.py --phase 21`` runs phases 1 and 21
                alone.
 
 Phases 8 and 9 print wall time, solved queries per second, peak device
@@ -186,12 +208,13 @@ of the step that ``launch.costmodel.step_cost``'s bound is, MFU against
 6·N·tokens, launches and device busy time of one profiled step, and the
 peak memory split into masters + moments and what the step adds; phase
 19 prints the same per card of D, with the collectives' time; phase 20
-per (D, T) mesh, with the 'data' and 'model' collectives apart.
+per (D, T) mesh, with the 'data' and 'model' collectives apart; phase
+21 per serving mesh, and one line per dry-run cell.
 Launch counters are set to 0 just before each main-path phase (5, 6, 8,
 9, 12, 13, 14's loopback passes, 16's direct solves and its server
 pass, 17's two parts, 18's three parts and its profiled step), each
-server pass and each runtime pass, and read just after; phases 19's
-and 20's worker processes count from 0 each and hand their counts back,
+server pass and each runtime pass, and read just after; phases 19's,
+20's and 21's worker processes count from 0 each and hand their counts back,
 which the table adds; spawned replicas count in their own processes, which
 the table does not read.  Data comes from fixed seeds through numpy.  The second-to-last
 line is the kernel table as JSON; the last line is
@@ -201,9 +224,11 @@ in a directory without the port.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -272,6 +297,22 @@ TP_F32_ARCH, TP_F32_BATCH, TP_F32_SEQ = TP_ARCH + "-f32", 4, 1024
 # a step takes about 10 s on the card (PERF.md §5): one warm-up and two
 # timed steps keep the phase near two minutes
 TRAIN_WARM, TRAIN_TIMED = 1, 2
+# phase 21: serving over 'model', phase 17's traffic; the logits compared
+# at every 32nd prompt position and every 4th generated one.  A mesh's
+# bf16 logits against one card's, relative to a position's largest
+# |logit|: each rank rounds its part of a split sum to bf16 before the
+# parts are added (in float32, train.tp).  On the CPU, bf16 reduced
+# qwen3 at (1, 2) and (1, 4), gemma3 and qwen2 at (1, 2) (batch 8,
+# prompt 72 + gen 16, fed one process's tokens) land within 2.76e-2 of
+# one process, decode and prefill alike; so phase 17's 5e-2.  In float32
+# the reduced configs land within 1.5e-6 (tests/test_torch_serve_tp.py),
+# so 1e-5.  At (1, 1) every collective is a copy: bitwise.
+LM_TP_BF16_RTOL, LM_TP_F32_RTOL = 5e-2, 1e-5
+SERVE_TP_ARCH, SERVE_SPLIT_ARCH = "qwen3-0.6b", "gemma3-1b"
+B21, P21, G21 = 8, 512, 64
+KEEP21 = list(range(0, P21, 32)) + list(range(P21, P21 + G21, 4))
+DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", "pod"),
+                ("mamba2-130m", "decode_32k", "multipod"))
 
 
 def _register_f32() -> None:
@@ -413,7 +454,7 @@ def lm_serve_phase(dev, card: str) -> None:
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as lm_serve
     from repro_torch.models import transformer as tfm
-    from repro_torch.train.steps import make_prefill_step
+    from repro_torch.tree import tree_leaves
 
     def rel_err(got, want) -> float:
         """Largest error of any position relative to that position's
@@ -504,7 +545,7 @@ def lm_serve_phase(dev, card: str) -> None:
           == (26, 1152, 4, 1, 256, 6912, 262144, 512, "bfloat16")
           and cfg.param_count() == 999_751_680,
           f"gemma3-1b is not at its published width: {cfg}")
-    n_params = sum(p.numel() for p in model.parameters())
+    n_params = sum(a.numel() for a in tree_leaves(model))
     rings = [c["k"].shape[2] for seg in cache["segments"]
              for c in seg.values()]
     check(min(rings) == cfg.window_size < P17 + G17,
@@ -516,13 +557,9 @@ def lm_serve_phase(dev, card: str) -> None:
     keep = rec["logits"]
     check(bool(torch.equal(toks[:, P17:], keep[:, P17 - 1:-1].argmax(-1))),
           "fed tokens are not the greedy tokens of the decode logits")
-    prefill = make_prefill_step(cfg)
-    prefill(model, toks[:1, :8])                    # cast, warm up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pre = prefill(model, toks)
-    torch.cuda.synchronize()
-    t_pre = time.perf_counter() - t0
+    # make_prefill_step over the same tokens, run and timed by main after
+    # one warm-up call (the weights' cast)
+    pre, t_pre = rec["prefill_logits"], rec["t_prefill"]
     check(pre.shape == keep.shape and pre.dtype == torch.bfloat16,
           f"prefill logits {tuple(pre.shape)} {pre.dtype}")
     e_pre = max(rel_err(keep[b], pre[b]) for b in range(B17))
@@ -531,6 +568,7 @@ def lm_serve_phase(dev, card: str) -> None:
     agree = float((pre[:, P17 - 1:-1].argmax(-1) == toks[:, P17:])
                   .float().mean())
     del pre
+    rec.pop("prefill_logits")
 
     # one more decode step, re-fed the last token at its position (the
     # same entries are written again): its launches from the profiler,
@@ -551,8 +589,9 @@ def lm_serve_phase(dev, card: str) -> None:
     step_dev_ms = sum(_device_us(e) for e in dev_events) * 1e-3
     check(step_launches > 0, "the profiler saw no device event of a step")
     step_ms = time_ms(one, iters=20, warmup=2)
-    weights_cast = rec["cast_bytes"]
-    kv_bytes = rec["cache_bytes"]
+    mem = rec["ranks"][0]
+    weights_cast = mem["cast_bytes"]
+    kv_bytes = mem["cache_bytes"]
     # bytes: every bf16 weight read once (the tied embedding serves the
     # unembedding), and the whole KV cache; operations: 2 per weight and
     # token at the bf16 tensor-core rate, far below the bytes' time
@@ -561,8 +600,8 @@ def lm_serve_phase(dev, card: str) -> None:
     b_ops = 2 * n_params * B17 / BF16_OPS_PER_S * 1e3
     ms_step = rec["t_gen"] / G17 * 1e3
     # what the process held before main (earlier phases) is not the run's
-    above = (rec["peak_bytes"] - rec["held_bytes"] - rec["weights_bytes"]
-             - weights_cast)
+    above = (mem["peak_bytes"] - mem["held_bytes"]
+             - mem["params_at_rest_bytes"] - weights_cast)
     print(f"LM gemma3-1b (published width, {n_params} parameters, "
           f"param_count() {cfg.param_count()}), bf16, batch {B17}, prompt "
           f"{P17} + gen {G17}, rings of {min(rings)} wrapped: decode vs "
@@ -570,8 +609,8 @@ def lm_serve_phase(dev, card: str) -> None:
           f"{P17 + G17} positions; prefill's greedy tokens agree with the "
           f"decode path's at {agree:.4f} of positions {card}", flush=True)
     print(f"LM gemma3-1b serve: prompt through the decode path "
-          f"{B17 * P17 / rec['t_prefill']:.1f} tokens/s "
-          f"({rec['t_prefill']:.3f} s), generate "
+          f"{B17 * P17 / rec['t_prompt']:.1f} tokens/s "
+          f"({rec['t_prompt']:.3f} s), generate "
           f"{B17 * G17 / rec['t_gen']:.1f} tokens/s ({rec['t_gen']:.3f} s, "
           f"{ms_step:.3f} ms per decode step with its argmax and host "
           f"read); make_prefill_step over {P17 + G17} tokens "
@@ -584,14 +623,15 @@ def lm_serve_phase(dev, card: str) -> None:
           f"{b_w:.3f} ms for {weights_cast / 1e9:.3f} GB of bf16 weights "
           f"over 3.35 TB/s, {b_all:.3f} ms with the {kv_bytes / 1e9:.3f} GB "
           f"KV cache ({b_ops:.4f} ms of bf16 operations); peak device "
-          f"memory {rec['peak_bytes'] / 2**30:.2f} GiB, of which "
-          f"{rec['held_bytes'] / 2**30:.2f} GiB held before the run; "
+          f"memory until the last decode step "
+          f"{mem['peak_bytes'] / 2**30:.2f} GiB, of which "
+          f"{mem['held_bytes'] / 2**30:.2f} GiB held before the run; "
           f"{above / 2**30:.2f} GiB above that, the f32 masters "
-          f"({rec['weights_bytes'] / 1e9:.3f} GB) and bf16 weights, of "
+          f"({mem['params_at_rest_bytes'] / 1e9:.3f} GB) and bf16 weights, of "
           f"which the KV cache {kv_bytes / 2**30:.3f} GiB and the kept "
           f"logits {keep.numel() * keep.element_size() / 2**30:.2f} GiB; "
           f"kernel launches {counts17} {card}", flush=True)
-    del rec, keep, model, cache, step, prefill, one
+    del rec, keep, model, cache, step, one
     torch.cuda.empty_cache()
 
 
@@ -1285,6 +1325,195 @@ def lm_tp_phase(card: str) -> dict:
     return total
 
 
+def lm_serve_tp_phase(card: str) -> dict:
+    """Phase 21, LM serving with tensor parallelism over 'model'
+    (``launch.serve.serve_on_mesh``: rank r on cuda:r under NCCL, each
+    holding its rows, its part of the model made once at load and its
+    block of the KV cache), which launches none of the three kernels: the
+    counts are set to 0 before each run in this process and must read 0
+    after it, and each worker counts from 0 and hands its counts back;
+    their sums are checked to be 0 and returned.  A failed check exits.
+
+    Every run: batch B21, prompt P21 through the decode path, G21 greedy
+    tokens (or one card's tokens fed, where logits are compared), then
+    ``make_prefill_step`` over every position fed; weights from seed 0
+    (each rank draws its blocks of the one-card draw); logits kept at
+    KEEP21.
+
+    (a) SERVE_TP_ARCH at its published width in bf16, one card in this
+        process and (1, 1) through one spawned rank: tokens, decode and
+        prefill logits bitwise.
+    (b) On N >= 2 cards: SERVE_TP_ARCH at (1, 2) and, on four, (1, 4),
+        and SERVE_SPLIT_ARCH (one KV head: its cache's sequence axis
+        split over 'model', the ranks' partial softmaxes combined) at
+        (1, 2), each fed its one-card run's tokens, decode and prefill
+        logits within LM_TP_BF16_RTOL of one card's; in float32,
+        SERVE_TP_ARCH at (1, min(N, 4)) and SERVE_SPLIT_ARCH at (1, 2)
+        within LM_TP_F32_RTOL of a float32 card's.  Each prints ms
+        per decode step and tokens/s against one card's, each card's
+        KV-cache and parameter bytes at rest (the rules' blocks) and as
+        served, and the 'model' collective seconds a generated token.
+    (c) The dry-run's two contract cells (``python -m repro_torch.
+        launch.dryrun`` in subprocesses on the host's cores, started
+        first, read last): status "ok", ``n_chips``, ``hlo_flops`` > 0
+        and a known bottleneck.
+    """
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_on_mesh
+
+    def rel_err(got, want) -> float:
+        got, want = got.float(), want.float()
+        scale = want.abs().amax(dim=-1) + 1e-6
+        return float(((got - want).abs().amax(dim=-1) / scale).max())
+
+    n = torch.cuda.device_count()
+    t21 = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="dryrun-")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    cells = {c: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", c[0],
+         "--shape", c[1], "--mesh", c[2], "--out", out], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in DRYRUN_CELLS}
+    total = {}
+
+    def run(arch, mesh, **kw) -> dict:
+        ops.reset_launch_counts()
+        rec = serve_on_mesh(arch, mesh, batch=B21, prompt_len=P21,
+                            gen=G21, keep=KEEP21,
+                            device="cuda:0" if mesh is None else "cuda",
+                            **kw)
+        mine = ops.launch_counts()
+        check(not any(mine.values()), f"LM serving launched {mine}")
+        for r in rec["ranks"]:
+            check(not any(r["launches"].values()),
+                  f"a serving rank launched {r['launches']}")
+            for k, v in r["launches"].items():
+                total[k] = total.get(k, 0) + v
+        S = P21 + G21
+        check(rec["tokens"].shape == (B21, S)
+              and rec["logits"].shape == rec["prefill_logits"].shape
+              == (B21, len(KEEP21), rec["cfg"].padded_vocab)
+              and bool(torch.isfinite(rec["logits"]).all())
+              and bool(torch.isfinite(rec["prefill_logits"]).all()),
+              f"{mesh}: tokens {tuple(rec['tokens'].shape)}, logits "
+              f"{tuple(rec['logits'].shape)}, or not finite")
+        return rec
+
+    def figures(rec, one) -> str:
+        r0 = rec["ranks"][0]
+        tok_s = B21 * G21 / rec["t_gen"]
+        line = (f"{rec['ms_per_step']:.3f} ms per decode step "
+                f"({rec['ms_per_step'] / one['ms_per_step']:.3f} of one "
+                f"card's), {tok_s:.1f} tokens/s "
+                f"({tok_s * one['t_gen'] / (B21 * G21):.3f} of one card's), "
+                f"prompt through the decode path {rec['t_prompt']:.2f} s, "
+                f"prefill step {rec['t_prefill']:.3f} s; a card: KV cache "
+                f"{r0['cache_at_rest_bytes'] / 2**20:.2f} MiB at rest / "
+                f"{r0['cache_bytes'] / 2**20:.2f} MiB served (one card "
+                f"{one['ranks'][0]['cache_bytes'] / 2**20:.2f}), parameters "
+                f"{r0['params_at_rest_bytes'] / 2**30:.3f} GiB at rest / "
+                f"{r0['params_serving_bytes'] / 2**30:.3f} GiB served + "
+                f"{r0['cast_bytes'] / 2**30:.3f} GiB cast (one card "
+                f"{one['ranks'][0]['params_at_rest_bytes'] / 2**30:.3f})")
+        if "model_collective_s" in rec:
+            line += (f"; 'model' collectives a generated token "
+                     f"{rec['model_collective_s'] * 1e3:.3f} ms least over "
+                     f"the ranks / {rec['model_collective_rank0_s'] * 1e3:.3f}"
+                     f" ms rank 0's")
+        return line
+
+    # ------------------------------------------------ (a) one card, (1, 1)
+    one = run(SERVE_TP_ARCH, None)
+    cfg = one["cfg"]
+    check((cfg.name, cfg.n_layers, cfg.d_model, cfg.n_heads,
+           cfg.n_kv_heads, cfg.hd, cfg.d_ff, cfg.vocab_size, cfg.dtype)
+          == ("qwen3-0.6b", 28, 1024, 16, 8, 128, 3072, 151936, "bfloat16"),
+          f"qwen3-0.6b is not at its published width: {cfg}")
+    print(f"LM serve over 'model' {SERVE_TP_ARCH} (published width) one card "
+          f"in this process, bf16, batch {B21}, prompt {P21} + gen {G21}: "
+          f"{figures(one, one)} {card}", flush=True)
+    r11 = run(SERVE_TP_ARCH, (1, 1))
+    check(r11["mesh"] == (1, 1), f"mesh {r11['mesh']}")
+    for k in ("tokens", "logits", "prefill_logits"):
+        check(bool(torch.equal(r11[k], one[k])),
+              f"(1, 1) {k} differ from one card's: not bitwise")
+    print(f"LM serve over 'model' {SERVE_TP_ARCH} mesh (1, 1) (one NCCL "
+          f"worker): tokens, decode and prefill logits bitwise one card's; "
+          f"{figures(r11, one)} {card}", flush=True)
+    del r11
+
+    # ------------------------------------------------- (b) N >= 2 cards
+    if n >= 2:
+        runs = [(SERVE_TP_ARCH, (1, 2), one)]
+        if n >= 4:
+            runs.append((SERVE_TP_ARCH, (1, 4), one))
+        runs.append((SERVE_SPLIT_ARCH, (1, 2), None))
+        for arch, mesh in ((SERVE_TP_ARCH, (1, min(n, 4))),
+                           (SERVE_SPLIT_ARCH, (1, 2))):
+            runs.append((dataclasses.replace(get_config(arch),
+                                             dtype="float32"), mesh, None))
+        for arch, mesh, base in runs:
+            if base is None:
+                base = run(arch, None)
+                print(f"LM serve over 'model' {base['cfg'].name} "
+                      f"{base['cfg'].dtype} one card in this process: "
+                      f"{figures(base, base)} {card}", flush=True)
+            rec = run(arch, mesh, tokens=base["tokens"].numpy())
+            f32 = rec["cfg"].dtype == "float32"
+            gate = LM_TP_F32_RTOL if f32 else LM_TP_BF16_RTOL
+            e_dec = rel_err(rec["logits"], base["logits"])
+            e_pre = rel_err(rec["prefill_logits"], base["prefill_logits"])
+            name = rec["cfg"].name
+            check(rec["mesh"] == mesh and e_dec <= gate and e_pre <= gate,
+                  f"{name} {'float32 ' if f32 else ''}mesh {rec['mesh']}: "
+                  f"decode logits {e_dec:.3e}, prefill {e_pre:.3e} from one "
+                  f"card's (gate {gate:g})")
+            if name == SERVE_SPLIT_ARCH:
+                check(not rec["plan"]["kv"],
+                      f"{name}: plan {rec['plan']}: no split sequence")
+            print(f"LM serve over 'model' {name} "
+                  f"{'float32' if f32 else 'bf16'} mesh {mesh} (NCCL, "
+                  f"{mesh[1]} worker processes), fed one card's tokens: "
+                  f"decode logits {e_dec:.3e}, prefill {e_pre:.3e} from one "
+                  f"card's (<= {gate:g}); plan {rec['plan']}; "
+                  f"{figures(rec, base)} {card}", flush=True)
+            del rec
+            if base is not one:
+                del base
+            torch.cuda.empty_cache()
+
+    # -------------------------------------------- (c) the dry-run cells
+    for cell, proc in cells.items():
+        log, _ = proc.communicate(timeout=900)
+        check(proc.returncode == 0, f"dry-run {cell}: {log[-2000:]}")
+        with open(os.path.join(out, "__".join(cell) + ".json")) as f:
+            res = json.load(f)
+        chips = 512 if cell[2] == "multipod" else 256
+        check(res["status"] == "ok" and res["n_chips"] == chips
+              and res["hlo_flops"] > 0
+              and res["bottleneck"] in ("compute", "memory", "collective"),
+              f"dry-run {cell}: {res}")
+        print(f"LM dry-run {' x '.join(cell)} on the meta device (fake "
+              f"process group, {res['n_chips']} ranks, rank 0 traced): "
+              f"status {res['status']}, traced in {res['trace_s']} s, "
+              f"hlo_flops {res['hlo_flops']:.4e}, traced_flops "
+              f"{res['traced_flops']:.4e}, bottleneck {res['bottleneck']}, "
+              f"collectives {res['collectives']}, link traffic "
+              f"{res['link_traffic_bytes']:.4e} B, at rest "
+              f"{res['bytes_at_rest_per_device'] / 2**30:.3f} GiB a device",
+              flush=True)
+    print(f"LM serve over 'model': phase 21 in "
+          f"{time.perf_counter() - t21:.2f} s; kernel launches of the "
+          f"workers, summed {total} {card}", flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1322,18 +1551,20 @@ def main() -> int:
     # exact float32 kernels: no TF32 anywhere in this run
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if sys.argv[1:] == ["--phase", "20"]:
-        # phase 20 alone (a four-card call): its lines, no kernel table
-        counts20 = lm_tp_phase(card)
-        print("kernels: " + ", ".join(f"{k} {counts20.get(k, 0)}"
+    alone = {"20": lm_tp_phase, "21": lm_serve_tp_phase}
+    if len(sys.argv) == 3 and sys.argv[1] == "--phase" \
+            and sys.argv[2] in alone:
+        # one phase alone (a four-card call): its lines, no kernel table
+        counts = alone[sys.argv[2]](card)
+        print("kernels: " + ", ".join(f"{k} {counts.get(k, 0)}"
                                       for k in build.KERNELS))
         print(smi_line)
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": kind,
                                                  "count": count}}))
         return 0
-    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}: none, or "
-          "--phase 20")
+    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}: none, "
+          "--phase 20 or --phase 21")
 
     # ----------------------------------------------------------- 2. build
     t0 = time.perf_counter()
@@ -2933,12 +3164,12 @@ def main() -> int:
     counts18, first18, tok_s18 = lm_train_phase(dev, card)
     counts19 = lm_dp_phase(card, first18, tok_s18)
     counts20 = lm_tp_phase(card)
+    counts21 = lm_serve_tp_phase(card)
+    lm_counts = (counts18, counts19, counts20, counts21)
     for r in rows:
-        r["launches"] += sum(c.get(r["name"], 0)
-                             for c in (counts18, counts19, counts20))
+        r["launches"] += sum(c.get(r["name"], 0) for c in lm_counts)
     for k in build.KERNELS:
-        launches[k] += sum(c.get(k, 0) for c in (counts18, counts19,
-                                                  counts20))
+        launches[k] += sum(c.get(k, 0) for c in lm_counts)
 
     loaded = [m for m in sys.modules
               if m.split(".")[0] == "jax" or m.startswith("repro.")

@@ -161,15 +161,20 @@ def main(argv=None, record: dict | None = None) -> int:
     return _launch(args, (d, t), dev, record)
 
 
-def _launch(args, shape: tuple, dev: torch.device, record) -> int:
-    """D·T worker processes, one per rank; returns when all have
-    ended."""
+def _launch(args, shape: tuple, dev: torch.device, record,
+            target=None) -> int:
+    """D·T worker processes, one per rank, each running ``target(args,
+    dev, record=..., mesh=...)`` (``_train`` by default; a module-level
+    function, which the spawned processes import) on its rank of the
+    (D, T) host mesh; returns when all have ended, with rank 0's record
+    in ``record``."""
     ctx = torch.multiprocessing.get_context("spawn")
     world = shape[0] * shape[1]
-    with tempfile.TemporaryDirectory(prefix="repro_torch_train-") as tmp:
+    with tempfile.TemporaryDirectory(prefix="repro_torch_mesh-") as tmp:
         procs = [ctx.Process(target=_worker,
                              args=(r, shape, args, dev.type, tmp,
-                                   torch.get_num_threads()))
+                                   torch.get_num_threads(),
+                                   target or _train))
                  for r in range(world)]
         for p in procs:
             p.start()
@@ -181,7 +186,7 @@ def _launch(args, shape: tuple, dev: torch.device, record) -> int:
     if code == FAILURE_EXIT:
         sys.exit(FAILURE_EXIT)
     if code:
-        raise RuntimeError(f"a training worker exited with {code}")
+        raise RuntimeError(f"a worker process exited with {code}")
     return 0
 
 
@@ -202,7 +207,7 @@ def _wait(procs) -> int:
 
 
 def _worker(rank: int, shape: tuple, args, device_type: str, tmp: str,
-            threads: int) -> None:
+            threads: int, target) -> None:
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_host_mesh
@@ -223,7 +228,7 @@ def _worker(rank: int, shape: tuple, args, device_type: str, tmp: str,
     try:
         rec = {}
         reset_launch_counts()
-        _train(args, dev, record=rec, mesh=make_host_mesh(*shape))
+        target(args, dev, record=rec, mesh=make_host_mesh(*shape))
         if rank == 0:
             part = os.path.join(tmp, "record.pkl.tmp")
             with open(part, "wb") as f:

@@ -259,74 +259,141 @@ def _kv_quantize(x: torch.Tensor, dtype):
     return q, s
 
 
+def _attend_one(q, kf, vf, valid, tp=None, seq=None):
+    """One new token's attention: query heads ``q`` (B, 1, Hq, hd)
+    against float32 entries ``kf``/``vf`` (B, C, Kc, hd) where ``valid``
+    (B, C) holds (all of them for ``None``); returns the heads' outputs
+    as (B, 1, Hq·hd) float32.
+
+    Under tensor parallelism (``tp``, ``train.tp``): where the rank's
+    query heads read KV columns of a cache that holds every KV head, it
+    reads those columns.  ``seq`` is the group whose ranks hold
+    consecutive blocks of the cache's sequence axis (``None``: the rank
+    holds all of it): each rank takes the softmax of its block against
+    the max over every block (a float32 max all-reduce), and the
+    weighted values and the sums are added over the ranks (one float32
+    all-reduce); a block wholly masked gives exp(NEG_INF - max) = 0.
+    When that group is 'model' and the heads are split, the rank first
+    gathers every rank's query heads, which are tiny, and keeps its own
+    heads' outputs."""
+    B, _, Hq, hd = q.shape
+    gather = tp is not None and seq is tp and tp.plan["attn"]
+    if gather:
+        q = tp.gather_heads(q)
+    elif tp is not None and tp.plan["attn"] and not tp.plan["kv"]:
+        lo, hi = (c // hd for c in tp.kv_columns())
+        kf, vf = kf[:, :, lo:hi], vf[:, :, lo:hi]
+    K = kf.shape[2]
+    qf = q.reshape(B, 1, K, q.shape[2] // K, hd).float()
+    s = torch.einsum("bqkgh,btkh->bkgqt", qf, kf) / (hd ** 0.5)
+    if valid is not None:
+        s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
+    if seq is None:
+        w = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgqt,btkh->bqkgh", w, vf)
+    else:
+        import torch.distributed as dist
+        m = seq.all_reduce(s.amax(dim=-1, keepdim=True),
+                           op=dist.ReduceOp.MAX)
+        p = torch.exp(s - m)
+        o = torch.einsum("bkgqt,btkh->bqkgh", p, vf)
+        both = seq.all_reduce(torch.cat([o.reshape(-1),
+                                         p.sum(dim=-1).reshape(-1)]))
+        n = o.numel()
+        o = both[:n].view(o.shape) / both[n:].view(
+            B, 1, K, o.shape[3], 1)
+    o = o.reshape(B, 1, -1)
+    return o.narrow(2, tp.rank * Hq * hd, Hq * hd) if gather else o
+
+
 def attn_decode(p: dict, cache_k, cache_v, x1: torch.Tensor,
                 pos: torch.Tensor, cfg: ModelConfig, *, window: int,
-                theta: float | None = None, k_scale=None, v_scale=None):
+                theta: float | None = None, k_scale=None, v_scale=None,
+                tp=None, seq=None):
     """Single-token decode.  x1: (B, 1, D); pos: (B,) current position.
     cache_k/v: (B, C, K, hd) with C = window (ring) or max seq (global).
     With int8 caches, k_scale/v_scale are (B, C, K) per-entry scales.
     The new entry is written into the cache tensors in place.
-    Returns (out (B,1,D), cache_k, cache_v[, k_scale, v_scale])."""
+    Returns (out (B,1,D), cache_k, cache_v[, k_scale, v_scale]).
+
+    Under tensor parallelism (``tp``) ``p`` holds the rank's serving
+    leaves and the cache the rank's block of it; the output is the
+    rank's part of the sum over heads where the heads are split.  With
+    ``seq`` (see ``_attend_one``) the cache holds block ``seq.rank`` of
+    C / ``seq.world`` entries of the sequence (or ring) axis: positions
+    and the ring's slot ``pos % C`` are those of the whole axis, and only
+    the rank that holds the slot writes the new entry; int8 scales that
+    ``cache_specs`` keeps whole are written by every rank (each computes
+    every KV head)."""
     theta = theta if theta is not None else cfg.rope_theta
     B, C, K, hd = cache_k.shape
-    H = cfg.n_heads
-    G = H // K
     quant = cache_k.dtype == torch.int8
     q, k, v = _project_qkv(p, x1, cfg)
     q = rope(q, pos[:, None], theta)
     k = rope(k, pos[:, None], theta)
-    slot = (pos % C) if window > 0 else pos                # (B,)
     bidx = torch.arange(B, device=pos.device)
+    off = 0 if seq is None else seq.rank * C
+    Cg = C if seq is None else C * seq.world
+    slot = (pos % Cg) if window > 0 else pos                # (B,)
     if quant:
         kq, ks = _kv_quantize(k[:, 0], cache_k.dtype)
         vq, vs = _kv_quantize(v[:, 0], cache_v.dtype)
-        cache_k[bidx, slot] = kq
-        cache_v[bidx, slot] = vq
-        k_scale[bidx, slot] = ks
-        v_scale[bidx, slot] = vs
+        news = [(cache_k, kq), (cache_v, vq), (k_scale, ks),
+                (v_scale, vs)]
     else:
-        cache_k[bidx, slot] = k[:, 0].to(cache_k.dtype)
-        cache_v[bidx, slot] = v[:, 0].to(cache_v.dtype)
+        news = [(cache_k, k[:, 0].to(cache_k.dtype)),
+                (cache_v, v[:, 0].to(cache_v.dtype))]
+    if seq is None:
+        for cache, new in news:
+            cache[bidx, slot] = new
+    else:
+        local = slot - off
+        own = (local >= 0) & (local < C)
+        li = local.clamp(0, C - 1)
+        for cache, new in news:
+            if cache.shape[1] == Cg:            # whole (int8 scales)
+                cache[bidx, slot] = new
+            else:
+                keep = own.view((B,) + (1,) * (new.ndim - 1))
+                cache[bidx, li] = torch.where(keep, new, cache[bidx, li])
     # key positions: the ring holds pos - age; global holds the index
     idx = torch.arange(C, device=pos.device)[None, :]
+    if seq is not None:
+        idx = idx + off
     if window > 0:
         kpos = torch.where(
             idx <= slot[:, None], pos[:, None] - (slot[:, None] - idx),
-            pos[:, None] - (slot[:, None] + C - idx))
+            pos[:, None] - (slot[:, None] + Cg - idx))
         valid = (kpos >= 0) & (pos[:, None] - kpos < window)
     else:
         valid = idx <= pos[:, None]
-    qf = q.reshape(B, 1, K, G, hd).float()
     kf = cache_k.float()
     vf = cache_v.float()
     if quant:
-        kf = kf * k_scale[..., None]
-        vf = vf * v_scale[..., None]
-    s = torch.einsum("bqkgh,btkh->bkgqt", qf, kf) / (hd ** 0.5)
-    s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
-    w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqt,btkh->bqkgh", w, vf)
-    out = o.reshape(B, 1, H * hd).to(x1.dtype) @ p["wo"].to(x1.dtype)
+        ksc, vsc = k_scale, v_scale
+        if ksc.shape[1] != C:
+            ksc, vsc = ksc.narrow(1, off, C), vsc.narrow(1, off, C)
+        kf = kf * ksc[..., None]
+        vf = vf * vsc[..., None]
+    o = _attend_one(q, kf, vf, valid, tp, seq)
+    out = o.to(x1.dtype) @ p["wo"].to(x1.dtype)
     if quant:
         return out, cache_k, cache_v, k_scale, v_scale
     return out, cache_k, cache_v
 
 
 def cross_attn_decode(p: dict, enc_k, enc_v, x1: torch.Tensor,
-                      cfg: ModelConfig) -> torch.Tensor:
-    """Decoder cross-attention against fixed encoder kv (B, T, K, hd)."""
+                      cfg: ModelConfig, tp=None, seq=None) -> torch.Tensor:
+    """Decoder cross-attention against fixed encoder kv (B, T, K, hd);
+    under tensor parallelism as ``attn_decode`` (``seq`` splits T)."""
     B = x1.shape[0]
-    K, hd, H = cfg.n_kv_heads, cfg.hd, cfg.n_heads
-    G = H // K
+    hd = cfg.hd
     dt = x1.dtype
     q = x1 @ p["wq"].to(dt)
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
-    q = q.reshape(B, 1, K, G, hd)
+    q = q.reshape(B, 1, -1, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
-    s = torch.einsum("bqkgh,btkh->bkgqt", q.float(),
-                     enc_k.float()) / (hd ** 0.5)
-    w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqt,btkh->bqkgh", w, enc_v.float())
-    return o.reshape(B, 1, H * hd).to(dt) @ p["wo"].to(dt)
+    o = _attend_one(q, enc_k.float(), enc_v.float(), None, tp, seq)
+    return o.to(dt) @ p["wo"].to(dt)

@@ -13,7 +13,8 @@ object with ``axis_names`` and a ``shape`` mapping (as a JAX mesh has),
 or a ``torch.distributed`` ``DeviceMesh`` (``mesh_dim_names`` and a
 ``shape`` tuple).  So the rules need no process group.
 
-``param_placements`` turns the specs into what the trainer shards by:
+``param_placements`` (and ``cache_placements`` for a decode cache)
+turns the specs into what the trainer and the server shard by:
 for each leaf, the dimension the data axes split and the dimension
 'model' splits (``train.dp`` keeps a rank's block on both axes).
 ``tp_plan`` and ``model_compute`` say how each leaf computes under
@@ -138,6 +139,10 @@ def param_placements(mesh, params) -> dict:
     leaf along the model dimension, and block d of that along the data
     dimension, in rank order.  At an axis of size 1 the dimension is
     still given (its one block is the whole leaf)."""
+    return _placements(mesh, param_specs(mesh, params))
+
+
+def _placements(mesh, specs) -> dict:
     data = set(data_axes(mesh))
 
     def one(path, spec):
@@ -149,8 +154,27 @@ def param_placements(mesh, params) -> dict:
             if "model" in axes:
                 md = i
         return dd, md                       # the rules split one of each
-    return tree_map_with_path(one, param_specs(mesh, params),
+    return tree_map_with_path(one, specs,
                               is_leaf=lambda x: isinstance(x, tuple))
+
+
+def cache_placements(mesh, cache, batch: int) -> dict:
+    """``param_placements`` of a decode cache tree: a ``(data dim, model
+    dim)`` pair per leaf from ``cache_specs``."""
+    return _placements(mesh, cache_specs(mesh, cache, batch))
+
+
+def block_shape(shape, place: tuple, mesh) -> tuple:
+    """The shape of one rank's block of a leaf of ``shape`` placed at
+    ``place`` on ``mesh``: the data dimension divided by the data axes'
+    size, the model dimension by 'model''s."""
+    sizes = _sizes(mesh)
+    out = list(shape)
+    if place[0] is not None:
+        out[place[0]] //= _axis_size(mesh, data_axes(mesh))
+    if place[1] is not None:
+        out[place[1]] //= sizes["model"]
+    return tuple(out)
 
 
 def tp_plan(cfg, tp: int) -> dict:

@@ -27,6 +27,19 @@ Under ``torch.no_grad`` (the serving paths) nothing is wrapped.
 Decode caches mirror the segment structure as in the reference, and
 ``decode_step`` updates them in place (the reference returns a new
 pytree); it returns the cache it was given.
+
+Under tensor parallelism over 'model' (a ``train.tp.TensorParallel``
+handle, ``tp``) ``init_cache`` builds a rank's block of the cache and
+``decode_step`` runs a rank's part of the step (see ``train.tp``'s
+"Serving"): heads, ``d_ff`` and experts split as in training, the
+residual stream whole, split outputs all-reduced per token.  The cache
+lies as ``sharding.cache_specs`` says (batch on the data axes; KV heads
+on 'model' when they divide, else the sequence axis, and then the ranks
+combine their partial softmaxes, ``attention._attend_one``), except the
+SSM's ``state`` and ``conv``: the SSM runs whole on every model rank, as
+in training, so they stay whole over 'model' (``cache_specs`` splits the
+state's heads and the conv channels, which mix x, B and C and do not
+fall on the heads).  Without ``tp`` every result is what it was.
 """
 from __future__ import annotations
 
@@ -40,11 +53,13 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import sharding as shd
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (BlockGenerator, ModelConfig,
                                        dense_init, full, normal, rms_norm,
                                        sinusoidal_at, sinusoidal_positions)
+from repro_torch.tree import tree_map, tree_map_with_path
 
 
 # ------------------------------------------------------------- layer plan
@@ -438,13 +453,54 @@ def unembed_matrix(params: dict, cfg: ModelConfig) -> torch.Tensor:
 
 # ----------------------------------------------------------------- decode
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               enc_len: int | None = None, device=None) -> dict:
+               enc_len: int | None = None, device=None, tp=None) -> dict:
     """KV/SSM cache tree mirroring the segment structure, on ``device``
     (CUDA unless given).
 
     ``cfg.kv_cache_dtype == "int8"`` stores self-attention caches as int8
-    with per-entry float32 scales."""
+    with per-entry float32 scales.
+
+    With ``tp`` (``train.tp.TensorParallel`` of a mesh, ``batch`` the
+    whole batch) a ``BlockCache``: the rank's block of each leaf, as
+    ``sharding.cache_placements`` places it on ``tp.mesh`` (the SSM's
+    leaves whole over 'model'; see the module docstring), with those
+    placements, which ``decode_step`` reads."""
+    if tp is None:
+        return _cache_tree(cfg, batch, max_seq, enc_len,
+                           resolve_device(device))
+    whole = _cache_tree(cfg, batch, max_seq, enc_len, torch.device("meta"))
+    places = cache_layout(tp.mesh, whole, batch)
     dev = resolve_device(device)
+    return BlockCache(tree_map(lambda a, place: torch.zeros(
+        shd.block_shape(a.shape, place, tp.mesh), dtype=a.dtype,
+        device=dev), whole, places), places)
+
+
+class BlockCache(dict):
+    """A rank's block of a decode cache (``init_cache(tp=...)``): the
+    cache tree, and in ``places`` where each of its leaves lies on the
+    mesh (``cache_layout``)."""
+
+    def __init__(self, tree: dict, places: dict):
+        super().__init__(tree)
+        self.places = places
+
+
+def cache_layout(mesh, cache, batch: int) -> dict:
+    """Where each leaf of a whole decode cache lies under tensor
+    parallelism: ``sharding.cache_placements``, with the SSM's ``state``
+    and ``conv`` whole over 'model'."""
+    def one(path, place):
+        if path[-1] in ("state", "conv"):
+            return place[0], None
+        return place
+    return tree_map_with_path(
+        one, shd.cache_placements(mesh, cache, batch),
+        is_leaf=lambda x: isinstance(x, tuple))
+
+
+def _cache_tree(cfg: ModelConfig, batch: int, max_seq: int,
+                enc_len: int | None, dev: torch.device) -> dict:
     dt = cfg.cdtype
     quant = cfg.kv_cache_dtype == "int8"
     kv_dt = torch.int8 if quant else dt
@@ -485,10 +541,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     return cache
 
 
+def _seq_group(tp, places: dict | None, name: str):
+    """The group whose ranks hold consecutive blocks of the sequence axis
+    (dim 2 of (R, B, C, K, hd)) of cache leaf ``name``, or ``None``."""
+    if tp is None:
+        return None
+    dd, md = places[name]
+    return tp if md == 2 else tp.data if dd == 2 else None
+
+
+def _reduce(tp, y, split: bool):
+    """``tp.reduce``, or ``y`` itself without ``tp``."""
+    return y if tp is None else tp.reduce(y, split)
+
+
 def _decode_slot(sp: dict, cache_slot: dict, slot: Slot, x, pos, cfg,
-                 shared):
+                 shared, tp=None, places=None):
     """One sub-layer's decode; ``cache_slot`` holds views of one repeat
-    of the cache and is updated in place."""
+    of the cache and is updated in place.  With ``tp``, ``places`` holds
+    the slot's cache placements (dims of the stacked leaves)."""
     if slot.kind == "ssm":
         h, c = ssm_mod.ssm_decode(sp["ssm"], cache_slot,
                                   rms_norm(x, sp["ln"]), cfg)
@@ -496,42 +567,53 @@ def _decode_slot(sp: dict, cache_slot: dict, slot: Slot, x, pos, cfg,
         cache_slot["conv"].copy_(c["conv"])
         cache_slot["state"].copy_(c["state"])
     else:
+        a = _split(tp, "attn")
         h = attn_mod.attn_decode(
             sp["attn"], cache_slot["k"], cache_slot["v"],
             rms_norm(x, sp["ln1"]), pos, cfg, window=slot.window,
             theta=slot.theta, k_scale=cache_slot.get("k_scale"),
-            v_scale=cache_slot.get("v_scale"))[0]
-        x = x + h
+            v_scale=cache_slot.get("v_scale"), tp=tp,
+            seq=_seq_group(tp, places, "k"))[0]
+        x = x + _reduce(tp, h, a)
         if slot.cross:
-            x = x + attn_mod.cross_attn_decode(
+            x = x + _reduce(tp, attn_mod.cross_attn_decode(
                 sp["cross"], cache_slot["ck"], cache_slot["cv"],
-                rms_norm(x, sp["ln_x"]), cfg)
+                rms_norm(x, sp["ln_x"]), cfg, tp=tp,
+                seq=_seq_group(tp, places, "ck")), a)
         if slot.moe:
             # decode: dense per-token expert mix (B tokens, no capacity)
-            h, _ = _moe_decode(sp["mlp"], rms_norm(x, sp["ln2"]), cfg)
+            m = _split(tp, "moe")
+            h, _ = _moe_decode(sp["mlp"], rms_norm(x, sp["ln2"]), cfg,
+                               tp=tp)
         else:
+            m = _split(tp, "mlp")
             h = mlp_mod.mlp_forward(sp["mlp"], rms_norm(x, sp["ln2"]))
-        x = x + h
+        x = x + _reduce(tp, h, m)
     if slot.shared_attn and shared is not None:
         h = attn_mod.attn_decode(
             shared["attn"], cache_slot["shared_k"], cache_slot["shared_v"],
             rms_norm(x, shared["ln1"]), pos, cfg, window=0,
             theta=cfg.rope_theta,
             k_scale=cache_slot.get("shared_k_scale"),
-            v_scale=cache_slot.get("shared_v_scale"))[0]
-        x = x + h
-        x = x + mlp_mod.mlp_forward(shared["mlp"],
-                                    rms_norm(x, shared["ln2"]))
+            v_scale=cache_slot.get("shared_v_scale"), tp=tp,
+            seq=_seq_group(tp, places, "shared_k"))[0]
+        x = x + _reduce(tp, h, _split(tp, "attn"))
+        x = x + _reduce(tp, mlp_mod.mlp_forward(
+            shared["mlp"], rms_norm(x, shared["ln2"])), _split(tp, "mlp"))
     return x
 
 
-def _moe_decode(p: dict, x: torch.Tensor, cfg: ModelConfig):
+def _moe_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, tp=None):
     """Single-token MoE decode by one-hot activation dispatch: every
     expert runs over the (B, D) tokens and the outputs are mixed with the
     routed gates (zero for experts a token was not routed to).  Exact for
-    decode: no capacity, no drops."""
+    decode: no capacity, no drops.  With ``tp`` whose plan splits the
+    experts, ``p`` holds the rank's block of them (and of the shared
+    experts' ``d_ff``): it mixes its experts only, and the result is its
+    part of the sum over ranks."""
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
+    El = p["wg"].shape[-3]
     dt = x.dtype
     logits = (x @ p["router"].to(dt)).float()
     probs = torch.softmax(logits, dim=-1)
@@ -540,6 +622,8 @@ def _moe_decode(p: dict, x: torch.Tensor, cfg: ModelConfig):
     # combine weights per expert: (B, E), zero for unrouted experts
     comb = torch.zeros((B, E), dtype=torch.float32, device=x.device)
     comb.scatter_add_(1, eidx[:, 0, :], gate[:, 0, :])
+    if El != E:                             # the rank's experts
+        comb = comb.narrow(1, tp.experts(El), El)
     xe = x[:, 0, :]                                          # (B, D)
     h = torch.nn.functional.silu(
         torch.einsum("bd,edf->ebf", xe, p["wg"].to(dt))) * \
@@ -552,19 +636,26 @@ def _moe_decode(p: dict, x: torch.Tensor, cfg: ModelConfig):
 
 
 def build_cross_cache(params: dict, cfg: ModelConfig,
-                      enc_out: torch.Tensor, cache: dict) -> dict:
+                      enc_out: torch.Tensor, cache: dict, tp=None) -> dict:
     """Fill the decoder cross-attention k/v from the encoder output
-    (serving prefill for enc-dec models), in place; returns ``cache``."""
+    (serving prefill for enc-dec models), in place; returns ``cache``.
+    With ``tp``, ``params`` are the rank's serving leaves, ``enc_out``
+    whole, and the rank fills its block of the cache: its KV heads, or
+    its block of the encoder positions."""
     params = _as_tree(params)
-    K, hd = cfg.n_kv_heads, cfg.hd
+    hd = cfg.hd
     dt = enc_out.dtype
-    for seg_p, seg_c, (repeats, slots) in zip(
-            params["segments"], cache["segments"], layer_plan(cfg)):
+    places = None if tp is None else cache.places["segments"]
+    for gi, (seg_p, seg_c, (repeats, slots)) in enumerate(zip(
+            params["segments"], cache["segments"], layer_plan(cfg))):
         for si, slot in enumerate(slots):
             if not slot.cross:
                 continue
+            seq = None if tp is None else _seq_group(
+                tp, places[gi][f"slot{si}"], "ck")
             for r in range(repeats):
                 cp = _layer(seg_p[f"slot{si}"]["cross"], r)
+                K = cp["wk"].shape[-1] // hd
                 k = enc_out @ cp["wk"].to(dt)
                 v = enc_out @ cp["wv"].to(dt)
                 if cfg.qkv_bias:
@@ -574,28 +665,44 @@ def build_cross_cache(params: dict, cfg: ModelConfig,
                 v = v.reshape(v.shape[:-1] + (K, hd))
                 if cfg.qk_norm:
                     k = rms_norm(k, cp["k_norm"])
-                seg_c[f"slot{si}"]["ck"][r].copy_(k)
-                seg_c[f"slot{si}"]["cv"][r].copy_(v)
+                c = seg_c[f"slot{si}"]
+                ck, cv = c["ck"][r], c["cv"][r]
+                if seq is not None:
+                    n = ck.shape[1]
+                    k, v = (t.narrow(1, seq.rank * n, n) for t in (k, v))
+                ck.copy_(k)
+                cv.copy_(v)
     return cache
 
 
 def decode_step(params: dict, cfg: ModelConfig, cache: dict,
-                token: torch.Tensor, pos: torch.Tensor):
+                token: torch.Tensor, pos: torch.Tensor, tp=None):
     """token: (B,) integer; pos: (B,) integer.  Returns (logits (B, V),
-    cache), the cache updated in place."""
+    cache), the cache updated in place.  With ``tp``, ``params`` are the
+    rank's serving leaves (``train.tp.TensorParallel.serve_leaf``), the
+    cache its ``BlockCache`` (``init_cache(tp=tp)``) and the rows its
+    rows; the logits are whole over the vocabulary on every rank."""
     params = _as_tree(params)
     dt = cfg.cdtype
-    x = params["embed"].to(dt)[token][:, None, :]           # (B,1,D)
+    if tp is None:
+        x = params["embed"].to(dt)[token][:, None, :]       # (B,1,D)
+    else:
+        x = tp.embed_rows(params["embed"].to(dt), token)[:, None, :]
     if cfg.family == "encdec":
         x = x + sinusoidal_at(pos, cfg.d_model).to(dt)[:, None, :]
     shared = params.get("shared_block")
-    for seg_p, seg_c, (repeats, slots) in zip(
-            params["segments"], cache["segments"], layer_plan(cfg)):
+    places = None if tp is None else cache.places["segments"]
+    for gi, (seg_p, seg_c, (repeats, slots)) in enumerate(zip(
+            params["segments"], cache["segments"], layer_plan(cfg))):
         for r in range(repeats):
             layer_p, layer_c = _layer(seg_p, r), _layer(seg_c, r)
             for si, slot in enumerate(slots):
                 x = _decode_slot(layer_p[f"slot{si}"], layer_c[f"slot{si}"],
-                                 slot, x, pos, cfg, shared)
+                                 slot, x, pos, cfg, shared, tp=tp,
+                                 places=None if tp is None
+                                 else places[gi][f"slot{si}"])
     x = rms_norm(x, params["final_norm"])
     logits = (x @ unembed_matrix(params, cfg))[:, 0, :]
+    if tp is not None:
+        logits = tp.gather_vocab(logits)
     return logits, cache

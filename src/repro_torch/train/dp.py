@@ -31,6 +31,14 @@ moved to d, and its gradient is laid out as (D, ...) before the
 reduce-scatter.  At D = 1 every collective is a copy, and the step
 computes what the single-process step computes, bitwise.
 
+``Collectives.log``, a ``CollectiveLog`` (``None``, the default, records
+nothing and costs one attribute test; the dry-run sets one on a
+rank's groups), records every collective a rank
+runs: its kind, the bytes of its result and its group's size, read in
+the layout of the reference's ``launch/hlo_parse.py:parse_collectives``
+(``stats()``), so that ``link_traffic_bytes`` reads it (the dry-run's
+counterpart of the post-SPMD HLO inventory).
+
 ``collective_times()`` reads the time of the gathers, reduce-scatters
 and all-reduces timed since it was last read (CUDA events around each on
 a card, the host clock on the CPU), in two sums: ``collective_s`` adds,
@@ -111,9 +119,36 @@ def _seconds(timed) -> float:
     return start.elapsed_time(end) * 1e-3
 
 
+class CollectiveLog:
+    """A record of collectives, one ``(kind, result bytes, group size)``
+    entry each; kinds are the HLO names ("all-gather", "reduce-scatter",
+    "all-reduce")."""
+
+    def __init__(self):
+        self.entries: list = []
+
+    def add(self, kind: str, result: torch.Tensor, group_size: int) -> None:
+        self.entries.append((kind, result.numel() * result.element_size(),
+                             group_size))
+
+    def stats(self) -> dict:
+        """``{kind: {"count", "bytes"}, "_avg_group": mean group size}``,
+        the layout of the reference's ``parse_collectives``."""
+        out: dict = {}
+        for kind, nbytes, _ in self.entries:
+            s = out.setdefault(kind, {"count": 0, "bytes": 0})
+            s["count"] += 1
+            s["bytes"] += nbytes
+        sizes = [k for _, _, k in self.entries]
+        out["_avg_group"] = sum(sizes) / len(sizes) if sizes else 0
+        return out
+
+
 class Collectives:
     """A rank's process group over one mesh axis, and the timing of the
-    collectives it runs there."""
+    collectives it runs there (and their record, with ``log``)."""
+
+    log: "CollectiveLog | None" = None      # set per instance
 
     def __init__(self, group, device):
         self.group = group
@@ -121,6 +156,19 @@ class Collectives:
         self.world = dist.get_world_size(group)
         self.device = torch.device(device)
         self._times: list = []      # per timed collective
+
+    def _note(self, kind: str, result: torch.Tensor, world=None) -> None:
+        if self.log is not None:
+            self.log.add(kind, result, self.world if world is None
+                         else world)
+
+    def all_reduce(self, t: torch.Tensor,
+                   op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """``t`` reduced over the group, in place; returns it."""
+        with self._timed():
+            dist.all_reduce(t, op=op, group=self.group)
+        self._note("all-reduce", t)
+        return t
 
     @contextlib.contextmanager
     def _timed(self):
@@ -146,6 +194,7 @@ class Collectives:
         with self._timed():
             dist.all_gather_into_tensor(out, a.contiguous(),
                                         group=self.group)
+        self._note("all-gather", out)
         whole = list(shape)
         whole[d] *= self.world
         return out.view((self.world,) + shape).movedim(0, d).reshape(whole)
@@ -165,6 +214,7 @@ class Collectives:
                                     + out.shape[1:]).contiguous()
         with self._timed():
             dist.reduce_scatter_tensor(out, x, group=self.group)
+        self._note("reduce-scatter", out)
         return out
 
     def collective_times(self) -> dict:
@@ -205,12 +255,6 @@ class DataParallel(Collectives):
         self.shape = (self.world, 1 if tp is None else tp.world)
 
     # ------------------------------------------------------- collectives
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum of ``t`` over the 'data' group, in place; returns ``t``."""
-        with self._timed():
-            dist.all_reduce(t, group=self.group)
-        return t
-
     def barrier(self) -> None:
         dist.barrier()
 
@@ -244,6 +288,7 @@ class DataParallel(Collectives):
             sq = torch.as_tensor(sq, dtype=torch.float32, device=self.device)
             with self._timed():
                 dist.all_reduce(sq)
+            self._note("all-reduce", sq, dist.get_world_size())
             return sq
         return global_norm(mine, all_reduce=reduce)
 

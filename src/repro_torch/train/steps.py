@@ -293,21 +293,33 @@ def init_train_state(cfg: ModelConfig, opt_cfg: OptConfig,
 
 
 # ------------------------------------------------------------------ serve
-def make_prefill_step(cfg: ModelConfig, attn_scheme: str = "simple"):
+def make_prefill_step(cfg: ModelConfig, attn_scheme: str = "simple",
+                      tp=None):
+    """prefill(params, tokens, frames=None) -> (B, S, V) logits.  With
+    ``tp`` (``train.tp.TensorParallel``) ``params`` are the rank's
+    serving leaves (``serve_leaf``) and ``tokens`` its rows: the forward
+    runs split over 'model' and the logits are whole on every rank."""
     cast = _CastOnce(cfg)
 
     @torch.no_grad()
     def prefill(params, tokens, frames=None):
-        logits, _ = tfm.forward(cast(params), cfg, tokens, frames=frames,
-                                remat=False, attn_scheme=attn_scheme)
-        return logits
+        p = cast(params)
+        if tp is not None:
+            p = tp.narrow_kv(p)
+        logits, _ = tfm.forward(p, cfg, tokens, frames=frames,
+                                remat=False, attn_scheme=attn_scheme,
+                                tp=tp)
+        return logits if tp is None else tp.gather_vocab(logits)
     return prefill
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, tp=None):
+    """decode(params, cache, token, pos) -> ((B, V) logits, cache), the
+    cache updated in place; with ``tp`` as ``make_prefill_step`` (the
+    cache from ``transformer.init_cache(tp=tp)``)."""
     cast = _CastOnce(cfg)
 
     @torch.no_grad()
     def decode(params, cache, token, pos):
-        return tfm.decode_step(cast(params), cfg, cache, token, pos)
+        return tfm.decode_step(cast(params), cfg, cache, token, pos, tp=tp)
     return decode

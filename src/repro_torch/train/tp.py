@@ -45,6 +45,24 @@ model rank of a split MoE, so its gradient is scaled by 1/T there.
 At T = 1 the same code runs and every collective is a copy.
 ``collective_times()`` reads the 'model' collectives as
 ``train.dp.DataParallel`` reads the 'data' ones.
+
+**Serving** (``train.steps.make_prefill_step``/``make_decode_step`` with
+this handle) runs forward only and holds no optimizer, so a rank's
+compute leaves are made once, at load (``serve_leaf``): gathered over
+'data' and, where their split at rest is storage-only, over 'model', and
+the rank's part kept.  KV columns (KV heads that do not divide T) are
+kept whole: a decode whose cache splits its sequence over 'model' writes
+every KV head of the new entry (``narrow_kv`` gives the prefill its
+columns).  The prefill runs the training forward (the boundary layout).
+A decode step has S = 1 and no boundary layout: the residual stream is
+whole on every rank, the embedding is looked up in the rank's
+vocabulary block and summed (``embed_rows``), a split sub-layer's
+output (attention's ``wo``, the MLP's ``wd``, the local experts) is
+all-reduced in float32 and rounded once (``reduce``), and the
+vocabulary blocks of the logits are gathered (``gather_vocab``).  The
+cache lies as ``sharding.cache_placements`` says (``transformer.
+init_cache`` returns it with its placements); where its sequence axis
+is split, ``models.attention`` combines the ranks' partial softmaxes.
 """
 from __future__ import annotations
 
@@ -155,23 +173,22 @@ class TensorParallel(Collectives):
     """The 'model' layout of one rank: its group, its device, the plan
     of which sub-layers split (``sharding.tp_plan``), and per parameter
     leaf its placement at rest (``sharding.param_placements``: (data
-    dim, model dim) pairs) and its compute (``sharding.model_compute``)."""
+    dim, model dim) pairs) and its compute (``sharding.model_compute``).
+    It holds the mesh (``mesh``) and the rank's ``DataParallel`` over the
+    mesh's data axes (``data``), by which a decode cache is laid out."""
 
-    def __init__(self, group, cfg, placements, compute, device):
-        super().__init__(group, device)
+    def __init__(self, mesh, cfg, placements, compute, device):
+        super().__init__(mesh.get_group("model"), device)
+        self.mesh = mesh
         self.plan = shd.tp_plan(cfg, self.world)
         self.hd = cfg.hd
         self.heads = (cfg.n_heads, cfg.n_kv_heads)
         self.placements = placements
         self.compute = compute
+        self.data = DataParallel(data_group(mesh), placements, device,
+                                 tp=self)
 
     # ------------------------------------------------------- collectives
-    def all_reduce(self, t, op=dist.ReduceOp.SUM):
-        """``t`` reduced over the 'model' group, in place; returns it."""
-        with self._timed():
-            dist.all_reduce(t, op=op, group=self.group)
-        return t
-
     def _gather_last(self, x):
         return self._gather(x, x.ndim - 1)
 
@@ -266,6 +283,59 @@ class TensorParallel(Collectives):
             return block_of(c, d, self.rank, self.world)
         return c
 
+    # ----------------------------------------------------------- serving
+    def serving_leaves(self, blocks):
+        """The rank's serving leaves from its blocks at rest on both axes
+        (``serve_leaf`` of each leaf gathered over 'data' by ``data``,
+        the mesh's ``DataParallel``): made once, at load."""
+        dp = self.data
+        return tree_map(lambda a, place, comp: self.serve_leaf(
+            self.gather_leaf(dp.gather_leaf(a, place[0]), place, comp),
+            place, comp), blocks, dp.placements, self.compute)
+
+    def serve_leaf(self, c, place, comp):
+        """Serving's leaf from a compute leaf ``c`` (``gather_leaf``'s):
+        the part the model reads (``view``), copied out of a gathered
+        whole leaf so that the whole is freed; KV columns stay whole."""
+        if comp[0] == "kv":
+            return c
+        v = self.view(c, place, comp)
+        return c if v is c else v.contiguous()
+
+    def narrow_kv(self, params):
+        """Views of serving's leaves as the prefill reads them: the KV
+        columns of the rank's query heads."""
+        if not (self.plan["attn"] and not self.plan["kv"]):
+            return params
+        lo, hi = self.kv_columns()
+        return tree_map(lambda c, comp: c.narrow(comp[1], lo, hi - lo)
+                        if comp[0] == "kv" else c, params, self.compute)
+
+    def reduce(self, y, split: bool):
+        """A decode sub-layer's output, whole on every rank: the ranks'
+        partial sums added (in float32, rounded once) where ``split``."""
+        return self._sum(y) if split else y
+
+    def embed_rows(self, table, tokens):
+        """Whole embedding rows of ``tokens`` on every rank, from the
+        rank's vocabulary block (the decode's lookup)."""
+        if not self.plan["vocab"]:
+            return table[tokens]
+        n = table.shape[0]
+        ids = tokens - self.rank * n
+        owned = (ids >= 0) & (ids < n)
+        return self._sum(torch.where(owned[..., None],
+                                     table[ids.clamp(0, n - 1)], 0))
+
+    def gather_vocab(self, logits):
+        """Whole logits from each rank's vocabulary block (last dim)."""
+        return self._gather_last(logits) if self.plan["vocab"] else logits
+
+    def gather_heads(self, q):
+        """A decode step's query heads (B, 1, H/T, hd) of every rank, as
+        (B, 1, H, hd)."""
+        return self._gather(q, 2)
+
     def reduce_grads(self, grads):
         """Gradients of the compute leaves -> float32 gradients of the
         rank's blocks at rest over 'model' (still whole over 'data')."""
@@ -282,15 +352,24 @@ class TensorParallel(Collectives):
         return tree_map(one, grads, self.placements, self.compute)
 
 
+def data_group(mesh):
+    """The process group over a ``DeviceMesh``'s data axes ('pod' and
+    'data', flattened into one where both are there) at this rank."""
+    axes = shd.data_axes(mesh)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    return mesh[axes]._flatten().get_group()
+
+
 def mesh_layout(cfg, mesh, device) -> tuple:
     """This rank's ``(DataParallel, TensorParallel)`` on a ('data',
-    'model') ``DeviceMesh``: the placements and compute of ``cfg``'s
-    parameter leaves on it, the data group and the model group.  The
+    'model') ``DeviceMesh`` (or ('pod', 'data', 'model'), whose data
+    axes act as one): the placements and compute of ``cfg``'s parameter
+    leaves on it, the data group and the model group.  The
     ``TensorParallel`` also lists the gathered leaves (``gathered``)."""
     shapes = init_params(cfg, device="meta")
     places = shd.param_placements(mesh, shapes)
     compute = shd.model_compute(cfg, mesh, shapes)
-    tp = TensorParallel(mesh.get_group("model"), cfg, places, compute,
-                        device)
+    tp = TensorParallel(mesh, cfg, places, compute, device)
     tp.gathered = shd.gathered_leaves(shapes, places, compute)
-    return DataParallel(mesh.get_group("data"), places, device, tp=tp), tp
+    return tp.data, tp
