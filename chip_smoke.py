@@ -8,9 +8,11 @@ Phases (any failed check exits non-zero; nothing is caught):
 1. card      — name, count, and ``nvidia-smi`` name and power limit;
 2. build     — ``nvcc`` builds every kernel of ``src/repro_torch/csrc``;
 3. zeta      — every launch of a transform's plan (``zeta_cluster``
-               for the low min(n, 15) bits, ``zeta_pair`` per higher
-               bit) against its plain PyTorch version on the card,
-               bitwise, n = 0..17, int32 and f32, fresh and in place;
+               for the low min(n, 15) bits, ``zeta_high`` for each chunk
+               of at most 5 higher bits) against its plain PyTorch
+               version on the card, bitwise, n = 0..17 and, for the
+               high bits, (1, 2^n) at n = 18..21 and (8, 2^20), int32
+               and f32, fresh and in place;
 4. conv      — the ranked-convolution kernel against its plain version;
 5. fused     — the DPconv[max] batch lane (``BatchedSolver``, default
                policy: fused engine, int32 kernel tier for n = 12..15) on
@@ -18,7 +20,7 @@ Phases (any failed check exits non-zero; nothing is caught):
                at n = 12..15 and one clique(12); optima and trees equal
                the f64 tier's, the clique(12) optimum equals the O(3^n)
                oracle; one ``zeta_cluster`` launch per transform, no
-               ``zeta_pair``, and the rounds and passes of the reference;
+               ``zeta_high``, and the rounds and passes of the reference;
 6. host      — the same lane on the host engine (n = 13, B = 4), where
                the ranked-convolution kernel runs; optima equal the f64
                tier's;
@@ -30,7 +32,7 @@ Phases (any failed check exits non-zero; nothing is caught):
                caps, C_out values and trees equal the host pipeline's
                (``ccap(engine="host")``); then ``fused_ccap`` on the
                kernel tier over the 16 cliques equals the f64 tier, with
-               one ``zeta_cluster`` launch per transform, no ``zeta_pair``;
+               one ``zeta_cluster`` launch per transform, no ``zeta_high``;
 9. out       — the C_out lane (fused DPccp, one program call per chunk)
                on 16 clique(15) plus chain/star/cycle(15): optima, trees
                and DP tables equal numpy DPsub (cliques) and the DPccp
@@ -242,7 +244,7 @@ BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores;
 #                             32-bit integer adds and multiplies are
 #                             counted against the same rate
-ZETA_KERNELS = ("zeta_cluster_kernel", "zeta_pair_kernel")
+ZETA_KERNELS = ("zeta_cluster_kernel", "zeta_high_kernel")
 # phase 5's workload searches 23 rounds and runs 31 feasibility passes
 # (23 rounds + 8 extraction passes), as the reference does
 LANE_ROUNDS, LANE_PASSES = 23, 31
@@ -381,22 +383,28 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def device_ms(fn, names, iters: int = 200, between=None) -> tuple:
-    """Device milliseconds per call of ``fn``, kernel launches per call
-    and the profiler sessions it took: torch.profiler's self device time
-    of the kernels whose name holds one of ``names``, summed over
-    ``iters`` calls.  ``between`` runs before each call (an L2 flush);
-    its kernels are not counted.  A profiler session that reports no
-    device event of ``names`` (seen now and then on the card's machine,
-    cause not found) is run again, up to three sessions in all; the run
-    fails if none sees one, and the count of sessions is reported so
-    that a retry shows in the result."""
+def device_ms(fn, names, per_call: int = 1, iters: int = 200,
+              between=None) -> tuple:
+    """Device milliseconds per call of ``fn`` and the profiler sessions
+    it took: torch.profiler's self device time of the kernels whose name
+    holds one of ``names``, summed over ``iters`` calls, where each call
+    launches ``per_call`` of them.  ``between`` runs before each call (an
+    L2 flush; ``names`` must not match its kernels).  A session that sees
+    more launches than ``per_call * iters`` fails the run (``names``
+    matched another kernel); one that sees fewer (seen now and then on
+    the card's machine: a session loses device events, cause not found)
+    is run again, up to five sessions in all.  If every session lost
+    some, the time is the mean of the launches seen times ``per_call``
+    (from the session that saw most), and the print says so; the run
+    fails if no session sees one."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
-    for attempt in range(1, 4):
+    want = per_call * iters
+    best = (0, 0.0)
+    for attempt in range(1, 6):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -411,11 +419,19 @@ def device_ms(fn, names, iters: int = 200, between=None) -> tuple:
                     and any(nm in e.key for nm in names)):
                 us += _device_us(e)
                 launched += e.count
-        if launched > 0 and us > 0:
-            return us * 1e-3 / iters, launched / iters, attempt
-        print(f"torch.profiler session {attempt} saw no device time of "
-              f"{names}", flush=True)
-    fail(f"torch.profiler saw no device time of {names} in 3 sessions")
+        check(launched <= want, f"torch.profiler saw {launched} launches "
+              f"of {names} in {iters} calls of {per_call}")
+        if launched == want and us > 0:
+            return us * 1e-3 / iters, attempt
+        print(f"torch.profiler session {attempt} saw {launched} of {want} "
+              f"launches of {names}", flush=True)
+        if launched > best[0] and us > 0:
+            best = (launched, us)
+    check(best[0] > 0,
+          f"torch.profiler saw no device time of {names} in 5 sessions")
+    print(f"torch.profiler: every session lost launches of {names}; the "
+          f"time is the mean of {best[0]} launches seen", flush=True)
+    return best[1] * 1e-3 / best[0] * per_call, attempt
 
 
 def bound(nbytes: float, nops: float) -> tuple:
@@ -1529,7 +1545,7 @@ def main() -> int:
         from repro_torch.kernels import build, ops, ref
         from repro_torch.kernels.ranked_conv import ranked_conv_cuda
         from repro_torch.kernels.zeta_cuda import (launch_cluster,
-                                                   launch_pair, launch_plan)
+                                                   launch_high, launch_plan)
         from repro_torch.service.batch import BatchedSolver, BatchPolicy
         from repro_torch.service.canon import canonicalize, relabel_tree
         from repro_torch.service.layercache import LayerCache
@@ -1588,14 +1604,17 @@ def main() -> int:
         return bool(torch.equal(got, want))
 
     # ------------------------------------------------------------ 3. zeta
-    # Every launch of the plan against its plain version, n = 0..17:
-    # full-range int32, integer f32 and random f32 (bits in increasing
-    # order, each add rounded alone, so all three are bitwise); the whole
-    # transform into a fresh tensor and in place; mobius(zeta(x)) == x on
-    # the exact inputs.
+    # Every launch of the plan against its plain version, n = 0..17, and
+    # for the zeta_high chunks (1, 2^n) at n = 18..21 (one chunk of 3..5
+    # bits, then 5 + 1 bits) and (8, 2^20): full-range int32, integer f32
+    # and random f32 (bits in increasing order, each add rounded alone,
+    # so all three are bitwise); each zeta_high launch in place and into
+    # another tensor; the whole transform into a fresh tensor and in
+    # place; mobius(zeta(x)) == x on the exact inputs.
     shapes = [(1 << n,) for n in range(18)]
     shapes += [(16, 1 << n) for n in range(18)]
     shapes += [(2, 16, 1 << n) for n in range(18)] + [(16, 16, 1 << 15)]
+    shapes += [(1, 1 << n) for n in range(18, 22)] + [(8, 1 << 20)]
     for shape in shapes:
         n = shape[-1].bit_length() - 1
         plan = launch_plan(n)
@@ -1617,12 +1636,18 @@ def main() -> int:
                 launch_cluster(y, y, low, sign)
                 check(torch.equal(y, out),
                       f"zeta_cluster in place {x.dtype} {shape} {sign}")
-                for _, j, _ in plan[1:]:
+                for _, lo, hi in plan[1:]:
+                    want = ref.zeta_stages_ref(x, sign, lo, hi)
                     y = x.clone()
-                    launch_pair(y, j, sign)
-                    ok = record("zeta_pair", y,
-                                ref.zeta_stages_ref(x, sign, j, j + 1))
-                    check(ok, f"zeta_pair {x.dtype} {shape} bit {j} {sign}")
+                    launch_high(y, lo, hi, sign)
+                    ok = record("zeta_high", y, want)
+                    check(ok, f"zeta_high in place {x.dtype} {shape} bits "
+                          f"{lo}..{hi - 1} sign {sign}")
+                    y = torch.empty_like(x)
+                    launch_high(x, lo, hi, sign, out=y)
+                    ok = record("zeta_high", y, want)
+                    check(ok, f"zeta_high {x.dtype} {shape} bits "
+                          f"{lo}..{hi - 1} sign {sign}")
                 want = ref.mobius_ref(x) if sign < 0 else ref.zeta_ref(x)
                 check(torch.equal(ops.zeta_op(x, inverse=sign < 0), want),
                       f"zeta_op {x.dtype} {shape} sign {sign}")
@@ -1635,9 +1660,10 @@ def main() -> int:
                       f"mobius(zeta(x)) != x on {x.dtype} {shape}")
     torch.cuda.synchronize()
     print(f"zeta: every launch == its plain version, bitwise, n = 0..17 on "
-          f"(2^n,), (16, 2^n), (2, 16, 2^n) and (16, 16, 2^15), both "
-          f"signs, int32 full range, integer and random f32, fresh and in "
-          f"place; mobius(zeta(x)) == x", flush=True)
+          f"(2^n,), (16, 2^n), (2, 16, 2^n) and (16, 16, 2^15), n = 18..21 "
+          f"on (1, 2^n) and (8, 2^20), both signs, int32 full range, "
+          f"integer and random f32, fresh and in place; mobius(zeta(x)) "
+          f"== x", flush=True)
 
     # ------------------------------------------------------------ 4. conv
     Zshape = (16, 16, 1 << 15)
@@ -1701,7 +1727,7 @@ def main() -> int:
     check(got[-1].cost == oracle,
           f"n=12: {got[-1].cost!r} != oracle {oracle!r}")
     check(counts5["zeta_cluster"] == transforms5[0] > 0
-          and counts5["zeta_pair"] == 0,
+          and counts5["zeta_high"] == 0,
           f"the fused lane made {counts5} launches for {transforms5[0]} "
           f"transforms; one zeta_cluster launch per transform expected")
     check((rounds5, passes5) == (LANE_ROUNDS, LANE_PASSES),
@@ -1733,9 +1759,9 @@ def main() -> int:
               f"host lane {r.cost!r} != f64 tier {w.cost!r}")
         check(str(r.tree) == str(w.tree), "host lane: trees differ")
     check(counts6["zeta_cluster"] > 0 and counts6["ranked_conv"] > 0
-          and counts6["zeta_pair"] == 0,
+          and counts6["zeta_high"] == 0,
           f"the host lane's launches {counts6}: zeta_cluster and "
-          f"ranked_conv expected, no zeta_pair at n = 13")
+          f"ranked_conv expected, no zeta_high at n = 13")
     print(f"host: 4 queries at n=13 in {t_host:.4f} s, launches "
           f"{counts6}; optima and trees == f64 tier {card}", flush=True)
 
@@ -1826,7 +1852,7 @@ def main() -> int:
           and k_cap.rounds == f64_cap.rounds,
           "fused_ccap: the kernel tier differs from the f64 tier")
     check(counts8k["zeta_cluster"] == transforms8[0] > 0
-          and counts8k["zeta_pair"] == 0,
+          and counts8k["zeta_high"] == 0,
           f"fused_ccap(backend='cuda') made {counts8k} launches for "
           f"{transforms8[0]} transforms; one zeta_cluster each expected")
     print(f"cap: fused_ccap kernel tier == f64 tier on the 16 cliques, "
@@ -2918,18 +2944,30 @@ def main() -> int:
         scratch.fill_(1)
 
     def row(kernel, names, source, replaces, launch, plain, nbytes, nops,
-            launches, shape):
-        dev_ms, per_call, tries = device_ms(launch, names)
-        cold_ms, _, tries_cold = device_ms(launch, names, between=flush_l2)
+            launches, shape, library=None, library_note=None):
+        dev_ms, tries = device_ms(launch, names)
+        cold_ms, tries_cold = device_ms(launch, names, between=flush_l2)
         call_ms = time_ms(launch)
         host = host_us(launch)
         plain_ms = time_ms(plain)
         b_ms, b_by = bound(nbytes, nops)
+        lib_ms = lib_cold = None
+        lib_text = f"library: none ({library_note})"
+        if library is not None:
+            # one PyTorch call of the same function: one elementwise
+            # add kernel a call
+            lib_ms, _ = device_ms(library, ("CUDAFunctor_add",))
+            lib_cold, _ = device_ms(library, ("CUDAFunctor_add",),
+                                    between=flush_l2)
+            lib_text = (f"library ({library_note}) {lib_ms:.5f} ms warm, "
+                        f"{lib_cold:.5f} ms L2 cold")
         rows.append({"name": kernel, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches,
                      "max_abs_err": err[kernel], "ms": dev_ms,
                      "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": None,
+                     "bound_by": b_by, "library_ms": lib_ms,
+                     "library_ms_l2_cold": lib_cold,
+                     "library_note": library_note,
                      "ms_method": "torch.profiler self device time",
                      "profiler_sessions": [tries, tries_cold],
                      "ms_l2_cold": cold_ms,
@@ -2937,32 +2975,51 @@ def main() -> int:
                      "shape": shape})
         print(f"time {kernel} {shape}: device {dev_ms:.5f} ms per launch "
               f"warm, {cold_ms:.5f} ms L2 cold (torch.profiler, "
-              f"{per_call:g} kernel(s) per call, profiler sessions "
+              f"1 kernel per call, profiler sessions "
               f"{tries} / {tries_cold}), "
               f"host-launched call {call_ms:.5f} ms, host cost "
               f"{host:.2f} us per launch, plain {plain_ms:.5f} ms, bound "
-              f"{b_ms:.5f} ms ({b_by}) {card}", flush=True)
+              f"{b_ms:.5f} ms ({b_by}, {100 * b_ms / cold_ms:.1f}% of it "
+              f"cold), {lib_text} {card}", flush=True)
 
     launches = {k: counts5[k] + counts6[k] + counts8[k] + counts8k[k]
                 + counts9[k] + server_launches[k] + runtime_launches[k]
                 + counts12[k] + counts13[k] + counts14[k]
                 for k in build.KERNELS}
+    check(launches["zeta_high"] == 0,
+          f"phases 5-14 launched zeta_high {launches['zeta_high']} times")
+    no_library = "no PyTorch call computes a subset zeta"
     row("zeta_cluster", ("zeta_cluster_kernel",),
         "src/repro_torch/csrc/zeta.cu",
         "src/repro/kernels/zeta_pallas.py:53",
         lambda: launch_cluster(x, out, 15, 1),
         lambda: ref.zeta_ref(x),
         8 * total, total // 2 * 15, launches["zeta_cluster"],
-        "(16, 2^15) int32, 15 bits")
-    # the pair kernel serves bits >= 15 only: bit 15 of an (8, 2^16)
-    # table, as many elements as the row above
+        "(16, 2^15) int32, 15 bits", library_note=no_library)
+    # zeta_high serves bits >= 15 only.  Bit 15 of an (8, 2^16) table (as
+    # many elements as the row above): a launch over b bits reads 4 T
+    # bytes and writes 4 T (1 - 2^-b); one bit is one PyTorch add_ on two
+    # strided views.  Then bits 15..19 of (8, 2^20) in one launch, which
+    # no one PyTorch call computes.
     xp = on_card(rng.integers(0, 2, (8, 1 << 16)).astype(np.int32))
-    row("zeta_pair", ("zeta_pair_kernel",), "src/repro_torch/csrc/zeta.cu",
+    xpv = xp.view(-1, 2, 1 << 15)
+    row("zeta_high", ("zeta_high_kernel",), "src/repro_torch/csrc/zeta.cu",
         "src/repro/kernels/zeta_pallas.py:101",
-        lambda: launch_pair(xp, 15, 1),
+        lambda: launch_high(xp, 15, 16, 1),
         lambda: ref.zeta_stages_ref(xp, 1, 15, 16),
-        4 * total + 4 * total // 2, total // 2, launches["zeta_pair"],
-        "(8, 2^16) int32, bit 15")
+        4 * total + 4 * total // 2, total // 2, launches["zeta_high"],
+        "(8, 2^16) int32, bit 15",
+        library=lambda: xpv[:, 1].add_(xpv[:, 0]),
+        library_note="x.view(-1, 2, 2^15): v[:, 1].add_(v[:, 0])")
+    xq = on_card(rng.integers(0, 2, (8, 1 << 20)).astype(np.int32))
+    tq = xq.numel()
+    row("zeta_high", ("zeta_high_kernel",), "src/repro_torch/csrc/zeta.cu",
+        "src/repro/kernels/zeta_pallas.py:101",
+        lambda: launch_high(xq, 15, 20, 1),
+        lambda: ref.zeta_stages_ref(xq, 1, 15, 20),
+        4 * tq + 4 * tq * 31 // 32, 5 * tq // 2, launches["zeta_high"],
+        "(8, 2^20) int32, bits 15..19",
+        library_note="no one PyTorch call applies several bits")
     k = 8
     rest = Z[0].numel()
     row("ranked_conv", ("ranked_conv",), "src/repro_torch/csrc/ranked_conv.cu",
@@ -2970,17 +3027,27 @@ def main() -> int:
         lambda: ranked_conv_cuda(Z, k),
         lambda: ref.ranked_conv_ref(Z, k),
         4 * rest * (k - 1) + 4 * rest, rest * k, launches["ranked_conv"],
-        "(16, 16, 2^15) int32, k = 8")
-    # one whole transform, warm in L2 and after a 64 MB write (L2 cold)
-    for shape in [(16, 1 << 15), (16, 16, 1 << 15)]:
+        "(16, 16, 2^15) int32, k = 8",
+        library_note="no PyTorch call computes a ranked convolution")
+    # one whole transform, warm in L2 and after a 64 MB write (L2 cold);
+    # its bound sums the plan's launches: the cluster launch reads and
+    # writes the table, a zeta_high launch over b bits reads it and
+    # writes 1 - 2^-b of it
+    for shape in [(16, 1 << 15), (16, 16, 1 << 15), (8, 1 << 20)]:
         xt = on_card(rng.integers(0, 2, shape).astype(np.int32))
         ot = torch.empty_like(xt)
         fn = lambda: ops.zeta_op(xt, out=ot)    # noqa: E731
-        warm, per_call, tries = device_ms(fn, ZETA_KERNELS)
-        cold, _, tries_cold = device_ms(fn, ZETA_KERNELS, between=flush_l2)
+        tt, nt = xt.numel(), shape[-1].bit_length() - 1
+        per_call = len(launch_plan(nt))
+        warm, tries = device_ms(fn, ZETA_KERNELS, per_call)
+        cold, tries_cold = device_ms(fn, ZETA_KERNELS, per_call,
+                                     between=flush_l2)
         call_ms = time_ms(fn)
         plain = time_ms(lambda: ref.zeta_ref(xt))
-        b_ms, _ = bound(8 * xt.numel(), xt.numel() // 2 * 15)
+        b_ms, _ = bound(sum(8 * tt if kn == "zeta_cluster"
+                            else 4 * tt + 4 * tt - (4 * tt >> (hi - lo))
+                            for kn, lo, hi in launch_plan(nt)),
+                        tt // 2 * nt)
         print(f"time zeta transform {shape}: device {warm:.5f} ms warm, "
               f"{cold:.5f} ms L2 cold ({per_call:g} launches per "
               f"transform, torch.profiler), host-launched call "
@@ -3106,7 +3173,7 @@ def main() -> int:
                           f"what it held before the solve; == unsharded "
                           f"fused and host pipeline {card}", flush=True)
     counts16 = ops.launch_counts()
-    check(counts16["zeta_cluster"] > 0 and counts16["zeta_pair"] == 0,
+    check(counts16["zeta_cluster"] > 0 and counts16["zeta_high"] == 0,
           f"the sharded max solves launched {counts16}")
     print(f"sharded: max (kernel tier), cap, connected cap and out at "
           f"n = 14, 15 on {', '.join(f'{k} D = {w}' for k, _, w in meshes16)}"

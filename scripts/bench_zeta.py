@@ -6,7 +6,7 @@
 Imports ``repro_torch`` from ``--src`` (default: this checkout's
 ``src``), so an unpacked older commit and this one can be timed in one
 call, in turns.  For int32 tables of (16, 2^15) and (16, 16, 2^15) —
-the lane's shapes — it prints, per transform through
+the lane's shapes — and (8, 2^20) it prints, per transform through
 ``kernels.ops.zeta_op``:
 
 * device time, warm and with L2 cold (a 64 MB write before each call):
@@ -17,7 +17,15 @@ the lane's shapes — it prints, per transform through
   card;
 * the host-launched call: CUDA events around 50 calls from Python;
 * the host's cost per call: perf_counter over 1000 calls, no sync;
-* the bound: 8 bytes per element over 3.35 TB/s.
+* the bound: the bytes of the tree's launch plan over 3.35 TB/s (the
+  low-bit launch reads and writes the table; a launch over b high bits
+  reads it and writes 1 - 2^-b of it).
+
+Then the high bits alone, in place, as the tree's plan launches them
+(``zeta_high`` chunks, or one ``zeta_pair`` launch per bit in trees
+before it): bit 15 of (8, 2^16) and bits 15..19 of (8, 2^20), with the
+same times, the bound of one launch over those bits and that of the
+tree's launches.
 
 Uses the timing helpers of ``chip_smoke.py``.  Needs a card; imports
 nothing of JAX or ``repro``.
@@ -50,6 +58,11 @@ def main() -> int:
                                   "file")
     args = ap.parse_args()
     smoke = _smoke()
+    # the smoke module put this checkout's src first and imported its
+    # repro_torch: forget both, so that --src decides what is timed
+    sys.path.remove(str(ROOT / "src"))
+    for name in [m for m in sys.modules if m.split(".")[0] == "repro_torch"]:
+        del sys.modules[name]
     sys.path.insert(0, str(Path(args.src).resolve()))
     import numpy as np
     import torch
@@ -68,28 +81,59 @@ def main() -> int:
     rng = np.random.default_rng(13)
     scratch = torch.empty(16 << 20, dtype=torch.int32, device=dev)
     flush = lambda: scratch.fill_(1)               # noqa: E731
-    own = ("zeta_local_kernel", "zeta_pair_kernel", "zeta_cluster_kernel")
+    from repro_torch.kernels import zeta_cuda
+    own = ("zeta_local_kernel", "zeta_pair_kernel", "zeta_cluster_kernel",
+           "zeta_high_kernel")
     copy = ("Memcpy DtoD",)
+
+    def launch_bytes(total, lo, hi):
+        return 4 * total + 4 * total - (4 * total >> (hi - lo))
+
+    def plan_bound(plan, total):
+        nbytes = sum(8 * total if k == "zeta_cluster"
+                     else launch_bytes(total, lo, hi) for k, lo, hi in plan)
+        return smoke.bound(nbytes, 0)[0]
+
+    def high(x, lo, hi):
+        """The tree's launches of bits lo..hi-1, in place."""
+        if hasattr(zeta_cuda, "launch_high"):
+            return lambda: zeta_cuda.launch_high(x, lo, hi, 1)
+        return lambda: [zeta_cuda.launch_pair(x, j, 1)
+                        for j in range(lo, hi)]
+
+    def timed(fn, shape, per, **rec):
+        warm, _ = smoke.device_ms(fn, own, per)
+        cold, _ = smoke.device_ms(fn, own, per, between=flush)
+        rec = {"label": args.label, "card": smi, "shape": list(shape),
+               **rec, "device_ms_warm": warm, "device_ms_cold": cold,
+               "launches_per_call": per, "host_call_ms": smoke.time_ms(fn),
+               "host_us_per_call": smoke.host_us(fn)}
+        lines.append(rec)
+        print(json.dumps(rec), flush=True)
+
     lines = []
-    for shape in [(16, 1 << 15), (16, 16, 1 << 15)]:
+    for shape in [(16, 1 << 15), (16, 16, 1 << 15), (8, 1 << 20)]:
         x = torch.from_numpy(rng.integers(0, 2, shape).astype(np.int32)
                              ).to(dev)
         y = torch.empty_like(x)
-        fn = lambda: ops.zeta_op(x)                # noqa: E731
-        warm, per = smoke.device_ms(fn, own)
-        cold, _ = smoke.device_ms(fn, own, between=flush)
         cp = lambda: y.copy_(x)                    # noqa: E731
         cp_warm, _ = smoke.device_ms(cp, copy)
         cp_cold, _ = smoke.device_ms(cp, copy, between=flush)
-        rec = {"label": args.label, "card": smi, "shape": list(shape),
-               "device_ms_warm": warm, "device_ms_cold": cold,
-               "launches_per_transform": per,
-               "copy_ms_warm": cp_warm, "copy_ms_cold": cp_cold,
-               "host_call_ms": smoke.time_ms(fn),
-               "host_us_per_call": smoke.host_us(fn),
-               "bound_ms": smoke.bound(8 * x.numel(), x.numel() // 2 * 15)[0]}
-        lines.append(rec)
-        print(json.dumps(rec), flush=True)
+        n = shape[-1].bit_length() - 1
+        plan = zeta_cuda.launch_plan(n)
+        timed(lambda: ops.zeta_op(x, out=y), shape, len(plan),
+              what="transform",
+              copy_ms_warm=cp_warm, copy_ms_cold=cp_cold,
+              bound_ms=plan_bound(plan, x.numel()))
+    for shape, lo, hi in [((8, 1 << 16), 15, 16), ((8, 1 << 20), 15, 20)]:
+        x = torch.from_numpy(rng.integers(0, 2, shape).astype(np.int32)
+                             ).to(dev)
+        n = shape[-1].bit_length() - 1
+        plan = zeta_cuda.launch_plan(n)[1:]     # the high bits: lo = 15
+        timed(high(x, lo, hi), shape, len(plan),
+              what=f"bits {lo}..{hi - 1}",
+              bound_ms=smoke.bound(launch_bytes(x.numel(), lo, hi), 0)[0],
+              plan_bound_ms=plan_bound(plan, x.numel()))
     if args.out:
         with open(args.out, "a") as f:
             for rec in lines:

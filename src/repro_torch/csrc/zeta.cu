@@ -37,9 +37,34 @@
 // cluster barrier, or its own __syncthreads when n <= 12) and stores
 // only after it, so `out` may be `in` (an in-place transform).  Bits are applied in increasing
 // order, each add rounded alone, as the plain version applies them:
-// f32 results are bitwise those of the plain version.  zeta_pair_kernel
-// does one more bit per launch, in place, for the bits >= 15 of n > 15
-// tables (no caller of the int32 tier has one).
+// f32 results are bitwise those of the plain version.
+//
+// zeta_high_kernel does bits lo..hi-1 (at most kHighMaxBits of them) in
+// one launch: the bits >= 15 of an n > 15 table (no caller of the int32
+// tier has one), in chunks of kHighMaxBits.  Seen as a (2^(n-lo), 2^lo)
+// matrix, a row of the table takes the chunk's bits as a zeta over the
+// matrix's row index, independently for every column.  A thread owns
+// one 16-byte column vector (4 elements; one element on the scalar
+// path) and one setting of the bits outside the chunk: it issues all
+// 2^b loads, 2^lo elements apart, before any add, applies the b bits in
+// increasing order in registers (each add rounded alone: bitwise the
+// plain version, as above) and stores the 2^b - 1 vectors whose chunk
+// index is not 0 (that one never changes; it is stored too when `out`
+// is not `in`).  Neighbouring threads take neighbouring columns, so
+// every access of a warp is 512 contiguous bytes.
+// Bound: a launch over b bits of T elements reads 4 T bytes and writes
+// 4 T (1 - 2^-b) bytes; at b = 1 that is the per-bit pass of
+// _pair_kernel, and at (8, 2^20), bits 15..19 in one launch, 66 MB
+// (0.0197 ms at 3.35 TB/s) against 252 MB for five one-bit passes.
+// kHighMaxBits = 5 from the register budget: 2^5 vectors are 128
+// registers of data (164-172 in all, no spill, by ptxas), under the 255
+// a thread may hold; 6 bits would need 256 and spill.  kHighThreads =
+// 256: one such block fits an SM, and (8, 2^20) at 5 bits then runs in
+// 1.94 waves of blocks; 128 threads (3 blocks an SM, 1.29 waves) took
+// 0.0306 ms L2 cold there, 256 took 0.0276 ms (H100 SXM, 700 W,
+// scripts/bench_zeta.py on both builds).  Each thread reads
+// everything it writes and no two threads share an element, so `out`
+// may be `in`.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -53,7 +78,8 @@ constexpr int kTile = 1 << kTileBits;
 constexpr int kThreads = 128;
 constexpr int kPerThread = kTile / kThreads;  // 32 registers of data
 constexpr int kMaxClusterBits = 3;            // 8 blocks: portable size
-constexpr int kPairThreads = 256;
+constexpr int kHighMaxBits = 5;             // bits per zeta_high launch
+constexpr int kHighThreads = 256;
 
 template <class A>
 __device__ __forceinline__ typename A::T step(typename A::T own,
@@ -233,15 +259,49 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <class A>
-__global__ void zeta_pair_kernel(typename A::T* x, long long half, int bit,
-                                 int sign) {
-  const long long t =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= half) return;
-  const long long low = (1LL << bit) - 1;
-  const long long i = ((t & ~low) << 1) | (1LL << bit) | (t & low);
-  x[i] = step<A>(x[i], x[i ^ (1LL << bit)], sign);
+// Bits lo..lo+kBits-1 of `in` into `out`: thread c owns column vector c
+// of the (2^kBits, 2^lo) block it lies in.  kVec: 16-byte columns
+// (lo >= 2, pointers 16-byte aligned), else one element each.
+template <class A, class V, int kBits, bool kVec>
+__global__ void __launch_bounds__(kHighThreads)
+    zeta_high_kernel(const typename A::T* in, typename A::T* out,
+                     long long columns, int lo, int sign) {
+  using T = typename A::T;
+  constexpr int kW = kVec ? 4 : 1;  // elements per column vector
+  constexpr int kR = 1 << kBits;    // vectors per thread
+  const long long c =
+      static_cast<long long>(blockIdx.x) * kHighThreads + threadIdx.x;
+  if (c >= columns) return;
+  const int col_bits = kVec ? lo - 2 : lo;  // 2^col_bits columns a block
+  const long long base = ((c >> col_bits) << (lo + kBits)) +
+                         (c & ((1LL << col_bits) - 1)) * kW;
+  T v[kR][kW];
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const long long idx = base + (static_cast<long long>(r) << lo);
+    if constexpr (kVec)
+      unpack<T, V>(*reinterpret_cast<const V*>(in + idx), v[r]);
+    else
+      v[r][0] = in[idx];
+  }
+#pragma unroll
+  for (int b = 0; b < kBits; ++b)
+#pragma unroll
+    for (int r = 0; r < kR; ++r)
+      if (r & (1 << b))
+#pragma unroll
+        for (int w = 0; w < kW; ++w)
+          v[r][w] = step<A>(v[r][w], v[r ^ (1 << b)][w], sign);
+  const bool in_place = in == out;  // then v[0], unchanged, is not stored
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    if (r == 0 && in_place) continue;
+    const long long idx = base + (static_cast<long long>(r) << lo);
+    if constexpr (kVec)
+      *reinterpret_cast<V*>(out + idx) = pack<T, V>(v[r]);
+    else
+      out[idx] = v[r][0];
+  }
 }
 
 template <class A, class V, int kClusterBits, bool kVec>
@@ -292,6 +352,49 @@ cudaError_t dispatch_vec(const void* in, void* out, long long total,
              : dispatch_cluster<A, V, false>(in, out, total, bits, sign, s);
 }
 
+template <class A, class V, int kBits, bool kVec>
+cudaError_t launch_high(const void* in, void* out, long long total, int lo,
+                        int sign, cudaStream_t s) {
+  using T = typename A::T;
+  const long long columns = total >> (kBits + (kVec ? 2 : 0));
+  const dim3 grid(
+      static_cast<unsigned>((columns + kHighThreads - 1) / kHighThreads));
+  zeta_high_kernel<A, V, kBits, kVec><<<grid, kHighThreads, 0, s>>>(
+      static_cast<const T*>(in), static_cast<T*>(out), columns, lo, sign);
+  return cudaSuccess;
+}
+
+template <class A, class V, bool kVec>
+cudaError_t dispatch_high_bits(const void* in, void* out, long long total,
+                               int lo, int bits, int sign, cudaStream_t s) {
+  switch (bits) {
+    case 1:
+      return launch_high<A, V, 1, kVec>(in, out, total, lo, sign, s);
+    case 2:
+      return launch_high<A, V, 2, kVec>(in, out, total, lo, sign, s);
+    case 3:
+      return launch_high<A, V, 3, kVec>(in, out, total, lo, sign, s);
+    case 4:
+      return launch_high<A, V, 4, kVec>(in, out, total, lo, sign, s);
+    default:
+      return launch_high<A, V, kHighMaxBits, kVec>(in, out, total, lo, sign,
+                                                   s);
+  }
+}
+
+template <class A, class V>
+cudaError_t dispatch_high(const void* in, void* out, long long total, int lo,
+                          int bits, int sign, cudaStream_t s) {
+  const bool vec =
+      lo >= 2 && (total % 4) == 0 &&
+      ((reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(out)) &
+       15) == 0;
+  return vec ? dispatch_high_bits<A, V, true>(in, out, total, lo, bits, sign,
+                                              s)
+             : dispatch_high_bits<A, V, false>(in, out, total, lo, bits,
+                                               sign, s);
+}
+
 }  // namespace
 
 // Low `bits` (<= 15) bits of every 2^bits row of `in` (total elements)
@@ -316,28 +419,28 @@ extern "C" int repro_zeta_cluster(const void* in, void* out, long long total,
   return cudaGetLastError();
 }
 
-// One butterfly stage over index bit `bit`, in place on `x`: within one
-// stage no element that is read is also written (readers have bit j
-// clear, writers bit j set).
-extern "C" int repro_zeta_pair(void* x, long long total, int bit, int sign,
-                               int dtype, int device, void* stream) {
-  if (bit < 0 || bit > 62 || total <= 0 ||
-      (total & ((2LL << bit) - 1)) != 0)
+// Bits lo..hi-1 (1 <= hi - lo <= kHighMaxBits) of every 2^hi block of
+// `in` (total elements) into `out`, in one launch; `out` may be `in`.
+// Returns a cudaError_t.
+extern "C" int repro_zeta_high(const void* in, void* out, long long total,
+                               int lo, int hi, int sign, int dtype,
+                               int device, void* stream) {
+  const int bits = hi - lo;
+  if (lo < 0 || bits < 1 || bits > kHighMaxBits || hi > 62 || total <= 0 ||
+      (total & ((1LL << hi) - 1)) != 0 ||
+      ((total >> bits) + kHighThreads - 1) / kHighThreads > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   cudaError_t err = repro::use_device(device);
   if (err != cudaSuccess) return err;
-  const long long half = total >> 1;
-  const long long blocks = (half + kPairThreads - 1) / kPairThreads;
-  const dim3 grid(static_cast<unsigned>(blocks));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kInt32) {
-    zeta_pair_kernel<repro::U32Arith><<<grid, kPairThreads, 0, s>>>(
-        static_cast<uint32_t*>(x), half, bit, sign);
-  } else if (dtype == repro::kFloat32) {
-    zeta_pair_kernel<repro::F32Arith><<<grid, kPairThreads, 0, s>>>(
-        static_cast<float*>(x), half, bit, sign);
-  } else {
+  if (dtype == repro::kInt32)
+    err = dispatch_high<repro::U32Arith, uint4>(in, out, total, lo, bits,
+                                                sign, s);
+  else if (dtype == repro::kFloat32)
+    err = dispatch_high<repro::F32Arith, float4>(in, out, total, lo, bits,
+                                                 sign, s);
+  else
     return cudaErrorInvalidValue;
-  }
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -36,7 +36,7 @@ BUILD_DIR = PACKAGE / "_build"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v"]
-KERNELS = ("zeta_cluster", "zeta_pair", "ranked_conv")
+KERNELS = ("zeta_cluster", "zeta_high", "ranked_conv")
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -47,8 +47,8 @@ _VP, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
     # in, out, total, bits, sign, dtype, device, stream
     "repro_zeta_cluster": [_VP, _VP, _LL, _I, _I, _I, _I, _VP],
-    # x, total, bit, sign, dtype, device, stream
-    "repro_zeta_pair": [_VP, _LL, _I, _I, _I, _I, _VP],
+    # in, out, total, lo, hi, sign, dtype, device, stream
+    "repro_zeta_high": [_VP, _VP, _LL, _I, _I, _I, _I, _I, _VP],
     # Z, out, rest, nranks, k, dtype, device, stream
     "repro_ranked_conv": [_VP, _VP, _LL, _I, _I, _I, _I, _VP],
 }

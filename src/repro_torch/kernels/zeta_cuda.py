@@ -9,11 +9,15 @@ A transform over n bits follows ``launch_plan(n)``: one ``zeta_cluster``
 launch takes the low min(n, 15) bits — a 4096-element tile per block,
 bits 12..14 across a thread block cluster of ``cluster_size(n)`` blocks
 through distributed shared memory — reading and writing every element
-once; each bit >= 15 is one more ``zeta_pair`` launch, in place.  The
-int32 tier ends at n = 15, so the main path makes one launch per
-transform.  The output may be the input (``out=f``), and may be a
-contiguous slice of a larger buffer (a ranked buffer's slot).  Every
-n >= 0 launches on a CUDA tensor.
+once; the bits >= 15 follow in ``zeta_high`` launches of at most
+``HIGH_BITS`` bits each, in place.  A ``zeta_high`` launch over b bits
+reads the table once and writes the share 1 - 2^-b of it (its bound),
+where one launch per bit read it b times: each thread keeps one 16-byte
+column of the b bits' 2^b rows in registers.  The int32 tier ends at
+n = 15, so the main path makes one launch per transform.  The output
+may be the input (``out=f``), and may be a contiguous slice of a larger
+buffer (a ranked buffer's slot).  Every n >= 0 launches on a CUDA
+tensor.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from repro_torch.kernels import build
 TILE_BITS = 12          # one block's tile: 4096 elements, 16 KB
 CLUSTER_BITS = 3        # at most 8 blocks per cluster (the portable size)
 LOW_BITS = TILE_BITS + CLUSTER_BITS   # bits one zeta_cluster launch takes
+HIGH_BITS = 5           # bits one zeta_high launch takes (kHighMaxBits)
 
 
 @functools.lru_cache(maxsize=None)
@@ -35,7 +40,8 @@ def launch_plan(n: int) -> tuple:
     applies bits ``lo..hi-1``."""
     low = min(n, LOW_BITS)
     return (("zeta_cluster", 0, low),) + tuple(
-        ("zeta_pair", j, j + 1) for j in range(low, n))
+        ("zeta_high", lo, min(lo + HIGH_BITS, n))
+        for lo in range(low, n, HIGH_BITS))
 
 
 def cluster_size(n: int) -> int:
@@ -55,13 +61,20 @@ def launch_cluster(x: torch.Tensor, out: torch.Tensor, bits: int,
     build.count_launch("zeta_cluster")
 
 
-def launch_pair(x: torch.Tensor, bit: int, sign: int) -> None:
-    """One ``zeta_pair`` launch: butterfly stage ``bit``, in place."""
-    err = build.library().repro_zeta_pair(
-        x.data_ptr(), x.numel(), bit, sign, build.dtype_code(x),
-        x.get_device(), build.current_stream(x))
-    build.check(err, "zeta_pair")
-    build.count_launch("zeta_pair")
+def launch_high(x: torch.Tensor, lo: int, hi: int, sign: int,
+                out: "torch.Tensor | None" = None) -> None:
+    """One ``zeta_high`` launch: butterfly stages ``lo..hi-1`` (at most
+    ``HIGH_BITS``) of every 2^hi block of ``x``, into ``out`` (same
+    shape, contiguous, on the card) or, by default, in place.  The
+    transform launches in place; ``out`` serves the parity checks, which
+    hold the kernel's out-of-place store to its plain version too."""
+    if out is None:
+        out = x
+    err = build.library().repro_zeta_high(
+        x.data_ptr(), out.data_ptr(), x.numel(), lo, hi, sign,
+        build.dtype_code(x), x.get_device(), build.current_stream(x))
+    build.check(err, "zeta_high")
+    build.count_launch("zeta_high")
 
 
 def zeta_cuda(f: torch.Tensor, inverse: bool = False,
@@ -87,5 +100,5 @@ def zeta_cuda(f: torch.Tensor, inverse: bool = False,
         if kernel == "zeta_cluster":
             launch_cluster(f, out, hi, sign)
         else:
-            launch_pair(out, lo, sign)
+            launch_high(out, lo, hi, sign)
     return out

@@ -478,7 +478,7 @@ def test_fused_ccap_on_card_matches_cpu(cuda_device, connected):
         assert got.rounds == cpu.rounds
         counts = ops.launch_counts()
         assert (counts["zeta_cluster"] > 0) == (tier == "cuda")
-        assert counts["zeta_pair"] == 0
+        assert counts["zeta_high"] == 0
 
 
 @pytest.mark.cuda

@@ -10,10 +10,14 @@ zeta (positive terms) holds to rtol = 1e-6; Moebius cancels, so it holds
 to the sum's error bound, n * 2^-24 * Σ|f|, per table.
 
 The launch plan of a transform (one ``zeta_cluster`` launch for the low
-15 bits, one ``zeta_pair`` per higher bit) is plain Python and is checked
-here.  The ``cuda`` cases hold each CUDA kernel against its plain version
-on the card; they skip without one.
+15 bits, then ``zeta_high`` launches of at most ``HIGH_BITS`` higher bits
+each) is plain Python and is checked here.  The ``cuda`` cases hold each
+CUDA kernel against its plain version on the card; they skip without
+one.
 """
+import re
+from pathlib import Path
+
 import jax  # noqa: F401
 import jax.numpy as jnp
 import numpy as np
@@ -22,10 +26,11 @@ import torch
 
 from repro.kernels.ranked_conv import ranked_conv_pallas
 from repro.kernels.ops import zeta_op as ref_zeta_op
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.ranked_conv import ranked_conv_cuda
-from repro_torch.kernels.zeta_cuda import (cluster_size, launch_cluster,
-                                           launch_pair, launch_plan)
+from repro_torch.kernels.zeta_cuda import (HIGH_BITS, LOW_BITS,
+                                           cluster_size, launch_cluster,
+                                           launch_high, launch_plan)
 
 SHAPES = ["flat", "batch", "batch2"]
 
@@ -61,7 +66,7 @@ def _port(x: np.ndarray, inverse: bool) -> np.ndarray:
 
 
 @pytest.mark.parametrize("kind", SHAPES)
-@pytest.mark.parametrize("n", [4, 11, 12])
+@pytest.mark.parametrize("n", [4, 11, 12, 16])
 def test_zeta_int32_bitwise(n, kind):
     rng = np.random.default_rng(100 * n + len(kind))
     x = rng.integers(-2**31, 2**31, _shape(kind, n),
@@ -71,7 +76,7 @@ def test_zeta_int32_bitwise(n, kind):
 
 
 @pytest.mark.parametrize("kind", SHAPES)
-@pytest.mark.parametrize("n", [4, 11, 12])
+@pytest.mark.parametrize("n", [4, 11, 12, 16])
 def test_zeta_f32(n, kind):
     rng = np.random.default_rng(200 * n + len(kind))
     # integer values: every partial sum stays below 2^24, so bitwise
@@ -85,6 +90,23 @@ def test_zeta_f32(n, kind):
     bound = n * 2.0**-24 * np.abs(xf).sum(axis=-1, keepdims=True)
     got, want = _port(xf, True), _reference(xf, True)
     assert np.all(np.abs(got - want) <= 1e-6 * np.abs(want) + bound)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_zeta_high_chunks_against_reference(dtype):
+    """At n = 15 + HIGH_BITS + 1 the port's plan takes two ``zeta_high``
+    chunks after the cluster launch; the reference runs one
+    ``_pair_pass`` per block bit.  Bitwise: full-range int32, and f32 of
+    small integers (every partial sum below 2^24)."""
+    n = LOW_BITS + HIGH_BITS + 1
+    rng = np.random.default_rng(n)
+    if dtype == np.int32:
+        x = rng.integers(-2**31, 2**31, 1 << n,
+                         dtype=np.int64).astype(np.int32)
+    else:
+        x = rng.integers(-3, 4, 1 << n).astype(np.float32)
+    for inverse in (False, True):
+        assert np.array_equal(_port(x, inverse), _reference(x, inverse))
 
 
 @pytest.mark.parametrize("n,k", [(12, 2), (12, 5), (12, 12)])
@@ -108,37 +130,49 @@ def test_ops_on_cpu_launch_no_kernel():
     x = torch.arange(3 << 12, dtype=torch.int32).reshape(3, 1 << 12)
     ops.mobius_batch_op(ops.zeta_batch_op(x))
     ops.ranked_conv_op(torch.ones((13, 1 << 12), dtype=torch.int32), 7)
-    assert ops.launch_counts() == {"zeta_cluster": 0, "zeta_pair": 0,
+    assert ops.launch_counts() == {"zeta_cluster": 0, "zeta_high": 0,
                                    "ranked_conv": 0}
     with pytest.raises(ValueError):
         ops.zeta_batch_op(x[0])
 
 
-def test_stage_plain_versions_compose_to_the_transform():
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("n", [17, LOW_BITS + HIGH_BITS + 1])
+def test_stage_plain_versions_compose_to_the_transform(n, dtype):
     """The per-launch plain versions of the launch plan (one cluster
-    launch for the low 15 bits + one stage per higher bit) compose to the
-    whole transform: what the card checks launch by launch is the
-    function the reference computes."""
-    rng = np.random.default_rng(5)
-    x = torch.from_numpy(rng.integers(-9, 10, (2, 1 << 17))
-                         .astype(np.int32))
-    assert [k for k, _, _ in launch_plan(17)] == ["zeta_cluster",
-                                                  "zeta_pair", "zeta_pair"]
+    launch for the low 15 bits + ``zeta_high`` chunks of at most
+    ``HIGH_BITS`` higher bits) compose to the whole transform: what the
+    card checks launch by launch is the function the reference computes.
+    At n = 15 + HIGH_BITS + 1 the plan crosses a chunk boundary."""
+    rng = np.random.default_rng(5 + n)
+    x = torch.from_numpy(rng.integers(-9, 10, (2, 1 << n)).astype(dtype))
+    plan = launch_plan(n)
+    assert [k for k, _, _ in plan] == (
+        ["zeta_cluster"] + ["zeta_high"] * -(-(n - LOW_BITS) // HIGH_BITS))
     for sign in (1, -1):
         y = x
-        for _, lo, hi in launch_plan(17):
+        for _, lo, hi in plan:
             y = ref.zeta_stages_ref(y, sign, lo, hi)
         full = ref.zeta_ref(x) if sign > 0 else ref.mobius_ref(x)
         assert torch.equal(y, full)
 
 
-@pytest.mark.parametrize("n", range(19))
+@pytest.mark.parametrize("n", range(25))
 def test_launch_plan_covers_each_bit_once(n):
     plan = launch_plan(n)
     bits = [j for _, lo, hi in plan for j in range(lo, hi)]
     assert bits == list(range(n))          # each bit once, increasing
     assert plan[0] == ("zeta_cluster", 0, min(n, 15))
-    assert all(k == "zeta_pair" and hi == lo + 1 for k, lo, hi in plan[1:])
+    assert all(k == "zeta_high" and lo < hi <= lo + HIGH_BITS
+               for k, lo, hi in plan[1:])
+    assert len(plan) == 1 + -(-max(n - LOW_BITS, 0) // HIGH_BITS)
+
+
+def test_high_bits_match_the_kernel_source():
+    """``HIGH_BITS`` is the CUDA source's ``kHighMaxBits``: the plan never
+    asks a ``zeta_high`` launch for more bits than the kernel takes."""
+    src = (Path(build.CSRC) / "zeta.cu").read_text()
+    assert re.search(rf"constexpr int kHighMaxBits = {HIGH_BITS};", src)
 
 
 def test_cluster_size():
@@ -189,12 +223,13 @@ def _card_inputs(shape, seed, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", sorted(CARD_SHAPES))
-@pytest.mark.parametrize("n", [0, 3, 11, 12, 13, 15, 16, 17])
+@pytest.mark.parametrize("n", [0, 3, 11, 12, 13, 15, 16, 17, 18, 19, 20,
+                               21])
 def test_zeta_cluster_kernel_matches_plain_on_card(cuda_device, n, kind):
-    """Each launch of the plan against its plain version, the whole
-    transform (fresh output and in place), and mobius(zeta(x)) == x.
-    Bits run in increasing order with each add rounded alone, so random
-    f32 is bitwise too."""
+    """Each launch of the plan against its plain version (``zeta_high``
+    in place and into another tensor), the whole transform (fresh output
+    and in place), and mobius(zeta(x)) == x.  Bits run in increasing
+    order with each add rounded alone, so random f32 is bitwise too."""
     inputs = _card_inputs(CARD_SHAPES[kind](n), 10 * n + len(kind),
                           cuda_device)
     for i, x in enumerate(inputs):
@@ -204,11 +239,14 @@ def test_zeta_cluster_kernel_matches_plain_on_card(cuda_device, n, kind):
             launch_cluster(x, out, plan[0][2], sign)
             assert torch.equal(out,
                                ref.zeta_stages_ref(x, sign, 0, plan[0][2]))
-            for _, lo, _ in plan[1:]:
+            for _, lo, hi in plan[1:]:
+                want = ref.zeta_stages_ref(x, sign, lo, hi)
                 y = x.clone()
-                launch_pair(y, lo, sign)
-                assert torch.equal(y, ref.zeta_stages_ref(x, sign, lo,
-                                                          lo + 1))
+                launch_high(y, lo, hi, sign)
+                assert torch.equal(y, want)
+                y = torch.empty_like(x)
+                launch_high(x, lo, hi, sign, out=y)
+                assert torch.equal(y, want)
             want = ref.zeta_ref(x) if sign > 0 else ref.mobius_ref(x)
             assert torch.equal(ops.zeta_op(x, inverse=sign < 0), want)
             y = x.clone()
@@ -236,7 +274,7 @@ def test_zeta_cluster_kernel_main_shape_on_card(cuda_device):
             assert torch.equal(Z[2], torch.zeros_like(x))
     torch.cuda.synchronize()
     assert ops.launch_counts()["zeta_cluster"] == 6
-    assert ops.launch_counts()["zeta_pair"] == 0
+    assert ops.launch_counts()["zeta_high"] == 0
 
 
 @pytest.mark.cuda
