@@ -26,7 +26,18 @@ buffers, gather tables and, on the kernel tier, the kernel library's
 ``nvcc`` build are paid there and not in a solve; 0.0 on a hit.
 ``execute_s`` is the wall time of the program call up to a finished
 device result (``torch.cuda.synchronize`` before the clock is read).
-``flops`` and ``bytes_accessed`` are the port's own count of the work
+It splits into ``sync_s``, the host's time blocked on the device (the
+search loop's condition reads, ``lattice.blocked_s``, and the final
+synchronize), and ``launch_s``, the rest: the host issuing the
+program's launches.  Around the call, ``prepare_s`` is the host's time
+from the entry point (``fused_dpconv_max``/``fused_ccap``/``fused_out``)
+to the call, less a build (candidate tables, padding, connectivity
+masks, the seed bracket, the uploads), ``readback_s`` the copies of the
+results to the host and ``trees_s`` the join trees' assembly; ``queries``
+is the real (unpadded) row count and ``t0_ns``/``t1_ns`` bound the call
+on ``time.time_ns()``'s clock, the one ``torch.profiler`` stamps, so a
+record lies over a profiled device trace.  ``flops`` and
+``bytes_accessed`` are the port's own count of the work
 (``program_work``), never a compiler's.  The serving runtime reads the
 records of its dispatches (``dispatch_mark``/``dispatches_since``) and
 each record carries the serving lane that issued it (``dispatch_lane``).
@@ -138,6 +149,14 @@ class DispatchRecord:
     shards: int = 1            # solve-mesh width (1 = single device)
     devices: tuple = ()        # one device name per mesh slot
     lane: "int | None" = None  # serving lane that issued the dispatch
+    queries: int = 0           # real (unpadded) rows
+    prepare_s: float = 0.0     # host prep before the call, less a build
+    launch_s: float = 0.0      # host time in the call, not blocked
+    sync_s: float = 0.0        # host time in the call blocked on the device
+    readback_s: float = 0.0    # result copies to the host
+    trees_s: float = 0.0       # join trees from the copied split arrays
+    t0_ns: int = 0             # the call's interval, epoch nanoseconds
+    t1_ns: int = 0
 
     def as_dict(self) -> dict:
         d = dataclasses.asdict(self)
@@ -183,12 +202,6 @@ def _profile_append(rec: DispatchRecord) -> None:
         _PROFILE_SEQ += 1
         rec.seq = _PROFILE_SEQ
         _PROFILE.append(rec)
-    h = _STATS.registry.histogram
-    h("engine.execute_s").observe(rec.execute_s)
-    if not rec.aot_cache_hit:
-        h("engine.compile_s").observe(rec.compile_s)
-    if rec.lane is not None:   # per-lane dimension on the dispatch count
-        _STATS.registry.counter(f"engine.dispatches.lane{rec.lane}").inc()
 
 
 _LANE_LOCAL = threading.local()
@@ -565,28 +578,56 @@ def prewarm(ns, max_batch: int = 16, backend: str = "f64",
             "seconds": time.perf_counter() - t0}
 
 
-def _run(fn, args, record: DispatchRecord):
+def _run(fn, args, record: DispatchRecord, t_entry: float):
     """The single recording site of a solve: one program call, counted
     as one dispatch, timed to a finished device result (on the lead
     device, where every shard's block lands), with its record appended to the
-    profile ring."""
+    profile ring.  ``t_entry`` is the entry point's first clock read:
+    the host prep up to the call (the ``args`` uploads included) is
+    ``prepare_s``."""
     _STATS.inc("dispatches")
     dev = args[0].device
+    blocked0 = lattice.blocked_s()
     t0 = time.perf_counter()  # timing: measured-duration (execute wall)
+    record.t0_ns = time.time_ns()  # timing: clock-source (profiler's clock)
     out = fn(*args)
+    t_sync = time.perf_counter()  # timing: measured-duration (final sync)
     _sync(dev)
-    record.execute_s = time.perf_counter() - t0  # timing: measured-duration
+    t1 = time.perf_counter()  # timing: measured-duration (execute wall)
+    record.t1_ns = time.time_ns()  # timing: clock-source (profiler's clock)
+    record.execute_s = t1 - t0
+    record.sync_s = (lattice.blocked_s() - blocked0) + (t1 - t_sync)
+    record.launch_s = record.execute_s - record.sync_s
+    record.prepare_s = t0 - t_entry - record.compile_s
     _profile_append(record)
     return out
 
 
 def _record(cost: str, n: int, Bp: int, C: int, tier: str, meta: dict,
-            hit: bool) -> DispatchRecord:
+            hit: bool, B: int) -> DispatchRecord:
     return DispatchRecord(seq=0, cost=cost, n=n, B=Bp, C=C, backend=tier,
                           key=meta["key"], aot_cache_hit=hit,
                           compile_s=0.0 if hit else meta["compile_s"],
                           execute_s=0.0, shards=meta["shards"],
-                          devices=meta["devices"], lane=current_lane())
+                          devices=meta["devices"], lane=current_lane(),
+                          queries=B)
+
+
+def _read_back(result, rec: DispatchRecord) -> tuple:
+    """``_host`` with its seconds in ``rec.readback_s``."""
+    t0 = time.perf_counter()  # timing: measured-duration (readback)
+    host = _host(result)
+    rec.readback_s = time.perf_counter() - t0  # timing: measured-duration
+    return host
+
+
+def _trees(nodes: np.ndarray, lidx: np.ndarray, B: int,
+           rec: DispatchRecord) -> list:
+    """``_trees_from_arrays`` with its seconds in ``rec.trees_s``."""
+    t0 = time.perf_counter()  # timing: measured-duration (tree assembly)
+    trees = _trees_from_arrays(nodes, lidx, B)
+    rec.trees_s = time.perf_counter() - t0  # timing: measured-duration
+    return trees
 
 
 def _finish_record(rec: DispatchRecord, rounds: int, gamma_batch: int,
@@ -696,6 +737,7 @@ def fused_dpconv_max(cards, n: int, direct_layers: int = 4,
     of ~log2 C when the seed holds); results are bit-identical either
     way.
     """
+    t_entry = time.perf_counter()  # timing: measured-duration (prep)
     dev = resolve_device(device)
     cards = host_cards(cards)
     if cards.ndim == 1:
@@ -710,16 +752,16 @@ def fused_dpconv_max(cards, n: int, direct_layers: int = 4,
     cost = "max_seeded" if seeded else "max"
     fn, meta, hit = _program(n, Bp, C, backend, direct_layers, extract_tree,
                              gamma_batch, dev, cost, shards)
-    prof = _record(cost, n, Bp, C, backend, meta, hit)
+    prof = _record(cost, n, Bp, C, backend, meta, hit, B)
     rec0 = jointree.recursive_extractions()
     out = _run(fn, (torch.as_tensor(cards_pad, device=dev),
                     torch.as_tensor(cand_pad, device=dev),
                     torch.as_tensor(lo0, device=dev),
-                    torch.as_tensor(hi0, device=dev)), prof)
+                    torch.as_tensor(hi0, device=dev)), prof, t_entry)
     _count_seeds(seeded)
     *result, rounds, syncs = out
     _finish_record(prof, rounds, gamma_batch, extract_tree, direct_layers)
-    host, copies = _host(result)
+    host, copies = _read_back(result, prof)
     syncs += copies
     opt = host[0]
     trees: list = [None] * B
@@ -727,7 +769,7 @@ def fused_dpconv_max(cards, n: int, direct_layers: int = 4,
     if extract_tree:
         _, dpn, nodes, lidx = host
         dpn = dpn[:B]
-        trees = _trees_from_arrays(nodes, lidx, B)
+        trees = _trees(nodes, lidx, B, prof)
     _STATS.inc("host_extractions",
                jointree.recursive_extractions() - rec0)
     _STATS.inc("host_syncs", syncs)
@@ -761,6 +803,7 @@ def fused_out(qs: list, cards, n: int, extract_tree: bool = True,
     pure function of the sub-problem induced on ``S``, so results never
     change.
     """
+    t_entry = time.perf_counter()  # timing: measured-duration (prep)
     dev = resolve_device(device)
     cards = host_cards(cards)
     if cards.ndim == 1:
@@ -783,20 +826,20 @@ def fused_out(qs: list, cards, n: int, extract_tree: bool = True,
     cost = "out_seeded" if seeded else "out"
     fn, meta, hit = _program(n, Bp, 0, "f64", 4, extract_tree, 1, dev, cost,
                              shards)
-    prof = _record(cost, n, Bp, 0, "f64", meta, hit)
+    prof = _record(cost, n, Bp, 0, "f64", meta, hit, B)
     rec0 = jointree.recursive_extractions()
     out = _run(fn, (torch.as_tensor(_pad_rows(cards, Bp), device=dev),
                     torch.as_tensor(_pad_rows(conn, Bp), device=dev))
-               + extra, prof)
+               + extra, prof, t_entry)
     _count_seeds(seeded)
     _finish_record(prof, 0, 1, extract_tree)
-    host, syncs = _host(out)
+    host, syncs = _read_back(out, prof)
     trees: list = [None] * B
     dpn = None
     if extract_tree:
         _, dpn, nodes, lidx = host
         dpn = dpn[:B]
-        trees = _trees_from_arrays(nodes, lidx, B)
+        trees = _trees(nodes, lidx, B, prof)
     _STATS.inc("host_extractions",
                jointree.recursive_extractions() - rec0)
     _STATS.inc("host_syncs", syncs)
@@ -832,6 +875,7 @@ def fused_ccap(cards, n: int, gamma_slack: float = 1.0,
     at the default slack pass 1 yields the cached value bitwise, so max-
     and cap-lane solves of one canonical query seed each other.
     """
+    t_entry = time.perf_counter()  # timing: measured-duration (prep)
     dev = resolve_device(device)
     cards = host_cards(cards)
     if cards.ndim == 1:
@@ -853,21 +897,21 @@ def fused_ccap(cards, n: int, gamma_slack: float = 1.0,
         cost += "_seeded"
     fn, meta, hit = _program(n, Bp, C, backend, direct_layers, extract_tree,
                              gamma_batch, dev, cost, shards)
-    prof = _record(cost, n, Bp, C, backend, meta, hit)
+    prof = _record(cost, n, Bp, C, backend, meta, hit, B)
     rec0 = jointree.recursive_extractions()
     out = _run(fn, (torch.as_tensor(cards_pad, device=dev),
                     torch.as_tensor(cand_pad, device=dev),
                     torch.as_tensor(lo0, device=dev),
                     torch.as_tensor(hi0, device=dev), float(gamma_slack))
-               + extra, prof)
+               + extra, prof, t_entry)
     _count_seeds(seeded)
     *result, rounds, syncs = out
     _finish_record(prof, rounds, gamma_batch, extract_tree, direct_layers)
-    host, copies = _host(result)
+    host, copies = _read_back(result, prof)
     syncs += copies
     trees: list = [None] * B
     if extract_tree:
-        trees = _trees_from_arrays(host[2], host[3], B)
+        trees = _trees(host[2], host[3], B, prof)
     _STATS.inc("host_extractions",
                jointree.recursive_extractions() - rec0)
     _STATS.inc("host_syncs", syncs)

@@ -30,6 +30,8 @@ Differences from the reference, none of which changes a result:
 * JAX's ``lax.fori_loop``/``while_loop`` are Python loops over device
   tensors.  The search loop reads ``any(lo < hi)`` on the host once per
   round (one sync per round); the reference runs the loop on device.
+  The seconds the host spends blocked in those reads accumulate per
+  thread in ``blocked_s()``, which the engine reads around a call.
 * Buffers are updated in place (the ranked-zeta buffer ``Z`` above all:
   each zeta transform writes straight into its slot; each (min,+) layer
   writes its sets into ``dp``); JAX rebuilds them functionally.
@@ -65,6 +67,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import threading
+import time
 
 import numpy as np
 import torch
@@ -617,6 +621,26 @@ def _gate_builder(cards, pc, dtype):
     return gate_of
 
 
+_BLOCKED = threading.local()
+
+
+def blocked_s() -> float:
+    """Seconds this thread has spent blocked on the search loop's host
+    reads of the device, summed over every call so far."""
+    return getattr(_BLOCKED, "s", 0.0)
+
+
+def _host_any(active) -> bool:
+    """``bool(active.any())``, the loop condition's host read, with the
+    seconds it blocks added to ``blocked_s()``."""
+    a = active.any()
+    t0 = time.perf_counter()  # timing: measured-duration (host read)
+    v = bool(a)
+    # timing: measured-duration
+    _BLOCKED.s = blocked_s() + (time.perf_counter() - t0)
+    return v
+
+
 def _fused_search(cards, cand, lo0, hi0, n, direct_layers, tfm, G,
                   gate_of, Z0, verify_seed: bool = False, Zv=None,
                   mesh=None):
@@ -658,7 +682,7 @@ def _fused_search(cards, cand, lo0, hi0, n, direct_layers, tfm, G,
     while True:
         active = lo < hi
         syncs += 1
-        if not bool(active.any()):
+        if not _host_any(active):
             break
         if G == 1:
             mid = torch.where(active, (lo + hi) // 2, hi)

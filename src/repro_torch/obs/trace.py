@@ -1,13 +1,20 @@
-"""Structured span tracing for the serving stack — zero dependencies (a
-copy of ``repro.obs.trace``; stdlib only).
+"""Structured span tracing for the serving stack — zero dependencies
+(``repro.obs.trace``'s spans and tracer, stdlib only, plus the span log
+below).
 
 A ``Span`` is a named interval with attributes and children; a
 ``Tracer`` mints one root span per request and the runtime hangs phase
 spans off it as the request moves through its lane:
 
     request
-      admit                     admission control: probe, reroute, charge
-      queue_wait                enqueue -> batch dispatch      (miss lane)
+      admit                     admission control
+        canonicalize            relabel to canonical form
+        probe                   plan-cache probe (the fast path's test)
+        route                   routing ladder: quarantine, deadline
+                                reroute, backpressure, breakers
+      queue_wait                enqueue -> bucket close        (miss lane)
+      seed                      layer-cache warm-start probe
+      lane_wait                 hand-off to the lane -> the lane begins
       coalesce                  joined an identical in-flight request
       fast_path                 cache hit served inline
       dispatch                  solver work: compile|execute split,
@@ -15,6 +22,10 @@ spans off it as the request moves through its lane:
       extract                   tree reconstruction + cache insert
       respond                   completion bookkeeping
       shed                      refused: deadline / backpressure / error
+
+``PlanServer.plan_one`` records the same names (``admit`` with its three
+children, ``seed``, ``dispatch``, ``extract``, ``respond``) while a
+``torch.profiler`` session is active.
 
 Timestamps come EXCLUSIVELY from the runtime's ``Clock`` abstraction —
 on a ``VirtualClock`` span trees are bit-deterministic and tests assert
@@ -24,12 +35,78 @@ the per-phase p50/p95 breakdown (``export.span_phase_summary``).
 
 Disabled tracing costs one attribute check per call site: ``Tracer``
 hands out the shared ``NULL_SPAN``, whose every method is a no-op.
+
+The span log (``SPAN_LOG``): while a ``torch.profiler`` session is
+active (``profiling()``, one flag read), every span a tracer closes on a
+clock with a wall anchor (``clock.epoch_ns``, the ``WallClock``) is also
+appended to one bounded process-wide log as ``(name, request id, parent
+name, t0_ns, t1_ns, thread name)``, in epoch nanoseconds: the clock of
+``time.time_ns()``, which is the profiler's, so the log lies over the
+session's device trace.  The log counts what it drops.  With no session
+a closed span costs one flag read more and the log allocates nothing.
 """
 from __future__ import annotations
 
+import collections
+import sys
+import threading
+
+
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` (autograd profiler) session is
+    active: one module-flag read; False where torch was never loaded."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and prof._is_profiler_enabled
+
+
+class SpanLog:
+    """A bounded log of closed spans in epoch nanoseconds, oldest
+    dropped first.  ``dropped`` counts the entries lost to the bound and
+    ``last_dropped_ns`` is the end of the newest of them, so a reader of
+    a window ``[t0_ns, t1_ns]`` knows it lost nothing when
+    ``last_dropped_ns < t0_ns``."""
+
+    def __init__(self, capacity: int = 1 << 16):
+        self.entries: collections.deque = collections.deque(
+            maxlen=capacity)
+        self.dropped = 0
+        self.last_dropped_ns = -1
+        self._lock = threading.Lock()
+
+    def append(self, name: str, req, parent: "str | None", t0_ns: int,
+               t1_ns: int, thread: "str | None" = None) -> None:
+        entry = (name, req, parent, int(t0_ns), int(t1_ns),
+                 thread if thread is not None
+                 else threading.current_thread().name)
+        with self._lock:
+            if len(self.entries) == self.entries.maxlen:
+                old = self.entries[0]
+                self.dropped += 1
+                self.last_dropped_ns = max(self.last_dropped_ns, old[4])
+            self.entries.append(entry)
+
+    def window(self, t0_ns: int, t1_ns: int) -> "list | None":
+        """The entries that lie wholly inside ``[t0_ns, t1_ns]``, or None
+        when the bound dropped an entry that ended in or after it."""
+        with self._lock:
+            if self.last_dropped_ns >= t0_ns:
+                return None
+            return [e for e in self.entries
+                    if e[3] >= t0_ns and e[4] <= t1_ns]
+
+    def clear(self) -> None:
+        with self._lock:
+            self.entries.clear()
+            self.dropped = 0
+            self.last_dropped_ns = -1
+
+
+SPAN_LOG = SpanLog()
+
 
 class Span:
-    __slots__ = ("name", "t0", "t1", "attrs", "children", "_tracer")
+    __slots__ = ("name", "t0", "t1", "attrs", "children", "_tracer",
+                 "parent", "req")
 
     def __init__(self, name: str, t0: float, tracer: "Tracer | None" = None,
                  attrs: "dict | None" = None):
@@ -41,12 +118,16 @@ class Span:
         self.attrs = attrs if attrs is not None else {}
         self.children: list = []
         self._tracer = tracer
+        self.parent: "str | None" = None    # the parent's name (log)
+        self.req = None                     # the root's request id (log)
 
     # ------------------------------------------------------- lifecycle
     def child(self, name: str, at: "float | None" = None, **attrs) -> "Span":
         tr = self._tracer
         t0 = at if at is not None else (tr.clock.now() if tr else 0.0)
         s = Span(name, t0, tr, attrs)
+        s.parent = self.name
+        s.req = self.req
         self.children.append(s)
         if tr is not None:
             tr._opened()
@@ -186,6 +267,11 @@ class Tracer:
                 h = self.registry.histogram(f"trace.{span.name}_s")
                 self._hists[span.name] = h
             h.observe(span.duration)
+        if profiling():
+            epoch_ns = getattr(self.clock, "epoch_ns", None)
+            if epoch_ns is not None:
+                SPAN_LOG.append(span.name, span.req, span.parent,
+                                epoch_ns(span.t0), epoch_ns(span.t1))
 
     # ------------------------------------------------------- interface
     def request(self, at: "float | None" = None, **attrs):
@@ -201,6 +287,7 @@ class Tracer:
         self.sampled += 1
         root = Span("request", at if at is not None else self.clock.now(),
                     self, attrs)
+        root.req = attrs.get("req_id")
         self._opened()
         return root
 

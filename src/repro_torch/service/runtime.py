@@ -96,6 +96,13 @@ class WallClock(Clock):
     def now(self) -> float:
         return time.monotonic() - self._t0   # timing: clock-source
 
+    def epoch_ns(self, t: float) -> int:
+        """Clock time ``t`` in epoch nanoseconds (``time.time_ns()``'s
+        clock, which ``torch.profiler`` stamps), anchored at the call,
+        so the span log drifts with neither clock."""
+        # timing: clock-source (the wall anchor of the span log)
+        return time.time_ns() - round((self.now() - t) * 1e9)
+
     def advance(self, dt: float) -> None:
         pass                        # real time advances on its own
 
@@ -311,6 +318,10 @@ class Ticket:
     queued: bool = False                # sat in a forming bucket
     coalesced_join: bool = False        # joined another entry's solve
     dispatched: bool = False            # a dispatch span was opened
+    admit_spans: int = 0                # admit's children opened
+    seeds: int = 0                      # seed spans (layer-cache probes)
+    lane_waits: int = 0                 # lane_wait spans (one an attempt)
+    dispatch_attrs: "dict | None" = None  # the next dispatch span's attrs
     price_est: float = 0.0              # router's solve estimate at start
     # --- resilience: the response contract and its provenance
     status: str = "exact"               # "exact" | "degraded" | "error"
@@ -354,7 +365,7 @@ class _Work:
                  "timings", "future", "duration", "error", "est",
                  "profile", "breaker_key", "probe", "engine", "fault",
                  "hung_at", "abandoned", "finalized", "lane", "stolen",
-                 "hedge_partner", "layer_seeds")
+                 "hedge_partner", "layer_seeds", "seed", "began", "begun")
 
     def __init__(self, kind, entries, started):
         self.kind = kind                 # "batch" | "single"
@@ -381,6 +392,11 @@ class _Work:
         self.stolen = False              # placed off its affinity home
         self.hedge_partner: "_Work | None" = None  # racing hedge work
         self.layer_seeds = 0             # items warm-started by layercache
+        self.seed = None                 # a single solve's seed payload
+        # --- lane wait: the clock time the lane began the work (stamped
+        # by the lane itself) and whether its spans moved on to dispatch
+        self.began: "float | None" = None
+        self.begun = False
 
 
 # ------------------------------------------------------------------ runtime
@@ -597,12 +613,34 @@ class ServingRuntime:
         admit + optional queue_wait + optional coalesce + dispatch,
         then extract+respond (served) or shed (refused).  Retried and
         failed-over solves open one extra dispatch span per additional
-        attempt (``ticket.extra_spans``)."""
+        attempt (``ticket.extra_spans``).  On top: admit's children
+        (canonicalize, probe, route), one seed span per layer-cache
+        probe and one lane_wait span per dispatch attempt."""
+        n = ticket.admit_spans + ticket.seeds + ticket.lane_waits
         if fast:
-            return 4
-        n = (2 + ticket.queued + ticket.coalesced_join
-             + ticket.dispatched + ticket.extra_spans)
+            return n + 4
+        n += (2 + ticket.queued + ticket.coalesced_join
+              + ticket.dispatched + ticket.extra_spans)
         return n + (1 if refused else 2)
+
+    @staticmethod
+    def _admit_child(ticket: Ticket, name: str,
+                     at: "float | None" = None):
+        """Open one of admit's children (kept in ``ticket.spans``, so a
+        refusal closes it with the rest)."""
+        ticket.admit_spans += 1
+        s = ticket.spans[name] = ticket.spans["admit"].child(name, at=at)
+        return s
+
+    def _seed(self, ticket: Ticket):
+        """The layer-cache seed probe of ``ticket``'s solve, as a seed
+        span."""
+        ticket.seeds += 1
+        sp = ticket.span.child("seed")
+        seed = self.server._layer_seed(ticket.form, ticket.request.cost,
+                                       ticket.route)
+        sp.close()
+        return seed
 
     # ------------------------------------------------------------- submit
     def submit(self, req) -> Ticket:
@@ -616,6 +654,7 @@ class ServingRuntime:
 
         card = np.asarray(req.card, np.float64)
         form = canonicalize(req.q, card)
+        t_canon = self.clock.now()
         slo = None
         if getattr(req, "slo", None):
             slo = self.config.slo_classes.get(req.slo)
@@ -634,6 +673,7 @@ class ServingRuntime:
             at=now, req_id=req.req_id, slo=ticket.slo, cost=req.cost,
             n=form.q.n, **span_attrs)
         ticket.spans["admit"] = ticket.span.child("admit", at=now)
+        self._admit_child(ticket, "canonicalize", at=now).close(at=t_canon)
         budget = req.latency_budget
         if budget is None and slo is not None:
             budget = slo.budget_s
@@ -668,6 +708,7 @@ class ServingRuntime:
         # ~zero time, overtaking any in-flight miss.  An injected cache
         # backend error fails OPEN: it degrades to a miss (the solve
         # path still answers), never to a request failure.
+        probe_span = self._admit_child(ticket, "probe")
         if (self.injector is not None
                 and self.injector.arm("cache") is not None):
             self.fstats.cache_faults += 1
@@ -678,6 +719,7 @@ class ServingRuntime:
             resp = None
         else:
             primary, resp = srv._primary_probe(req, form)
+        probe_span.close()
         ticket.route = primary
         if resp is not None:
             self._finish_ticket(
@@ -688,6 +730,7 @@ class ServingRuntime:
                     {"n": form.q.n, "cost": req.cost}))
             return ticket
 
+        route_span = self._admit_child(ticket, "route")
         # ---- quarantine: a poisoned canonical key (repeated solo solve
         # failures) is refused with a typed error until its TTL expires.
         # The probe above still serves cached plans — quarantine guards
@@ -778,6 +821,7 @@ class ServingRuntime:
                         req.cost, "lane breaker open")
                     ticket.route = route
 
+        route_span.close()
         self.clock.advance(self._charge(
             # timing: measured-duration (admit)
             "admit", time.perf_counter() - t_wall,
@@ -947,16 +991,20 @@ class ServingRuntime:
         entries = bucket.entries
         self.stats.batches += 1
         self.stats.batched_items += len(entries)
-        work = _Work("batch", entries, self.clock.now())
+        now = self.clock.now()
+        work = _Work("batch", entries, now)
+        for e in entries:
+            for t in e.tickets:
+                qw = t.spans.get("queue_wait")
+                if qw is not None:
+                    qw.close(at=now)
         # the 5th item slot is the layer-cache seed payload: solved
         # fragments of isomorphic sub-problems warm-start the lattice
         # program (bit-identical results, fewer search rounds)
         items = [(e.tickets[0].form.q, e.tickets[0].form.card,
                   cost,
                   router_mod.topo_class(e.tickets[0].form.signature),
-                  self.server._layer_seed(e.tickets[0].form,
-                                          e.tickets[0].request.cost,
-                                          e.tickets[0].route))
+                  self._seed(e.tickets[0]))
                  for e in entries]
         work.layer_seeds = sum(1 for it in items if it[4] is not None)
         self._start(work, items)
@@ -1019,6 +1067,10 @@ class ServingRuntime:
     def _start(self, work: _Work, items) -> None:
         self._inflight.append(work)
         lead = work.entries[0].tickets[0]
+        if work.kind == "single" and work.engine is None:
+            # host rungs drop seeds
+            work.seed = self._seed(lead)
+            work.layer_seeds = int(work.seed is not None)
         work.est = self.server.router.price(
             lead.route.method, lead.form.q.n, lead.route.lane,
             lead.route.lane_cost,
@@ -1039,19 +1091,26 @@ class ServingRuntime:
                 if qw is not None:
                     qw.close(at=now)
                 d = t.spans.get("dispatch")
-                if d is None or not d.open:
+                lw = t.spans.get("lane_wait")
+                if (d is None or not d.open) and (lw is None
+                                                  or not lw.open):
                     if d is not None:
                         # retry / ladder failover: a fresh dispatch
                         # attempt, accounted so the lane-shape self-
                         # check still pins the tree exactly
                         t.extra_spans += 1
                     t.dispatched = True
-                    t.spans["dispatch"] = t.span.child(
-                        "dispatch", at=now, kind=work.kind,
-                        items=len(work.entries), est_s=work.est,
-                        attempt=entry.attempts, rung=entry.rung,
-                        engine=work.engine or "", lane=work.lane,
-                        stolen=work.stolen)
+                    # each attempt waits for its lane (lane_wait), then
+                    # runs (dispatch, opened by _begin when the lane
+                    # begins the work)
+                    t.lane_waits += 1
+                    t.spans["lane_wait"] = t.span.child(
+                        "lane_wait", at=now, lane=work.lane)
+                    t.dispatch_attrs = dict(
+                        kind=work.kind, items=len(work.entries),
+                        est_s=work.est, attempt=entry.attempts,
+                        rung=entry.rung, engine=work.engine or "",
+                        lane=work.lane, stolen=work.stolen)
         if self.executor == "thread":
             wd = self._hung_threshold(work)
             if wd:
@@ -1079,6 +1138,7 @@ class ServingRuntime:
         # = start + dur; on a WallClock the solve's wall time already
         # elapsed — the max() keeps it from being charged twice.
         start = max(t_sched, self._lane_free[work.lane])
+        self._begin(work, start)
         work.eta = max(self.clock.now(), start + dur)
         self._lane_free[work.lane] = work.eta
         self._schedule(work.eta, "finish", work)
@@ -1097,6 +1157,7 @@ class ServingRuntime:
         never leave a joined entry stuck in ``_by_key`` collecting
         coalescers that can never complete."""
         srv = self.server
+        work.began = self.clock.now()   # the lane begins: lane_wait ends
         solver = self._solver_for(work.lane or 0)
         t0 = time.perf_counter()   # timing: measured-duration (solve)
         mark = engine_mod.dispatch_mark()
@@ -1112,16 +1173,10 @@ class ServingRuntime:
                     work.timings = handle.timings
                 else:
                     ticket = work.entries[0].tickets[0]
-                    seed = None
-                    if work.engine is None:     # host rungs drop seeds
-                        seed = srv._layer_seed(ticket.form,
-                                               ticket.request.cost,
-                                               ticket.route)
-                        work.layer_seeds = int(seed is not None)
                     work.results = [srv._solve_single(
                         ticket.form.q, ticket.form.card,
                         ticket.request.cost, ticket.route,
-                        engine=work.engine, seed=seed)]
+                        engine=work.engine, seed=work.seed)]
             self._inject_after(work)
         except BaseException as e:       # noqa: BLE001 — contained: the
             work.error = e               # failure ladder reroutes per entry
@@ -1173,6 +1228,23 @@ class ServingRuntime:
         return self._pools[lane]
 
     # -------------------------------------------------------- completion
+    def _begin(self, work: _Work, at: float) -> None:
+        """The lane began ``work`` at clock time ``at``: each of its
+        tickets' open lane_wait span closes there and its dispatch span
+        opens there.  Runs on the driving thread (spans are never opened
+        or closed on a lane's thread, which only stamps ``work.began``),
+        once a work; a ticket two hedged works share moves on once."""
+        if work.begun:
+            return
+        work.begun = True
+        for entry in work.entries:
+            for t in entry.tickets:
+                lw = t.spans.get("lane_wait")
+                if lw is not None and lw.open:
+                    lw.close(at=at)
+                    t.spans["dispatch"] = t.span.child(
+                        "dispatch", at=at, **(t.dispatch_attrs or {}))
+
     def _dispatch_attrs(self, work: _Work) -> dict:
         """Aggregate the work's attributed engine DispatchRecords into
         the dispatch span's attributes (build/execute split, rounds,
@@ -1214,6 +1286,7 @@ class ServingRuntime:
         self._inflight.remove(work)
         work.finalized = True
         now = self.clock.now()
+        self._begin(work, now if work.began is None else work.began)
         if work.kind == "batch":
             self.stats.solve_s += work.duration
         if work.error is not None:
@@ -1312,6 +1385,7 @@ class ServingRuntime:
         if work in self._inflight:
             self._inflight.remove(work)
         now = self.clock.now()
+        self._begin(work, now if work.began is None else work.began)
         if hung:
             work.abandoned = True
             if self.executor == "thread":
@@ -1495,6 +1569,9 @@ class ServingRuntime:
                        admit_s: float = 0.0) -> None:
         root = ticket.span
         if fast:
+            route_span = ticket.spans.get("route")
+            if route_span is not None:
+                route_span.close()
             self.clock.advance(admit_s)
             self.stats.fast_path_hits += 1
             self.stats.hits_hist().record(max(admit_s, 1e-9))
@@ -1560,6 +1637,8 @@ class ServingRuntime:
         done = 0
         if self.executor == "thread":
             for work in list(self._inflight):
+                if work.began is not None:
+                    self._begin(work, work.began)
                 if work.future is not None and work.future.done():
                     work.duration = work.future.result()
                     work.future = None

@@ -35,6 +35,7 @@ touches the program buckets the server can hit before traffic arrives
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 
 import numpy as np
@@ -43,6 +44,7 @@ from repro_torch.core import best_effort
 from repro_torch.core import engine as engine_mod
 from repro_torch.core.dpconv import optimize
 from repro_torch.core.querygraph import QueryGraph
+from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.service import faults
 from repro_torch.service import router as router_mod
@@ -206,6 +208,10 @@ class PlanServer:
         self.registry = registry if registry is not None \
             else MetricsRegistry()
         self.trace = trace
+        # plan_one's spans, made only while a torch.profiler session is
+        # active, for the span log alone (``obs.trace.SPAN_LOG``)
+        self._span_tracer = None
+        self._plan_ids = itertools.count(1)
         self.registry.register_provider("cache", self.cache.stats.as_dict)
         self.registry.register_provider(
             "layercache", lambda: self.layers.stats.as_dict())
@@ -417,6 +423,7 @@ class PlanServer:
                 self, clock=WallClock(),
                 config=RuntimeConfig(max_batch=self.max_batch,
                                      max_wait=self.max_wait,
+                                     trace=self.trace,
                                      lanes=self.lanes),
                 executor="thread")
         return rt
@@ -594,31 +601,60 @@ class PlanServer:
             return None
         return self.layers.seed_for(form, cost)
 
+    def _plan_tracer(self):
+        """The tracer of ``_process``'s spans: a wall clock, no
+        registry and no recorder, so its spans reach the span log
+        alone."""
+        if self._span_tracer is None:
+            from repro_torch.service.runtime import WallClock
+            self._span_tracer = obs_trace.Tracer(WallClock())
+        return self._span_tracer
+
     def _process(self, batch: "list[PlanRequest]") -> "list[PlanResponse]":
         """Answer one micro-batch: cache probes, routing, one batched
-        solve for the batch-lane misses, single-lane solves, completion."""
+        solve for the batch-lane misses, single-lane solves, completion.
+        While a ``torch.profiler`` session is active each request gets a
+        span tree of the runtime's names (``request``: ``admit``
+        {``canonicalize``, ``probe``, ``route``}, ``fast_path`` or
+        ``seed``, ``dispatch``, ``extract``; ``respond``), under a
+        request id of its own, for the span log."""
         responses: "list[PlanResponse | None]" = [None] * len(batch)
         batch_lane: list = []          # (pos, form)
         single_lane: list = []         # (pos, form, route)
         routes: "list[Route | None]" = [None] * len(batch)
+        tracer = self._plan_tracer() if obs_trace.profiling() else None
+        roots = [obs_trace.NULL_SPAN if tracer is None
+                 else tracer.request(req_id=f"plan{next(self._plan_ids)}")
+                 for _ in batch]
 
         for pos, req in enumerate(batch):
+            admit = roots[pos].child("admit")
+            sp = admit.child("canonicalize")
             form = canonicalize(req.q, np.asarray(req.card, np.float64))
+            sp.close()
+            sp = admit.child("probe")
             primary, resp = self._primary_probe(req, form)
+            sp.close()
             if resp is not None:
+                admit.close()
+                roots[pos].child("fast_path").close()
                 responses[pos] = resp
                 routes[pos] = primary
                 continue
+            sp = admit.child("route")
             route = primary
             if req.latency_budget is not None:
                 route, resp = self._budget_reroute(
                     req, form, req.latency_budget, primary)
                 if "deadline" in route.reason:
                     self.stats.deadline_fallbacks += 1
-                if resp is not None:
-                    responses[pos] = resp
-                    routes[pos] = route
-                    continue
+            sp.close()
+            admit.close()
+            if resp is not None:
+                roots[pos].child("fast_path").close()
+                responses[pos] = resp
+                routes[pos] = route
+                continue
             routes[pos] = route
             if self.enable_batch and self._batch_eligible(route, req.cost):
                 batch_lane.append((pos, form))
@@ -628,27 +664,45 @@ class PlanServer:
         if batch_lane:
             # every item's seed is probed before the chunk is solved; the
             # solver groups by lane cost, so "cap_conn" never mixes with cap
-            items = [(form.q, form.card, routes[pos].lane_cost,
-                      router_mod.topo_class(form.signature),
-                      self._layer_seed(form, batch[pos].cost, routes[pos]))
-                     for pos, form in batch_lane]
+            items = []
+            for pos, form in batch_lane:
+                sp = roots[pos].child("seed")
+                seed = self._layer_seed(form, batch[pos].cost, routes[pos])
+                sp.close()
+                items.append((form.q, form.card, routes[pos].lane_cost,
+                              router_mod.topo_class(form.signature), seed))
+            spans = [roots[pos].child("dispatch") for pos, _ in batch_lane]
             results = self.solver.solve(items)
             self._observe_batch(self.solver.last_timings)
+            for sp in spans:
+                sp.close()
             for (pos, form), res in zip(batch_lane, results):
+                sp = roots[pos].child("extract")
                 responses[pos] = self._complete(
                     batch[pos], form, routes[pos], float(res.cost),
                     res.tree, dict(res.meta))
+                sp.close()
 
         for pos, form, route in single_lane:
+            sp = roots[pos].child("seed")
+            seed = self._layer_seed(form, batch[pos].cost, route)
+            sp.close()
+            sp = roots[pos].child("dispatch")
             t0 = time.perf_counter()   # timing: measured-duration (solve)
             cost_v, tree, meta = self._solve_single(
-                form.q, form.card, batch[pos].cost, route,
-                seed=self._layer_seed(form, batch[pos].cost, route))
+                form.q, form.card, batch[pos].cost, route, seed=seed)
             self._observe_single(route, form, batch[pos].cost,
                                  # timing: measured-duration
                                  time.perf_counter() - t0, meta)
+            sp.close()
+            sp = roots[pos].child("extract")
             responses[pos] = self._complete(batch[pos], form, route,
                                             cost_v, tree, meta)
+            sp.close()
+        if tracer is not None:
+            for root in roots:
+                root.child("respond").close()
+                tracer.finish(root)
         return responses  # type: ignore[return-value]
 
     def _complete(self, req: PlanRequest, form: CanonicalForm,

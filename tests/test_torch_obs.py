@@ -6,7 +6,11 @@ sampling and the flight recorder are copies: the same operations must
 give the same numbers and the same text.  Span trees come from both
 runtimes on a ``VirtualClock`` with the same injected durations (and the
 same fixed chunk timings, see ``tests/test_torch_runtime.py``), so their
-``shape()``s must be equal.  The engine's dispatch records carry the
+``shape()``s must be equal once the port's own spans are taken out
+(``tests/_torch_spans.py``: admit's children, ``seed``, ``lane_wait``);
+the port's whole trees are pinned here, and its ``dispatch`` spans start
+where the lane begins, so with ``lane_wait`` they cover the reference's
+``dispatch``.  The engine's dispatch records carry the
 port's own build/execute split and work count; they are held to the
 reference's structure, with the labels that differ on purpose mapped
 (``backend``: ``xla`` -> ``f64``; the key's device entry).  The cases
@@ -32,6 +36,8 @@ from repro_torch import obs
 from repro_torch.core import engine
 from repro_torch.core import querygraph as PQ
 from repro_torch.obs.metrics import BOUNDS, MetricsRegistry
+
+from _torch_spans import PORT_SPANS, port_span_count, reference_shape
 
 DUR = {"admit": 0.0, "solve": 1.0, "single": 0.01}
 REF = types.SimpleNamespace(svc=R, obs=ref_obs, qg=RQ, kw={})
@@ -82,6 +88,32 @@ def _same(fn):
     want, got = fn(REF), fn(PORT)
     assert got == want
     return got
+
+
+def _shape(side, span):
+    """A span tree's shape in the reference's taxonomy."""
+    return reference_shape(span.shape()) if side is PORT else span.shape()
+
+
+def _tracer_stats(side, rt, roots):
+    """The tracer's stats with the port's own spans (of the trees
+    ``roots``) taken out of its open/close tallies."""
+    st = dict(rt.tracer.stats())
+    if side is PORT:
+        k = sum(port_span_count(r) for r in roots)
+        st["spans_opened"] -= k
+        st["spans_closed"] -= k
+    return st
+
+
+def _port_tree(*phases):
+    """The port's tree of a batch-lane miss served by one dispatch,
+    with ``phases`` (queue_wait, coalesce...) before the seed."""
+    return ("request", (("admit", (("canonicalize", ()), ("probe", ()),
+                                   ("route", ()))),)
+            + tuple((p, ()) for p in phases)
+            + (("lane_wait", ()), ("dispatch", ()), ("extract", ()),
+               ("respond", ())))
 
 
 # ------------------------------------------------------------ histograms
@@ -216,10 +248,56 @@ def test_engine_dispatch_records_compile_execute_split():
         assert got.key[8] == "cpu" == got.devices[0]
         assert want.key[9][0] == "cpu"
     d = r.as_dict()
-    assert set(d) == set(rr.as_dict())
+    assert set(d) == set(rr.as_dict()) | HOST_SPLIT
     assert isinstance(d["key"], list)
     assert engine.stats().exec_cache_misses == 1
     assert engine.stats().exec_cache_hits == 1
+
+
+# the port's split of a record's host time, beyond the reference's fields
+HOST_SPLIT = {"queries", "prepare_s", "launch_s", "sync_s", "readback_s",
+              "trees_s", "t0_ns", "t1_ns"}
+
+
+@pytest.mark.parametrize("cost", ["max", "cap", "out"])
+def test_dispatch_record_splits_host_time(cost):
+    """``launch_s + sync_s`` is ``execute_s``; ``queries`` is the real
+    row count under a padded ``B``; the search's loop reads are blocked
+    time; prep, readback and trees are timed around the call, and
+    ``t0_ns``/``t1_ns`` bound it on ``time.time_ns()``'s clock."""
+    import time
+    qs = [PQ.chain(6), PQ.cycle(6), PQ.star(6)]
+    cards = np.stack([np.asarray(PQ.make_cardinalities(q, seed=i),
+                                 np.float64) for i, q in enumerate(qs)])
+    call = {"max": lambda: engine.fused_dpconv_max(cards, 6, device="cpu"),
+            "cap": lambda: engine.fused_ccap(cards, 6, device="cpu"),
+            "out": lambda: engine.fused_out(qs, cards, 6, device="cpu")}
+    call[cost]()                       # build the bucket
+    mark = engine.dispatch_mark()
+    t0 = time.time_ns()
+    call[cost]()
+    t1 = time.time_ns()
+    (r,) = engine.dispatches_since(mark)
+    assert (r.queries, r.B) == (3, 4)
+    assert r.aot_cache_hit and r.compile_s == 0.0
+    assert r.launch_s + r.sync_s == pytest.approx(r.execute_s, abs=1e-12)
+    assert r.launch_s > 0 and r.sync_s >= 0
+    if cost != "out":                  # the search reads its condition
+        assert r.sync_s > 0
+    assert r.prepare_s > 0 and r.readback_s > 0 and r.trees_s > 0
+    assert t0 <= r.t0_ns < r.t1_ns <= t1
+    assert r.execute_s * 1e9 <= r.t1_ns - r.t0_ns + 1e6
+
+
+def test_engine_keeps_no_dispatch_histograms():
+    """The ring is the one record of a dispatch: the engine registry
+    holds its counters and nothing per dispatch or per lane."""
+    q = PQ.chain(6)
+    cards = np.asarray(PQ.make_cardinalities(q, seed=3), np.float64)[None]
+    with engine.dispatch_lane(3):
+        engine.fused_dpconv_max(cards, 6, device="cpu")
+    names = {m.name for m in engine.stats().registry.metrics()}
+    assert names == {"engine." + f for f in engine.EngineStats.FIELDS}
 
 
 def test_program_work_counts_rounds_and_shapes():
@@ -290,6 +368,8 @@ def test_build_lock_builds_a_bucket_once_under_threads():
 
 # ----------------------------------------------------------- span trees
 def test_deterministic_span_tree_batch_miss():
+    trees = {}
+
     def run(side):
         srv, clk, rt = _mk(side)
         t = rt.submit(_miss(_reqs(side)))
@@ -302,13 +382,20 @@ def test_deterministic_span_tree_batch_miss():
         st = rt.tracer.stats()
         assert st["unclosed_spans"] == st["open_spans"] == \
             st["lane_shape_mismatches"] == 0
-        return (t.span.shape(), t.completed_at, d.attrs["engine_tag"],
-                d.attrs["rounds"], st)
+        trees[side is PORT] = t.span
+        return (_shape(side, t.span), t.completed_at, d.attrs["engine_tag"],
+                d.attrs["rounds"], _tracer_stats(side, rt, [t.span]))
     got = _same(run)
     assert got[0] == ("request", (("admit", ()), ("queue_wait", ()),
                                   ("dispatch", ()), ("extract", ()),
                                   ("respond", ())))
     assert got[2] == "fused"
+    port = trees[True]
+    assert port.shape() == _port_tree("queue_wait", "seed")
+    # the lane was idle: no lane wait, and the dispatch is the solve
+    lw, d = port.find("lane_wait"), port.find("dispatch")
+    assert lw.duration == 0.0 and d.t0 == lw.t1 and d.duration == 1.0
+    assert d.duration + lw.duration == trees[False].find("dispatch").duration
 
 
 def test_fast_path_span_tree_and_relabel_hit():
@@ -323,7 +410,12 @@ def test_fast_path_span_tree_and_relabel_hit():
             card=side.qg.permute_card(base.card, base.q.n, perm),
             cost=base.cost, req_id="relabeled"))
         assert t1.done and t1.response.cache_hit
-        return t1.span.shape(), srv.cache.stats.relabel_hits
+        if side is PORT:
+            assert t1.span.shape() == (
+                "request", (("admit", (("canonicalize", ()),
+                                       ("probe", ()))),
+                            ("fast_path", ()), ("respond", ())))
+        return _shape(side, t1.span), srv.cache.stats.relabel_hits
     got = _same(run)
     assert got[0] == ("request", (("admit", ()), ("fast_path", ()),
                                   ("respond", ())))
@@ -338,7 +430,12 @@ def test_coalesced_follower_span_tree():
         rt.drain()
         assert rt.stats.coalesced == 1
         assert t_lead.span.find("coalesce") is None
-        return (t_lead.span.shape(), t_follow.span.shape(),
+        if side is PORT:
+            # the seed is probed once, for the leader's solve
+            assert t_lead.span.shape() == _port_tree("queue_wait", "seed")
+            assert t_follow.span.shape() == _port_tree("coalesce",
+                                                       "queue_wait")
+        return (_shape(side, t_lead.span), _shape(side, t_follow.span),
                 t_follow.response.meta.get("coalesced"),
                 rt.tracer.stats()["lane_shape_mismatches"])
     got = _same(run)
@@ -362,7 +459,14 @@ def test_shed_span_tree_and_recorder_capture():
         rec = rt.recorder
         assert rec.incidents[0]["span"] is t.span
         parsed = [json.loads(ln) for ln in rec.dump_jsonl()]
-        return t.span.shape(), dict(rec.counts), \
+        if side is PORT:
+            # refused in the routing ladder: route closes with admit
+            assert t.span.shape() == (
+                "request", (("admit", (("canonicalize", ()),
+                                       ("probe", ()), ("route", ()))),
+                            ("shed", ())))
+            assert rt.tracer.stats()["lane_shape_mismatches"] == 0
+        return _shape(side, t.span), dict(rec.counts), \
             [{k: v for k, v in p.items() if k != "span"} for p in parsed]
     got = _same(run)
     assert got[0] == ("request", (("admit", ()), ("shed", ())))
@@ -398,10 +502,20 @@ def test_span_phase_summary_reads_trace_histograms():
         for r in _reqs(side)[:6]:
             rt.submit(r)
         rt.drain()
-        return side.obs.span_phase_summary(srv.registry)
-    phases = _same(run)
+        return side.obs.span_phase_summary(
+            srv.registry, phases=("admit", "queue_wait", "coalesce",
+                                  "fast_path", "dispatch", "extract",
+                                  "respond", "request", "lane_wait"))
+    want, phases = run(REF), run(PORT)
+    # the reference's dispatch is the port's lane_wait and dispatch
+    d, lw = phases.pop("dispatch"), phases.pop("lane_wait")
+    ref_d = want.pop("dispatch")
+    assert phases == want
+    assert d["count"] == lw["count"] == ref_d["count"]
+    assert d["mean_ms"] + lw["mean_ms"] == pytest.approx(ref_d["mean_ms"],
+                                                         rel=1e-12)
     assert phases["request"]["count"] >= 6
-    assert phases["dispatch"]["count"] >= 1
+    assert d["count"] >= 1
 
 
 def test_recorder_ring_bounded_incident_counts_exact():
@@ -421,19 +535,28 @@ def test_recorder_ring_bounded_incident_counts_exact():
 
 # --------------------------------------------------- runtime stats schema
 def test_runtime_stats_and_registry_snapshot_match_reference():
+    port_hists = {f"trace.{name}_s" for name in PORT_SPANS}
+
     def run(side):
         srv, clk, rt = _mk(side)
-        for r in _reqs(side)[:8]:
-            rt.submit(r)
+        tickets = [rt.submit(r) for r in _reqs(side)[:8]]
         rt.drain()
         snap = srv.registry.snapshot()
         prov = snap["providers"]
         assert prov["tracer"]["open_spans"] == 0
         assert any(k.startswith("trace.") for k in snap["metrics"])
+        metrics = {k: v for k, v in snap["metrics"].items()
+                   if k.startswith(("trace.", "runtime."))}
+        if side is PORT:
+            assert port_hists <= set(metrics)
+            assert prov["tracer"]["lane_shape_mismatches"] == 0
+        # the reference's dispatch is the port's lane_wait and dispatch:
+        # the same count, other durations
+        metrics = {k: (v["count"] if k == "trace.dispatch_s" else v)
+                   for k, v in metrics.items() if k not in port_hists}
         return (rt.stats.as_dict(), sorted(prov), prov["runtime"],
-                prov["tracer"], prov["recorder"], prov["faults"],
-                {k: v for k, v in snap["metrics"].items()
-                 if k.startswith(("trace.", "runtime."))})
+                _tracer_stats(side, rt, [t.span for t in tickets]),
+                prov["recorder"], prov["faults"], metrics)
     got = _same(run)
     assert set(got[0]) == {
         "submitted", "served", "fast_path_hits", "overtakes",
@@ -476,7 +599,7 @@ def test_connected_cap_runtime_bucket_separation():
         return (keys, float(t_plain.response.cost).hex(),
                 float(t_conn.response.cost).hex(),
                 t_conn.span.find("dispatch").attrs["engine_tag"],
-                t_conn.span.shape())
+                _shape(side, t_conn.span))
     got = _same(run)
     assert got[0] == [(7, "cap"), (7, "cap_conn")]
     assert float.fromhex(got[2]) >= float.fromhex(got[1])
@@ -532,11 +655,190 @@ def test_runtime_sampling_keeps_incident_capture_unconditional():
 def test_runtime_sampling_traces_exact_fraction():
     def run(side):
         srv, clk, rt = _mk(side, trace_sample=0.5)
-        for r in _reqs(side)[:12]:
-            rt.submit(r)
+        tickets = [rt.submit(r) for r in _reqs(side)[:12]]
         rt.drain()
-        return rt.tracer.stats(), dict(rt.recorder.counts)
+        return (_tracer_stats(side, rt, [t.span for t in tickets]),
+                dict(rt.recorder.counts))
     st, counts = _same(run)
     assert st["requests"] == 12
     assert st["sampled"] == st["sampled_out"] == 6
     assert counts["completed"] == 6
+
+
+# ------------------------------------- the port's own spans and span log
+def _profile():
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+@pytest.fixture
+def span_log(monkeypatch):
+    """A fresh process-wide span log for one test."""
+    from repro_torch.obs import trace
+    log = trace.SpanLog()
+    monkeypatch.setattr(trace, "SPAN_LOG", log)
+    return log
+
+
+def test_span_log_lies_over_the_profiler_trace(span_log):
+    """A span closed around a torch op under a CPU profiler session holds
+    the op's kineto interval: the log's clock is the profiler's.  Without
+    a session nothing is logged, and a virtual clock logs nothing."""
+    from repro_torch.obs import trace
+    x = torch.ones(1 << 16, dtype=torch.float64)
+    tr = obs.Tracer(P.WallClock())
+    root = tr.request(req_id="r1")
+    sp = root.child("op")
+    torch.add(x, x)
+    sp.close()
+    assert not trace.profiling() and len(span_log.entries) == 0
+    virtual = obs.Tracer(P.VirtualClock()).request(req_id="v")
+    with _profile() as prof:
+        assert trace.profiling()
+        sp = root.child("op")
+        torch.add(x, x)
+        sp.close()
+        virtual.child("op").close()
+    assert not trace.profiling()
+    (entry,) = span_log.entries
+    name, req, parent, t0, t1, thread = entry
+    assert (name, req, parent) == ("op", "r1", "request")
+    assert thread == threading.current_thread().name
+    adds = [(e.start_ns(), e.start_ns() + e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.name() == "aten::add"]
+    assert adds and all(t0 <= a and b <= t1 for a, b in adds)
+    assert span_log.dropped == 0
+
+
+def test_inline_lane_wait_models_the_busy_lane():
+    """Two buckets on one lane of the inline executor: the first starts
+    on an idle lane (no wait), the second waits out the first's modeled
+    solve (1 s), and each dispatch starts where its lane_wait ends."""
+    srv, clk, rt = _mk(PORT)
+    a, b = PQ.chain(6), PQ.chain(7)
+    ta = rt.submit(P.PlanRequest(q=a, card=PQ.make_cardinalities(a, seed=1),
+                                 req_id="a"))
+    tb = rt.submit(P.PlanRequest(q=b, card=PQ.make_cardinalities(b, seed=2),
+                                 req_id="b"))
+    rt.flush()
+    rt.drain()
+    waits = []
+    for t in (ta, tb):
+        lw, d = t.span.find("lane_wait"), t.span.find("dispatch")
+        assert d.t0 == lw.t1 and d.duration == 1.0
+        assert t.span.shape() == _port_tree("queue_wait", "seed")
+        waits.append(lw.duration)
+    assert waits == [0.0, 1.0]
+    assert (ta.completed_at, tb.completed_at) == (1.0, 2.0)
+    assert rt.tracer.stats()["lane_shape_mismatches"] == 0
+
+
+def test_thread_lane_wait_ends_where_the_lane_begins(span_log):
+    """On the worker-thread executor the lane only stamps when it begins
+    a work; the driving thread closes lane_wait there and opens dispatch
+    there.  Under a profiler session the log holds every span, closed
+    on the driving thread."""
+    import time
+    srv = _server(PORT, max_batch=4)
+    rt = srv.make_runtime(clock=P.WallClock(),
+                          config=P.RuntimeConfig(max_batch=4, max_wait=0.0),
+                          executor="thread")
+    try:
+        with _profile():
+            ts = [rt.submit(r) for r in _reqs(PORT, n_requests=6,
+                                              pool_size=6)]
+            deadline = time.monotonic() + 120
+            while not all(t.done for t in ts) \
+                    and time.monotonic() < deadline:
+                rt.poll()
+                time.sleep(1e-3)
+    finally:
+        rt.close()
+    assert all(t.done and not t.refused for t in ts)
+    st = rt.tracer.stats()
+    assert st["lane_shape_mismatches"] == st["unclosed_spans"] == 0
+    threads = {e[5] for e in span_log.entries}
+    assert threads == {threading.current_thread().name}
+    for t in ts:
+        lw = t.span.find("lane_wait")
+        if lw is None:                        # a cache hit
+            continue
+        d = t.span.find("dispatch")
+        assert lw.t0 <= lw.t1 == d.t0 <= d.t1
+        mine = [e for e in span_log.entries if e[1] == t.request.req_id]
+        assert {e[0] for e in mine} >= {"admit", "lane_wait", "dispatch",
+                                        "request"}
+
+
+def test_plan_one_tree_under_a_profiler_session(span_log):
+    """``plan_one`` logs the runtime's names under one request id of its
+    own while a session is active, and nothing without one: a miss is
+    admit {canonicalize, probe, route}, seed, dispatch (holding the
+    engine's program call), extract, respond; a hit is admit
+    {canonicalize, probe}, fast_path, respond."""
+    srv = _server(PORT)
+    q = PQ.clique(7)
+    card = PQ.make_cardinalities(q, seed=5)
+    srv.plan_one(PQ.chain(6), PQ.make_cardinalities(PQ.chain(6), seed=1))
+    assert len(span_log.entries) == 0
+    mark = engine.dispatch_mark()
+    with _profile():
+        miss = srv.plan_one(q, card)
+        hit = srv.plan_one(q, card)
+    assert not miss.cache_hit and hit.cache_hit
+    by_req: dict = {}
+    for e in span_log.entries:
+        by_req.setdefault(e[1], []).append(e)
+    assert len(by_req) == 2
+    first, second = sorted(by_req.values(), key=lambda es: es[0][3])
+
+    def tree(es):
+        return sorted((e[0], e[2]) for e in es)
+    assert tree(first) == sorted([
+        ("canonicalize", "admit"), ("probe", "admit"), ("route", "admit"),
+        ("admit", "request"), ("seed", "request"), ("dispatch", "request"),
+        ("extract", "request"), ("respond", "request"), ("request", None)])
+    assert tree(second) == sorted([
+        ("canonicalize", "admit"), ("probe", "admit"),
+        ("admit", "request"), ("fast_path", "request"),
+        ("respond", "request"), ("request", None)])
+    span = {e[0]: e for e in first}
+    for name, e in span.items():
+        assert span["request"][3] <= e[3] <= e[4] <= span["request"][4]
+        if e[2] == "admit":
+            assert span["admit"][3] <= e[3] <= e[4] <= span["admit"][4]
+    order = ["admit", "seed", "dispatch", "extract", "respond"]
+    assert [span[n][3] for n in order] == sorted(span[n][3] for n in order)
+    (rec,) = engine.dispatches_since(mark)
+    assert span["dispatch"][3] <= rec.t0_ns < rec.t1_ns \
+        <= span["dispatch"][4]
+
+
+def test_span_log_bound_under_contending_threads():
+    """Threads appending at once (a runtime's event loop, plan_one callers)
+    lose no count: what the log holds plus what it dropped is what was
+    appended, and a window over the drops reads None."""
+    from repro_torch.obs import trace
+    log = trace.SpanLog(capacity=64)
+    per, nthreads = 500, 12
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work(k):
+            for i in range(per):
+                t = k * per + i
+                log.append("x", k, "request", t, t + 1, thread=str(k))
+        threads = [threading.Thread(target=work, args=(k,))
+                   for k in range(nthreads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(switch)
+    assert len(log.entries) == 64
+    assert log.dropped == nthreads * per - 64
+    assert log.window(0, 1 << 40) is None
+    assert log.window(log.last_dropped_ns + 1, 1 << 40) is not None

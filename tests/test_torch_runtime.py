@@ -9,7 +9,8 @@ the router's EWMA prices); both sides get the same fixed timings
 (``_fixed_timings``), as ``duration_fn`` fixes the clock.  Under that,
 every ticket must be bitwise equal: the cost's ``float.hex``, the
 tree's ``repr``, status, cache hit, route, shed or error reason,
-``completed_at`` and span-tree shape, and ``RuntimeStats.as_dict()``.
+``completed_at`` and span-tree shape (the port's own spans taken out,
+``tests/_torch_spans.py``), and ``RuntimeStats.as_dict()``.
 The labels that differ on purpose are mapped (``meta["backend"]``:
 ``xla`` -> ``f64``, ``pallas`` -> ``cuda``), never skipped.
 
@@ -33,6 +34,8 @@ from repro.core import querygraph as RQ
 from repro.core.dpconv import optimize as ref_optimize
 from repro_torch.core import engine
 from repro_torch.core import querygraph as PQ
+
+from _torch_spans import reference_shape
 
 DUR = {"admit": 0.0, "solve": 1.0, "single": 0.01}
 BACKENDS = {"xla": "f64", "pallas": "cuda"}
@@ -145,7 +148,15 @@ def _ticket(t):
             t.faulted, t.completed_at, t.deadline, _route(t.route),
             None if t.error is None else (type(t.error).__name__,
                                           str(t.error)),
-            _resp(t.response), t.span.shape() if t.span else None)
+            _resp(t.response), _shape(t))
+
+
+def _shape(t):
+    """The ticket's span-tree shape in the reference's taxonomy."""
+    if not t.span:
+        return None
+    port = type(t).__module__.startswith("repro_torch")
+    return reference_shape(t.span.shape()) if port else t.span.shape()
 
 
 def _both(fn):

@@ -39,6 +39,8 @@ from repro_torch.service.canon import (canonicalize, subset_signature,
                                        topology_signature)
 from repro_torch.service.server import PlanRequest
 
+from _torch_spans import reference_shape
+
 CPU = "cpu"
 PROVIDERS = {"cache", "layercache", "router", "serve", "solver", "engine"}
 
@@ -338,6 +340,18 @@ def test_runtime_settings_are_stored_as_in_the_reference(name):
     assert rt.tracer.enabled == srv.trace
 
 
+def test_async_runtime_follows_the_server_trace_switch():
+    """The server's ``trace`` switch reaches its shared runtime."""
+    for trace in (False, True):
+        srv = PlanServer(trace=trace, device=CPU)
+        rt = srv.async_runtime()
+        try:
+            assert rt.config.trace is trace
+            assert rt.tracer.enabled is trace
+        finally:
+            rt.close()
+
+
 ENTRY_POINTS = ["serve", "make_runtime", "async_runtime", "plan_async",
                 "plan_request_async", "prewarm", "prewarm_from_manifest"]
 
@@ -363,7 +377,9 @@ def _entry_point(name, srv, pkg):
                               duration_fn=lambda kind, info: 0.5)
         t = rt.submit(pkg.PlanRequest(q=q, card=card, req_id=5))
         rt.drain()
-        return _answer(t.response), t.completed_at, t.span.shape()
+        shape = t.span.shape()
+        return (_answer(t.response), t.completed_at,
+                reference_shape(shape) if pkg is port_service else shape)
     if name == "async_runtime":
         rt = srv.async_runtime()
         try:
