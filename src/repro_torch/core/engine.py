@@ -14,8 +14,22 @@ call of the program), and counts separately the host synchronizations
 the solve costs (``syncs``): one read of the loop condition per search
 round, one for the exit test, and one per result tensor copied back.
 The C_out program has no search loop: its syncs are its result copies.
-``rounds`` and ``passes`` are the reference's exactly.  Capturing the loop in a
-CUDA graph is later work.
+``rounds`` and ``passes`` are the reference's exactly.
+
+CUDA graphs: a program on one CUDA device (no solve mesh) runs through
+CUDA graphs (``lattice.uses_graphs``, decided from the bucket's key): a
+graph for the search round, one for the seeded probe, one for the tail,
+each part run eagerly at its first use and captured at its second
+(``lattice._Graphs``).  The build's first touch runs the tail, so a
+bucket's first solve captures it, and its first round, so its second
+round is captured.  Capturing every prewarmed bucket at build would
+cost set-up time for buckets a deployment may never use; a part's
+capture costs about one eager run of it plus the graph's instantiation,
+once.  ``graph_captures``
+counts the programs captured, ``graph_calls`` the program calls that
+replayed graphs, and each ``DispatchRecord`` says whether its call did
+(``graphed``).  CPU programs, sharded ones and the host engine run
+eagerly.
 
 Dispatch profile (the reference's ``DispatchRecord`` ring): each solve
 has one recording site (``_run``), which appends one record per program
@@ -29,9 +43,12 @@ device result (``torch.cuda.synchronize`` before the clock is read).
 It splits into ``sync_s``, the host's time blocked on the device (the
 search loop's condition reads, ``lattice.blocked_s``, and the final
 synchronize), and ``launch_s``, the rest: the host issuing the
-program's launches.  Around the call, ``prepare_s`` is the host's time
-from the entry point (``fused_dpconv_max``/``fused_ccap``/``fused_out``)
-to the call, less a build (candidate tables, padding, connectivity
+program's launches.  In a graphed call ``launch_s`` is the input
+copies, the replays (and a capture, once per part) and the result
+copies, and ``sync_s`` holds the device time: each loop read waits for
+the round the replay queued.  Around the call, ``prepare_s`` is the
+host's time from the entry point (``fused_dpconv_max``/``fused_ccap``/
+``fused_out``) to the call, less a build (candidate tables, padding, connectivity
 masks, the seed bracket, the uploads), ``readback_s`` the copies of the
 results to the host and ``trees_s`` the join trees' assembly; ``queries``
 is the real (unpadded) row count and ``t0_ns``/``t1_ns`` bound the call
@@ -104,6 +121,8 @@ class EngineStats:
         "seeded_solves",       # solves that ran a warm-start program
         "seeded_rows",         # queries whose seed engaged in those solves
         "prewarmed",           # programs built by prewarm()
+        "graph_calls",         # program calls that replayed CUDA graphs
+        "graph_captures",      # programs whose CUDA graphs were captured
     )
 
     def __init__(self):
@@ -157,6 +176,7 @@ class DispatchRecord:
     trees_s: float = 0.0       # join trees from the copied split arrays
     t0_ns: int = 0             # the call's interval, epoch nanoseconds
     t1_ns: int = 0
+    graphed: bool = False      # the call replayed the program's CUDA graphs
 
     def as_dict(self) -> dict:
         d = dataclasses.asdict(self)
@@ -417,16 +437,17 @@ def _build(key: tuple, device: torch.device):
     if base == "max":
         fn = lattice.build_max_program(n, direct_layers, tier, extract,
                                        gamma_batch, shards=shards,
-                                       mesh=mesh, seeded=seeded)
+                                       mesh=mesh, seeded=seeded,
+                                       device=device)
     elif base in ("cap", "cap_conn"):
         fn = lattice.build_cap_program(n, direct_layers, tier, extract,
                                        gamma_batch,
                                        connected=base == "cap_conn",
                                        shards=shards, mesh=mesh,
-                                       seeded=seeded)
+                                       seeded=seeded, device=device)
     elif base == "out":
         fn = lattice.build_out_program(n, extract, shards=shards, mesh=mesh,
-                                       seeded=seeded)
+                                       seeded=seeded, device=device)
     else:
         raise ValueError(f"unknown fused cost {cost!r}")
     _first_touch(fn, base, seeded, n, B, C, device)
@@ -447,7 +468,9 @@ def _first_touch(fn, base: str, seeded: bool, n: int, B: int, C: int,
     variant verifies a seed at candidate 0).  The search runs no round;
     the extraction, the (min,+) sweeps and the first call's buffers and
     gather tables are built, and on the kernel tier the kernels launch
-    (which builds the kernel library).  Nothing is counted."""
+    (which builds the kernel library).  A graphed program runs eagerly
+    here, on the static tensors of the bucket's shapes.  Nothing is
+    counted."""
     size = 1 << n
     cards = torch.ones((B, size), dtype=torch.float64, device=device)
     conn = torch.ones((B, size), dtype=torch.bool, device=device)
@@ -588,6 +611,7 @@ def _run(fn, args, record: DispatchRecord, t_entry: float):
     _STATS.inc("dispatches")
     dev = args[0].device
     blocked0 = lattice.blocked_s()
+    replays0, captures0 = lattice.graph_counts()
     t0 = time.perf_counter()  # timing: measured-duration (execute wall)
     record.t0_ns = time.time_ns()  # timing: clock-source (profiler's clock)
     out = fn(*args)
@@ -599,6 +623,10 @@ def _run(fn, args, record: DispatchRecord, t_entry: float):
     record.sync_s = (lattice.blocked_s() - blocked0) + (t1 - t_sync)
     record.launch_s = record.execute_s - record.sync_s
     record.prepare_s = t0 - t_entry - record.compile_s
+    replays, captures = lattice.graph_counts()
+    record.graphed = replays > replays0
+    _STATS.inc("graph_calls", int(record.graphed))
+    _STATS.inc("graph_captures", captures - captures0)
     _profile_append(record)
     return out
 

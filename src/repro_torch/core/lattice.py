@@ -32,9 +32,21 @@ Differences from the reference, none of which changes a result:
   round (one sync per round); the reference runs the loop on device.
   The seconds the host spends blocked in those reads accumulate per
   thread in ``blocked_s()``, which the engine reads around a call.
+* Where XLA compiles a program once, a program on one CUDA device
+  (``uses_graphs``: no solve mesh) runs through CUDA graphs
+  (``_Graphs``): the search round (``_search_round``), the seeded
+  probe (``_verify_round``) and the tail (extraction pass and scan;
+  C_cap's pass 2; C_out's whole call), each run eagerly at its first
+  use and captured at its second.  A call copies its inputs into the
+  program's static tensors, replays the round graph once per round
+  between the host reads, replays the tail and returns copies of its
+  outputs.  The captured bodies are the eager ones, so rounds, syncs
+  and results are the eager call's.  CPU and sharded programs run
+  eagerly.
 * Buffers are updated in place (the ranked-zeta buffer ``Z`` above all:
   each zeta transform writes straight into its slot; each (min,+) layer
-  writes its sets into ``dp``); JAX rebuilds them functionally.
+  writes its sets into ``dp``; each round writes the bracket ``lo``/``hi``);
+  JAX rebuilds them functionally.
 * Bracket indices (``lo``, ``hi``, pivots) are int64 tensors (PyTorch
   gathers take int64); the reference keeps int32.  Values are equal.
 * The scan-form convolution sums int32 products in int32; the reference
@@ -45,7 +57,7 @@ Warm starts, as in the reference: ``feasibility_layers(seed_layers=)``
 replays a solved layer prefix, ``minplus_connected_layers(seed_vals=,
 seed_ok=)`` replays cached sub-table values, and the ``seeded`` program
 variants verify a cached C_max optimum with one dual probe before the
-search (``_fused_search(verify_seed=True)``).
+search (``_verify_round``, run by ``_fused_search``).
 
 Sharding, as in the reference's ``shard_map`` programs: a program built
 with ``shards = D`` and a solve mesh (``launch.mesh``, a tuple of D
@@ -551,7 +563,8 @@ def extract_scan(dp, n: int, card=None):
     T = torch.arange(size, dtype=torch.int64, device=dev)[None, :]
     ar = torch.arange(B, device=dev)
     feas = dp > 0.5 if card is None else None
-    inf = torch.tensor(float("inf"), dtype=torch.float64, device=dev)
+    inf = _on_device(("inf", str(dev)), lambda: torch.tensor(
+        float("inf"), dtype=torch.float64, device=dev))
     nodes = torch.zeros((B, M), dtype=torch.int64, device=dev)
     nodes[:, 0] = size - 1
     lidx = torch.zeros((B, M), dtype=torch.int64, device=dev)
@@ -641,95 +654,309 @@ def _host_any(active) -> bool:
     return v
 
 
-def _fused_search(cards, cand, lo0, hi0, n, direct_layers, tfm, G,
-                  gate_of, Z0, verify_seed: bool = False, Zv=None,
-                  mesh=None):
-    """The whole-solve lockstep (G+1)-ary search: each round builds its G
-    gates and runs the layered DP on the carried buffer ``Z0`` (updated
-    in place).  Returns ``(hi, Z, rounds, syncs)`` with cand[hi]
-    feasible; ``syncs`` counts the host reads of the loop condition.
+@dataclasses.dataclass
+class _Solve:
+    """The tensors of one program call: its inputs, the search bracket
+    ``lo``/``hi`` and the ranked-zeta buffers ``Z`` (the loop's) and
+    ``Zv`` (the seeded probe's), which the search updates in place, and
+    ``extra``, the tail's further inputs (C_cap's slack and connectivity
+    masks, C_out's masks and seeds).  An eager call makes one per call; a
+    graphed program keeps one for good, its static tensors, and copies
+    each call's inputs into it (``_load``)."""
+    cards: torch.Tensor
+    cand: "torch.Tensor | None" = None
+    lo: "torch.Tensor | None" = None
+    hi: "torch.Tensor | None" = None
+    Z: "torch.Tensor | None" = None
+    Zv: "torch.Tensor | None" = None
+    extra: tuple = ()
+    gate_of: "callable | None" = None
 
-    ``lo0`` is the warm-start floor (cold solves pass zeros).  With
-    ``verify_seed=True`` a row whose ``lo0 = -(idx + 1)`` carries a
-    cached-optimum hypothesis at candidate ``idx``, never trusted: one
-    dual probe before the loop checks feasibility at ``idx`` and
-    ``idx - 1`` in one feasibility pass on ``Zv``, a G = 2 search state
-    of its own (the loop's buffer ``Z0`` is never touched by it).  A
-    verified seed collapses the bracket and the loop runs no round; a
-    stale one only shrinks the bracket monotonically and the search
-    proceeds to the true optimum.  The probe costs one round and no host
-    sync.  The extraction pass rebuilds every Z slot >= 2 at the
-    optimum's gate, so results are bit-identical to the cold search.
-    The caller keeps the invariant: cand[hi0] is feasible and no
-    candidate below ``max(lo0, 0)`` is.
 
-    Under ``mesh`` the direct layers of every round shard their gather
-    sweep; the bracket state stays on the lead device."""
-    dl = min(direct_layers, n - 1)
-    lo, hi, Z = lo0, hi0, Z0
+def _verify_round(s: _Solve, n: int, dl: int, tfm: Transforms, mesh):
+    """The seeded programs' dual probe, in place on ``s.lo``/``s.hi``: a
+    row whose ``lo = -(idx + 1)`` carries a cached-optimum hypothesis at
+    candidate ``idx``, checked at ``idx`` and ``idx - 1`` in one
+    feasibility pass on ``s.Zv`` (the loop's buffer ``s.Z`` is never
+    touched by it); every ``lo`` ends non-negative."""
+    lo, hi = s.lo, s.hi
+    has = lo < 0
+    idx = torch.where(has, -lo - 1, 0)
+    floor = torch.clamp(lo, min=0)
+    piv = torch.stack([torch.clamp(idx - 1, min=0), idx])      # (2, B)
+    piv = torch.where(has[None, :], piv, hi[None, :])
+    gamma = torch.gather(s.cand, 1, piv.T).T
+    _, _, ok = feasibility_layers(s.gate_of(gamma), n, dl, tfm, True,
+                                  Z=s.Zv, scan_middle=True, mesh=mesh)
+    new_lo, new_hi = bracket_update(floor, hi, piv, ok, has)
+    lo.copy_(new_lo)
+    hi.copy_(new_hi)
+
+
+def _search_round(s: _Solve, n: int, dl: int, tfm: Transforms, G: int,
+                  mesh):
+    """One round of the lockstep (G+1)-ary search, in place on
+    ``s.lo``/``s.hi`` and ``s.Z``: the G pivots of each active row, their
+    gates, the layered DP on the carried buffer and the bracket update.
+    The one body of a round, run eagerly or captured."""
+    lo, hi = s.lo, s.hi
+    active = lo < hi
+    if G == 1:
+        mid = torch.where(active, (lo + hi) // 2, hi)
+        gamma = torch.gather(s.cand, 1, mid[:, None])[:, 0]
+        _, _, ok = feasibility_layers(s.gate_of(gamma), n, dl, tfm, True,
+                                      Z=s.Z, scan_middle=True, mesh=mesh)
+        new_lo = torch.where(active & ~ok, mid + 1, lo)
+        new_hi = torch.where(active & ok, mid, hi)
+    else:
+        piv = probe_pivots(lo, hi, G)                      # (G, B)
+        piv = torch.where(active[None, :], piv, hi[None, :])
+        gamma = torch.gather(s.cand, 1, piv.T).T
+        _, _, ok = feasibility_layers(s.gate_of(gamma), n, dl, tfm, True,
+                                      Z=s.Z, scan_middle=True, mesh=mesh)
+        new_lo, new_hi = bracket_update(lo, hi, piv, ok, active)
+    lo.copy_(new_lo)
+    hi.copy_(new_hi)
+
+
+def _fused_search(s: _Solve, verify, step, seeded: bool) -> tuple:
+    """The whole-solve lockstep (G+1)-ary search over ``s``: ``verify()``
+    runs the seeded probe (``_verify_round``) and ``step()`` one round
+    (``_search_round``), eagerly or as graph replays; the host reads the
+    loop condition ``any(lo < hi)`` once per round.  Returns ``(rounds,
+    syncs)``, ``s.hi`` then indexing a feasible candidate of each row;
+    ``syncs`` counts the host reads of the loop condition.
+
+    ``s.lo`` starts at the warm-start floor (cold solves pass zeros).
+    With ``seeded`` a row whose ``lo = -(idx + 1)`` carries a cached-
+    optimum hypothesis at candidate ``idx``, never trusted: the probe
+    before the loop checks it.  A verified seed collapses the bracket and
+    the loop runs no round; a stale one only shrinks the bracket
+    monotonically and the search proceeds to the true optimum.  The
+    probe costs one round and no host sync.  The extraction pass
+    rebuilds every Z slot >= 2 at the optimum's gate, so results are
+    bit-identical to the cold search.  The caller keeps the invariant:
+    cand[hi0] is feasible and no candidate below ``max(lo0, 0)`` is.
+
+    Under a solve mesh the direct layers of every round shard their
+    gather sweep; the bracket state stays on the lead device."""
     rounds = syncs = 0
-    if verify_seed:
-        has = lo < 0
-        idx = torch.where(has, -lo - 1, 0)
-        lo = torch.clamp(lo, min=0)
-        piv = torch.stack([torch.clamp(idx - 1, min=0), idx])  # (2, B)
-        piv = torch.where(has[None, :], piv, hi[None, :])
-        gamma = torch.gather(cand, 1, piv.T).T
-        _, _, ok = feasibility_layers(gate_of(gamma), n, dl, tfm, True,
-                                      Z=Zv, scan_middle=True, mesh=mesh)
-        lo, hi = bracket_update(lo, hi, piv, ok, has)
+    if seeded:
+        verify()
         rounds = 1                       # the verification sweep is paid
     while True:
-        active = lo < hi
         syncs += 1
-        if not _host_any(active):
+        if not _host_any(s.lo < s.hi):
             break
-        if G == 1:
-            mid = torch.where(active, (lo + hi) // 2, hi)
-            gamma = torch.gather(cand, 1, mid[:, None])[:, 0]
-            _, Z, ok = feasibility_layers(gate_of(gamma), n, dl, tfm, True,
-                                          Z=Z, scan_middle=True, mesh=mesh)
-            hi = torch.where(active & ok, mid, hi)
-            lo = torch.where(active & ~ok, mid + 1, lo)
-        else:
-            piv = probe_pivots(lo, hi, G)                  # (G, B)
-            piv = torch.where(active[None, :], piv, hi[None, :])
-            gamma = torch.gather(cand, 1, piv.T).T
-            _, Z, ok = feasibility_layers(gate_of(gamma), n, dl, tfm, True,
-                                          Z=Z, scan_middle=True, mesh=mesh)
-            lo, hi = bracket_update(lo, hi, piv, ok, active)
+        step()
         rounds += 1
-    return hi, Z, rounds, syncs
+    return rounds, syncs
 
 
-def _searcher(n: int, direct_layers: int, tfm: Transforms, G: int,
-              seeded: bool = False, mesh=None):
-    """The lockstep search of a whole-solve program: ``search(cards,
-    cand, lo0, hi0) -> (gate_of, hi, Z, rounds, syncs)``.  It keeps the
+class _Searcher:
+    """The lockstep search of a whole-solve program.  It keeps the
     initial ranked-zeta buffers of its first call (static tables of
     their shapes: the loop's and, when ``seeded``, the G = 2
-    verification probe's) and starts every later call from copies."""
-    state: dict = {}
+    verification probe's); every call starts from copies of them."""
 
-    def search(cards, cand, lo0, hi0):
+    def __init__(self, n: int, direct_layers: int, tfm: Transforms,
+                 G: int, seeded: bool, mesh):
+        self.n, self.dl, self.tfm, self.G = n, min(direct_layers, n - 1), \
+            tfm, G
+        self.seeded, self.mesh = seeded, mesh
+        self.Z0 = self.Zv0 = None
+
+    def solve(self, cards, cand, lo0, hi0, extra=(),
+              static: bool = False) -> _Solve:
+        """One call's ``_Solve``: copies of the bracket and the initial
+        buffers; with ``static`` copies of every input too (a graphed
+        program's static tensors)."""
         dev = cards.device
-        B = cards.shape[0]
-        if "Z0" not in state:
-            state["Z0"] = _search_state(B, n, tfm, G, dev)
-            if seeded:
-                state["Zv"] = _search_state(B, n, tfm, 2, dev)
-        gate_of = _gate_builder(cards, popcounts_on(n, dev), tfm.dtype)
-        Zv = state["Zv"].clone() if seeded else None
-        return (gate_of,) + _fused_search(
-            cards, cand, lo0, hi0, n, direct_layers, tfm, G, gate_of,
-            state["Z0"].clone(), verify_seed=seeded, Zv=Zv, mesh=mesh)
+        if self.Z0 is None:
+            B = cards.shape[0]
+            self.Z0 = _search_state(B, self.n, self.tfm, self.G, dev)
+            if self.seeded:
+                self.Zv0 = _search_state(B, self.n, self.tfm, 2, dev)
+        if static:
+            cards, cand = cards.clone(), cand.clone()
+            extra = _static(extra, dev)
+        s = _Solve(cards, cand, lo0.clone(), hi0.clone(), self.Z0.clone(),
+                   self.Zv0.clone() if self.seeded else None, extra)
+        s.gate_of = _gate_builder(cards, popcounts_on(self.n, dev),
+                                  self.tfm.dtype)
+        return s
 
-    return search
+    def load(self, s: _Solve, cards, cand, lo0, hi0, extra) -> None:
+        """Copy one call's inputs and the initial buffers into the
+        static ``s``."""
+        _load((s.cards, s.cand, s.lo, s.hi) + s.extra,
+              (cards, cand, lo0, hi0) + tuple(extra))
+        s.Z.copy_(self.Z0)
+        if self.seeded:
+            s.Zv.copy_(self.Zv0)
+
+    def verify(self, s: _Solve) -> None:
+        _verify_round(s, self.n, self.dl, self.tfm, self.mesh)
+
+    def round(self, s: _Solve) -> None:
+        _search_round(s, self.n, self.dl, self.tfm, self.G, self.mesh)
+
+    def run(self, s: _Solve) -> tuple:
+        """The eager search of ``s``: ``(rounds, syncs)``."""
+        return _fused_search(s, lambda: self.verify(s),
+                             lambda: self.round(s), self.seeded)
+
+
+# ------------------------------------------------------------ CUDA graphs
+def uses_graphs(device, mesh) -> bool:
+    """Whether a program's calls replay CUDA graphs: exactly when it
+    runs on one CUDA device, with no solve mesh.  CPU programs and
+    sharded ones run eagerly."""
+    return (mesh is None and device is not None
+            and torch.device(device).type == "cuda")
+
+
+def _static(args, device) -> tuple:
+    """Static tensors for a graphed program's inputs: a copy of each
+    tensor, a 0-dim float64 tensor for each number."""
+    return tuple(a.clone() if isinstance(a, torch.Tensor) else
+                 torch.tensor(float(a), dtype=torch.float64, device=device)
+                 for a in args)
+
+
+def _load(static, args) -> None:
+    """Copy one call's inputs into a graphed program's static tensors (a
+    number into its 0-dim tensor).  The shapes are the bucket's, fixed
+    at the first call."""
+    for dst, src in zip(static, args, strict=True):
+        if isinstance(src, torch.Tensor):
+            if src.shape != dst.shape or src.dtype != dst.dtype:
+                raise ValueError(
+                    f"a graphed program takes {tuple(dst.shape)} "
+                    f"{dst.dtype}, not {tuple(src.shape)} {src.dtype}")
+            dst.copy_(src)
+        else:
+            dst.fill_(float(src))
+
+
+_GRAPHED = threading.local()
+
+
+def graph_counts() -> tuple:
+    """``(replays, captures)`` this thread's program calls have made,
+    summed over every call so far: graph replays, and programs whose
+    first graph a call captured.  The engine reads them around a call."""
+    return (getattr(_GRAPHED, "replays", 0),
+            getattr(_GRAPHED, "captures", 0))
+
+
+class _Graphs:
+    """The CUDA graphs of one single-device program: one per part of its
+    call (the search round, the seeded probe, the tail), in one private
+    memory pool that they share; the call's static tensors (``solve``),
+    into which every call copies its inputs; and a lock held across a
+    call, so that two lanes never use one program's static tensors at
+    once.
+
+    A part runs eagerly at its first use (the build's first touch runs
+    the tail and the seeded probe; the first round of the first solve
+    runs the round), which makes the tables it builds lazily (a capture
+    cannot copy from the host) and loads its kernels; its second use
+    captures it on a side stream, and that use and every later one
+    replay it.  A graph's outputs live in the pool and are overwritten
+    by the next replay of any of the program's graphs: the program
+    returns copies.  The hand-written kernels launch on the current
+    stream, the capture stream while capturing, and are counted per
+    replay (``kernels.build.recording``)."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.lock = threading.Lock()
+        self.solve = None
+        self._pool = None
+        self._parts: dict = {}
+        self._seen: set = set()
+
+    def run(self, name: str, body):
+        """Run the part ``name`` of a call: eagerly at its first use,
+        captured at its second, replayed from then on.  Returns what
+        ``body`` returns, or the graph's pool-owned outputs."""
+        if name not in self._parts:
+            if name not in self._seen:
+                self._seen.add(name)
+                return body()
+            if not self._parts:
+                _GRAPHED.captures = graph_counts()[1] + 1
+            self._parts[name] = self._capture(body)
+        _GRAPHED.replays = graph_counts()[0] + 1
+        return self._replay(name)
+
+    def _capture(self, body) -> tuple:
+        from repro_torch.kernels import build
+        with torch.cuda.device(self.device):
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            cur = torch.cuda.current_stream()
+            side = torch.cuda.Stream()
+            side.wait_stream(cur)
+            with torch.cuda.stream(side), build.recording() as launches:
+                graph.capture_begin(pool=self._pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    out = body()
+                finally:
+                    graph.capture_end()
+            cur.wait_stream(side)
+        return graph, out, launches
+
+    def _replay(self, name: str):
+        from repro_torch.kernels import build
+        graph, out, launches = self._parts[name]
+        graph.replay()
+        build.add_launches(launches)
+        return out
+
+
+def _copies(out) -> tuple:
+    return tuple(t.clone() for t in out)
+
+
+def _searching_program(search: _Searcher, tail, device, mesh):
+    """A searching program's call, ``(cards, cand, lo0, hi0, *extra) ->
+    tail outputs + (rounds, syncs)``: eager, or through CUDA graphs of
+    the round, the seeded probe and ``tail`` where ``uses_graphs``."""
+    if not uses_graphs(device, mesh):
+        def fn(cards, cand, lo0, hi0, *extra):
+            s = search.solve(cards, cand, lo0, hi0, extra)
+            rounds, syncs = search.run(s)
+            return tail(s) + (rounds, syncs)
+        fn.graphed = False
+        return fn
+
+    g = _Graphs(device)
+
+    def fn(cards, cand, lo0, hi0, *extra):
+        with g.lock:
+            if g.solve is None:
+                g.solve = search.solve(cards, cand, lo0, hi0, extra,
+                                       static=True)
+            s = g.solve
+            search.load(s, cards, cand, lo0, hi0, extra)
+            rounds, syncs = _fused_search(
+                s, lambda: g.run("verify", lambda: search.verify(s)),
+                lambda: g.run("round", lambda: search.round(s)),
+                search.seeded)
+            return _copies(g.run("tail", lambda: tail(s))) + (rounds,
+                                                              syncs)
+    fn.graphed = True
+    return fn
 
 
 def build_max_program(n: int, direct_layers: int, tier: str,
                       extract: bool, gamma_batch: int = 1,
-                      shards: int = 1, mesh=None, seeded: bool = False):
+                      shards: int = 1, mesh=None, seeded: bool = False,
+                      device=None):
     """The whole-solve DPconv[max] program:
     ``(cards, cand, lo0, hi0) -> (opt[, dp, nodes, lidx], rounds, syncs)``.
 
@@ -743,35 +970,36 @@ def build_max_program(n: int, direct_layers: int, tier: str,
     ``shards > 1`` partitions the direct-layer sweeps over ``mesh`` (a
     ``launch.mesh.make_solve_mesh`` tuple of ``shards`` devices); inputs
     and outputs stay on the lead device, with the same shapes and
-    bit-identical results.
+    bit-identical results.  A program built for a CUDA ``device`` with
+    no mesh runs through CUDA graphs (``uses_graphs``, ``_Graphs``),
+    for the shapes of its first call's inputs.
     """
     tfm = transforms(tier)
     dl = min(direct_layers, n - 1)
     G = gamma_batch
     mesh = _solve_axis(shards, mesh)
-    search = _searcher(n, direct_layers, tfm, G, seeded, mesh)
 
-    def fn(cards, cand, lo0, hi0):
-        gate_of, hi, Z, rounds, syncs = search(cards, cand, lo0, hi0)
-        opt = torch.gather(cand, 1, hi[:, None])[:, 0]
+    def tail(s):
+        opt = torch.gather(s.cand, 1, s.hi[:, None])[:, 0]
         if not extract:
-            return opt, rounds, syncs
+            return (opt,)
         # extraction pass: full final layer at the optimum's gate.  For
         # G > 1 the probe axis is dropped — slice 0 keeps the singleton
         # transform in slot 1, and every slot >= 2 is rewritten before
         # the recursion reads it.
-        Zx = Z if G == 1 else Z[:, 0].contiguous()
-        dp, _, _ = feasibility_layers(gate_of(opt), n, dl, tfm, False,
+        Zx = s.Z if G == 1 else s.Z[:, 0].contiguous()
+        dp, _, _ = feasibility_layers(s.gate_of(opt), n, dl, tfm, False,
                                       Z=Zx, scan_middle=True, mesh=mesh)
         dpf = dp.to(torch.float64)
         nodes, lidx = extract_scan(dpf, n)
-        return opt, dpf, nodes, lidx, rounds, syncs
+        return opt, dpf, nodes, lidx
 
-    return fn
+    search = _Searcher(n, direct_layers, tfm, G, seeded, mesh)
+    return _searching_program(search, tail, device, mesh)
 
 
 def build_out_program(n: int, extract: bool, shards: int = 1, mesh=None,
-                      seeded: bool = False):
+                      seeded: bool = False, device=None):
     """The whole-solve connected C_out program (DPccp semantics):
     ``(cards, conn) -> (cout[, dp, nodes, lidx])`` — or, with
     ``seeded=True``, ``(cards, conn, seed_vals, seed_ok) -> ...``: the
@@ -785,14 +1013,13 @@ def build_out_program(n: int, extract: bool, shards: int = 1, mesh=None,
     table, so disconnected witnesses carry +inf error.  No search loop:
     the program reads nothing back until its results.  Bit-identical
     optima, DP tables and trees to ``dpccp_with_tree``.  ``shards > 1``
-    partitions every layer of the sweep over ``mesh``.
+    partitions every layer of the sweep over ``mesh``.  On a CUDA
+    ``device`` with no mesh the whole call is one CUDA graph, from its
+    second call on.
     """
     mesh = _solve_axis(shards, mesh)
 
-    def fn(cards, conn, seed_vals=None, seed_ok=None):
-        if seeded != (seed_ok is not None):
-            raise ValueError("the seeded out program takes seed_vals and "
-                             "seed_ok, the cold one neither")
+    def tail(cards, conn, seed_vals=None, seed_ok=None):
         dpv = minplus_connected_layers(cards, conn, n, seed_vals=seed_vals,
                                        seed_ok=seed_ok, mesh=mesh)
         cout = dpv[..., -1]
@@ -801,13 +1028,29 @@ def build_out_program(n: int, extract: bool, shards: int = 1, mesh=None,
         nodes, lidx = extract_scan(dpv, n, card=cards)
         return cout, dpv, nodes, lidx
 
+    graphs = _Graphs(device) if uses_graphs(device, mesh) else None
+
+    def fn(cards, conn, seed_vals=None, seed_ok=None):
+        if seeded != (seed_ok is not None):
+            raise ValueError("the seeded out program takes seed_vals and "
+                             "seed_ok, the cold one neither")
+        args = (cards, conn) + ((seed_vals, seed_ok) if seeded else ())
+        if graphs is None:
+            return tail(*args)
+        with graphs.lock:
+            if graphs.solve is None:
+                graphs.solve = _static(args, cards.device)
+            _load(graphs.solve, args)
+            return _copies(graphs.run("tail", lambda: tail(*graphs.solve)))
+
+    fn.graphed = graphs is not None
     return fn
 
 
 def build_cap_program(n: int, direct_layers: int, tier: str,
                       extract: bool, gamma_batch: int = 1,
                       connected: bool = False, shards: int = 1, mesh=None,
-                      seeded: bool = False):
+                      seeded: bool = False, device=None):
     """The whole-solve C_cap program (paper Sec. 8, both passes):
     ``(cards, cand, lo0, hi0, slack[, conn]) ->
     (gamma, cout[, nodes, lidx], rounds, syncs)``.
@@ -823,29 +1066,39 @@ def build_cap_program(n: int, direct_layers: int, tier: str,
     cross-product-free plan may not attain: ``cout`` is then +inf, as in
     the host pipeline.  ``seeded=True`` verifies cached pass-1 optima as
     ``build_max_program`` does.  ``shards > 1`` partitions pass 1's
-    direct layers and every layer of pass 2 over ``mesh``.
+    direct layers and every layer of pass 2 over ``mesh``.  On a CUDA
+    ``device`` with no mesh pass 1's rounds and passes 2–3 run through
+    CUDA graphs, as in ``build_max_program`` (``slack`` then rides a
+    0-dim tensor: the same float64 product).
     """
     tfm = transforms(tier)
     mesh = _solve_axis(shards, mesh)
-    search = _searcher(n, direct_layers, tfm, gamma_batch, seeded, mesh)
 
-    def fn(cards, cand, lo0, hi0, slack, conn=None):
-        _, hi, _, rounds, syncs = search(cards, cand, lo0, hi0)
-        pc = popcounts_on(n, cards.device)
-        gamma = torch.gather(cand, 1, hi[:, None])[:, 0]
+    def tail(s):
+        slack = s.extra[0]
+        pc = popcounts_on(n, s.cards.device)
+        gamma = torch.gather(s.cand, 1, s.hi[:, None])[:, 0]
         gamma = gamma * slack
-        gate_ok = (cards <= gamma[:, None]) | (pc < 2)
+        gate_ok = (s.cards <= gamma[:, None]) | (pc < 2)
         if connected:
-            dpv = minplus_connected_layers(cards, gate_ok & conn, n,
+            dpv = minplus_connected_layers(s.cards, gate_ok & s.extra[1], n,
                                            mesh=mesh)
         else:
-            dpv = minplus_value_layers(cards, gate_ok, n, mesh=mesh)
+            dpv = minplus_value_layers(s.cards, gate_ok, n, mesh=mesh)
         cout = dpv[..., -1]
         if not extract:
-            return gamma, cout, rounds, syncs
-        nodes, lidx = extract_scan(dpv, n, card=cards)
-        return gamma, cout, nodes, lidx, rounds, syncs
+            return gamma, cout
+        nodes, lidx = extract_scan(dpv, n, card=s.cards)
+        return gamma, cout, nodes, lidx
 
+    search = _Searcher(n, direct_layers, tfm, gamma_batch, seeded, mesh)
+    prog = _searching_program(search, tail, device, mesh)
+
+    def fn(cards, cand, lo0, hi0, slack, conn=None):
+        return prog(cards, cand, lo0, hi0, slack,
+                    *((conn,) if connected else ()))
+
+    fn.graphed = prog.graphed
     return fn
 
 

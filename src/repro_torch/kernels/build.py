@@ -15,10 +15,15 @@ The library is loaded and its functions bound once; after that a launch
 takes no lock but the counter's.
 
 The launch counters live here too: a wrapper adds one to its kernel's
-count where it launches the kernel, and nowhere else.
+count where it launches the kernel, and nowhere else.  The counts are of
+kernels launched on the device, in a CUDA graph or not: a capture
+launches nothing, so the launches a thread makes while capturing are
+recorded apart (``recording``), and each replay of the graph adds them
+(``add_launches``).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -66,9 +71,37 @@ def dtype_code(t) -> int:
 
 
 # ------------------------------------------------------------ counters
+_RECORDING = threading.local()
+
+
 def count_launch(name: str) -> None:
+    rec = getattr(_RECORDING, "counts", None)
+    if rec is not None:                 # captured into a graph, not run
+        rec[name] += 1
+        return
     with _LOCK:
         _LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def recording():
+    """Collect this thread's launches in the yielded dict instead of
+    counting them: a CUDA graph being captured runs none of them, and
+    each replay counts them with ``add_launches``."""
+    counts = dict.fromkeys(KERNELS, 0)
+    prev = getattr(_RECORDING, "counts", None)
+    _RECORDING.counts = counts
+    try:
+        yield counts
+    finally:
+        _RECORDING.counts = prev
+
+
+def add_launches(counts: dict) -> None:
+    """Count launches made by a replay of a captured graph."""
+    with _LOCK:
+        for name, k in counts.items():
+            _LAUNCHES[name] += k
 
 
 def launch_counts() -> dict:
