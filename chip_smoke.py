@@ -33,11 +33,13 @@ Phases (any failed check exits non-zero; nothing is caught):
                (``ccap(engine="host")``); then ``fused_ccap`` on the
                kernel tier over the 16 cliques equals the f64 tier, with
                one ``zeta_cluster`` launch per transform, no ``zeta_high``;
+               pass 2 is one ``minplus_layer`` launch per layer;
 9. out       — the C_out lane (fused DPccp, one program call per chunk)
                on 16 clique(15) plus chain/star/cycle(15): optima, trees
                and DP tables equal numpy DPsub (cliques) and the DPccp
-               enumerator (sparse graphs); one micro-batch at n = 13 with
-               all four lane costs comes back in request order;
+               enumerator (sparse graphs), one ``minplus_layer`` launch
+               per layer and no other kernel; one micro-batch at n = 13
+               with all four lane costs comes back in request order;
 10. server   — the plan server (``PlanServer._process``, one micro-batch
                per pass, plan cache off, layer cache with
                ``admission_min_probes=0``), every pass run once on fresh
@@ -56,7 +58,11 @@ Phases (any failed check exits non-zero; nothing is caught):
                fused server and to DPsub;
 11. runtime  — the serving runtime on one seeded stream
                (``make_workload``: 96 requests, n = 12..15, clique, chain,
-               star and cycle, the default cost mix, 200 requests/s), B = 16:
+               star and cycle, the default cost mix, 200 requests/s) and
+               a connected C_cap request on clique(12) with a hyperedge,
+               which the host C_cap pipeline answers, equal to
+               ``ccap(engine="host")``; every other cap stays on the
+               fused batch lane; B = 16:
                (a) ``prewarm(range(12, 16))`` from a cold program cache,
                then ``serve``, every dispatch of a prewarmed bucket a
                program-cache hit; (b) ``serve(closed_loop=True)``; (c)
@@ -99,7 +105,12 @@ Phases (any failed check exits non-zero; nothing is caught):
                as spawned processes on the card with replica 0's prewarm
                manifest shipped to the peer, 24 requests, and the two
                flight-recorder dumps merged by ``scripts/obs_tail.py``;
-15. times    — each kernel at the path's shapes: device time per launch
+15. times    — the (min,+) sweep kernel (``minplus_layer``) against the
+               gather sweep on the card, bitwise, with the launch counts
+               reset before it: n = 13, B = 16 connected and seeded, and
+               n = 19, B = 1 value gated at a clique's C_max optimum;
+               each kernel at the path's shapes (``minplus_layer`` as
+               whole sweeps): device time per call
                (torch.profiler) warm and with L2 cold, the host-launched
                call (CUDA events around 50 calls from Python), the host's
                cost per launch, its bound and its plain version; one
@@ -225,7 +236,9 @@ in a directory without the port.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -244,6 +257,7 @@ BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores;
 #                             32-bit integer adds and multiplies are
 #                             counted against the same rate
+F64_OPS_PER_S = 34e12       # H100 SXM float64 outside the tensor cores
 ZETA_KERNELS = ("zeta_cluster_kernel", "zeta_high_kernel")
 # phase 5's workload searches 23 rounds and runs 31 feasibility passes
 # (23 rounds + 8 extraction passes), as the reference does
@@ -434,9 +448,10 @@ def device_ms(fn, names, per_call: int = 1, iters: int = 200,
     return best[1] * 1e-3 / best[0] * per_call, attempt
 
 
-def bound(nbytes: float, nops: float) -> tuple:
+def bound(nbytes: float, nops: float,
+          ops_per_s: float = F32_OPS_PER_S) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / F32_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1537,7 +1552,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a card")
     try:
-        from repro_torch.core import engine, jointree, querygraph as qg
+        from repro_torch.core import engine, jointree, lattice
+        from repro_torch.core import querygraph as qg
         from repro_torch.core.baselines import dpsub
         from repro_torch.core.ccap import ccap
         from repro_torch.core.dpccp import dpccp_with_tree
@@ -1681,6 +1697,21 @@ def main() -> int:
     print(f"conv: kernel == plain version, bitwise, on {Zshape} for "
           f"k in (5, 8, 15) and the unaligned path", flush=True)
 
+    @contextlib.contextmanager
+    def eager_programs():
+        """Programs built inside run eagerly on the card, as CPU ones do:
+        a CUDA graph's replay runs no Python, so a wrapper around a
+        kernel's launcher counts only eager calls.  The program cache is
+        cleared on entry and on exit, so no eager program serves after."""
+        keep = lattice.uses_graphs
+        engine.clear_executable_cache()
+        lattice.uses_graphs = lambda device, mesh: False
+        try:
+            yield
+        finally:
+            lattice.uses_graphs = keep
+            engine.clear_executable_cache()
+
     # ----------------------------------------------------- 5. fused lane
     items = [qg.paper_clique_instance(15, seed) for seed in range(16)]
     for n in range(12, 16):
@@ -1691,10 +1722,10 @@ def main() -> int:
     # chain/star/cycle tables above reach the 1e8 cap at V: one candidate)
     items.append(qg.paper_clique_instance(12, 16))
     lane = BatchedSolver()                      # default policy, cuda
-    lane.solve(items)                           # builds the programs
-    torch.cuda.synchronize()
-    # transforms counted apart from the kernel counters: around the
-    # wrapper that runs a transform's launch plan
+    # transforms counted apart from the kernel counters, around the
+    # wrapper that runs a transform's launch plan, on eager programs (a
+    # CUDA graph's replay runs no Python); the graphed solves after it
+    # must make the same launches
     transforms5 = [0]
     zeta_cuda = ops.zeta_cuda
 
@@ -1702,7 +1733,17 @@ def main() -> int:
         transforms5[0] += 1
         return zeta_cuda(*args, **kw)
 
-    ops.zeta_cuda = counted
+    with eager_programs():
+        lane.solve(items)                       # builds the programs
+        ops.zeta_cuda = counted
+        ops.reset_launch_counts()
+        lane.solve(items)
+        torch.cuda.synchronize()
+        eager5 = ops.launch_counts()
+        ops.zeta_cuda = zeta_cuda
+    lane.solve(items)                           # builds, captures a part
+    lane.solve(items)                           # captures the rest
+    torch.cuda.synchronize()
     engine.reset_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1710,7 +1751,6 @@ def main() -> int:
     torch.cuda.synchronize()
     t_fused = time.perf_counter() - t0
     counts5 = ops.launch_counts()
-    ops.zeta_cuda = zeta_cuda
     passes5 = sum(r.meta["passes"] / r.meta["chunk"] for r in got)
     chunks5 = len(lane.last_timings)
     rounds5 = engine.stats().rounds
@@ -1726,10 +1766,14 @@ def main() -> int:
     oracle = dpconv_max_ref(items[-1][1], 12)
     check(got[-1].cost == oracle,
           f"n=12: {got[-1].cost!r} != oracle {oracle!r}")
-    check(counts5["zeta_cluster"] == transforms5[0] > 0
-          and counts5["zeta_high"] == 0,
-          f"the fused lane made {counts5} launches for {transforms5[0]} "
+    check(eager5["zeta_cluster"] == transforms5[0] > 0
+          and eager5["zeta_high"] == 0,
+          f"the fused lane made {eager5} launches for {transforms5[0]} "
           f"transforms; one zeta_cluster launch per transform expected")
+    check(counts5 == eager5,
+          f"the graphed lane made {counts5} launches, eagerly {eager5}")
+    check(engine.stats().graph_calls > 0,
+          "the timed fused lane replayed no CUDA graph")
     check((rounds5, passes5) == (LANE_ROUNDS, LANE_PASSES),
           f"{rounds5} rounds and {passes5} passes, not {LANE_ROUNDS} and "
           f"{LANE_PASSES}")
@@ -1818,8 +1862,13 @@ def main() -> int:
     cap_items = ([(q, c, "cap") for q, c in cliques15]
                  + [(q, c, "cap_conn") for q, c in sparse15])
     got8, t_cap, mem8, syncs8, counts8 = lane_run(BatchedSolver(), cap_items)
-    check(sum(counts8.values()) == 0,
-          f"the cap lane launched {counts8}: its pass 1 runs the f64 tier")
+    # pass 1 runs the f64 tier (no zeta kernel); pass 2 is one
+    # minplus_layer launch per layer 2..15 of each program call
+    check(counts8["minplus_layer"] > 0
+          and counts8["minplus_layer"] % 14 == 0
+          and sum(counts8.values()) == counts8["minplus_layer"],
+          f"the cap lane launched {counts8}: its pass 1 runs the f64 tier, "
+          f"its pass 2 14 minplus_layer launches a call")
     for (q, c, cost), r in zip(cap_items, got8):
         check(r.meta["engine"] == "fused" and r.meta["backend"] == "f64",
               f"cap lane meta {r.meta}")
@@ -1839,12 +1888,26 @@ def main() -> int:
         transforms8[0] += 1
         return zeta_cuda(*args, **kw)
 
-    ops.zeta_cuda = counted8
+    with eager_programs():
+        # the build's first touch runs the program once: uncounted
+        engine.fused_ccap(cl_cards, 15, backend="cuda", device=dev)
+        ops.zeta_cuda = counted8
+        ops.reset_launch_counts()
+        k_cap = engine.fused_ccap(cl_cards, 15, backend="cuda", device=dev)
+        torch.cuda.synchronize()
+        counts8k = ops.launch_counts()
+        ops.zeta_cuda = zeta_cuda
+    for _ in range(2):                          # builds, captures
+        engine.fused_ccap(cl_cards, 15, backend="cuda", device=dev)
     ops.reset_launch_counts()
-    k_cap = engine.fused_ccap(cl_cards, 15, backend="cuda", device=dev)
+    g_cap = engine.fused_ccap(cl_cards, 15, backend="cuda", device=dev)
     torch.cuda.synchronize()
-    counts8k = ops.launch_counts()
-    ops.zeta_cuda = zeta_cuda
+    counts8g = ops.launch_counts()
+    check(g_cap.gammas.tobytes() == k_cap.gammas.tobytes()
+          and g_cap.couts.tobytes() == k_cap.couts.tobytes()
+          and str(g_cap.trees) == str(k_cap.trees) and counts8g == counts8k,
+          f"fused_ccap(backend='cuda') graphed differs from eager: launches "
+          f"{counts8g} / {counts8k}")
     check([g.hex() for g in k_cap.gammas] == [g.hex() for g in f64_cap.gammas]
           and [c.hex() for c in k_cap.couts]
           == [c.hex() for c in f64_cap.couts]
@@ -1862,7 +1925,11 @@ def main() -> int:
     # ------------------------------------------------------------ 9. out
     out_items = [(q, c, "out") for q, c in cliques15 + sparse15]
     got9, t_out, mem9, syncs9, counts9 = lane_run(BatchedSolver(), out_items)
-    check(sum(counts9.values()) == 0, f"the out lane launched {counts9}")
+    check(counts9["minplus_layer"] > 0
+          and counts9["minplus_layer"] % 14 == 0
+          and sum(counts9.values()) == counts9["minplus_layer"],
+          f"the out lane launched {counts9}: 14 minplus_layer launches a "
+          f"call expected, nothing else")
     for i, ((q, c, _), r) in enumerate(zip(out_items, got9)):
         check(r.meta["engine"] == "fused", f"out lane meta {r.meta}")
         if i < len(cliques15):      # every subset of a clique is connected
@@ -2168,9 +2235,22 @@ def main() -> int:
                         pool_size=16, relabel_frac=0.5, fresh_frac=0.1,
                         rate=200.0)
     stream = make_workload(spec)
+    # a connected C_cap request on a clique with a hyperedge: the router
+    # sends it to the single lane's host pipeline (core.ccap), which no
+    # cap of the n = 12..15 stream reaches under the card's fused cap
+    # ceiling of 19.  Every subset of a clique is connected, so a
+    # cross-product-free plan attains the C_max optimum: the request is
+    # feasible whatever its cardinalities
+    q_h = qg.QueryGraph(12, qg.clique(12).edges, ((0b11, 0b11 << 5),))
+    stream.append(PlanRequest(
+        q=q_h, card=qg.make_cardinalities(q_h, seed=312,
+                                          base_range=(1e1, 1e3)),
+        cost="cap", connected=True, arrival=stream[-1].arrival + 0.005,
+        req_id=len(stream)))
     router0 = Router()
     routes0 = [router0.route(r.q, r.cost, None,
-                             signature=topology_signature(r.q))
+                             signature=topology_signature(r.q),
+                             connected=r.connected)
                for r in stream]
     route_mix = Counter(f"{rt.method}/{rt.lane}" for rt in routes0)
     # the approx lane (dense out and smj above n = 13) costs minutes of
@@ -2183,6 +2263,10 @@ def main() -> int:
           and route_mix.get("dpconv/single", 0) > 0
           and route_mix.get("dpccp/single", 0) > 0,
           f"the runtime stream misses a lane: {route_mix}")
+    check(Router().config.fused_cap_max_n == 19
+          and all(rt.lane == "batch" for r, rt in zip(stream, routes0)
+                  if r.cost == "cap" and not r.connected),
+          "the stream's cap requests at n = 12..15 left the fused lane")
 
     def is_clique(q):
         return len(q.edges) == q.n * (q.n - 1) // 2
@@ -2191,8 +2275,16 @@ def main() -> int:
     # the clique max optima
     t0 = time.perf_counter()
     oracle_srv = PlanServer()
-    want = {r.req_id: oracle_srv.plan_one(r.q, r.card, cost=r.cost)
+    want = {r.req_id: oracle_srv.plan_one(r.q, r.card, cost=r.cost,
+                                          connected=r.connected)
             for r in stream}
+    for r in stream[-1:]:
+        h = ccap(r.q, r.card, engine="host", connected=True)
+        check(want[r.req_id].meta.get("engine") == "host"
+              and float(want[r.req_id].cost).hex() == h.cout.hex(),
+              f"plan_one connected cap on a hypergraph n = {r.q.n}: "
+              f"{want[r.req_id].meta.get('engine')} "
+              f"{want[r.req_id].cost!r} != host pipeline {h.cout!r}")
     dpsub_max = {}
     for r in stream:
         if r.cost == "max" and is_clique(r.q):
@@ -2944,13 +3036,17 @@ def main() -> int:
         scratch.fill_(1)
 
     def row(kernel, names, source, replaces, launch, plain, nbytes, nops,
-            launches, shape, library=None, library_note=None):
-        dev_ms, tries = device_ms(launch, names)
-        cold_ms, tries_cold = device_ms(launch, names, between=flush_l2)
+            launches, shape, library=None, library_note=None, per_call=1,
+            ops_per_s=F32_OPS_PER_S):
+        """``launch`` makes ``per_call`` launches of the kernel; the row's
+        times and bound are per call."""
+        dev_ms, tries = device_ms(launch, names, per_call)
+        cold_ms, tries_cold = device_ms(launch, names, per_call,
+                                        between=flush_l2)
         call_ms = time_ms(launch)
-        host = host_us(launch)
+        host = host_us(launch, max(1, 1000 // per_call)) / per_call
         plain_ms = time_ms(plain)
-        b_ms, b_by = bound(nbytes, nops)
+        b_ms, b_by = bound(nbytes, nops, ops_per_s)
         lib_ms = lib_cold = None
         lib_text = f"library: none ({library_note})"
         if library is not None:
@@ -2972,10 +3068,10 @@ def main() -> int:
                      "profiler_sessions": [tries, tries_cold],
                      "ms_l2_cold": cold_ms,
                      "host_call_ms": call_ms, "host_us_per_launch": host,
-                     "shape": shape})
-        print(f"time {kernel} {shape}: device {dev_ms:.5f} ms per launch "
+                     "launches_per_call": per_call, "shape": shape})
+        print(f"time {kernel} {shape}: device {dev_ms:.5f} ms per call "
               f"warm, {cold_ms:.5f} ms L2 cold (torch.profiler, "
-              f"1 kernel per call, profiler sessions "
+              f"{per_call} kernel(s) per call, profiler sessions "
               f"{tries} / {tries_cold}), "
               f"host-launched call {call_ms:.5f} ms, host cost "
               f"{host:.2f} us per launch, plain {plain_ms:.5f} ms, bound "
@@ -2988,6 +3084,9 @@ def main() -> int:
                 for k in build.KERNELS}
     check(launches["zeta_high"] == 0,
           f"phases 5-14 launched zeta_high {launches['zeta_high']} times")
+    check(launches["minplus_layer"] > 0,
+          "phases 5-14 ran no minplus_layer: the cap and out lanes left "
+          "the kernel sweep")
     no_library = "no PyTorch call computes a subset zeta"
     row("zeta_cluster", ("zeta_cluster_kernel",),
         "src/repro_torch/csrc/zeta.cu",
@@ -3029,6 +3128,125 @@ def main() -> int:
         4 * rest * (k - 1) + 4 * rest, rest * k, launches["ranked_conv"],
         "(16, 16, 2^15) int32, k = 8",
         library_note="no PyTorch call computes a ranked convolution")
+    # The (min,+) sweep kernel against the gather sweep it replaces on
+    # the card (lattice._minplus_sweep, the plain version's arithmetic),
+    # bitwise, with the launch counts reset just before each kernel
+    # sweep: n = 13, B = 16 connected and seeded (sparse C_out/C_cap,
+    # batched: chain, star, cycle and sparse rows), and n = 19, B = 1
+    # value (C_cap's pass 2 on a Fig. 6 clique gated at its C_max
+    # optimum).  Then a kernel-table row for each, timed as whole sweeps.
+    from repro_torch.core.bitset import popcounts
+    from repro_torch.core.dpccp import connectivity_masks
+    from repro_torch.kernels.minplus import layer_offsets, minplus_layer
+
+    def mp_kernel(n, t):
+        dp = lattice._minplus_init(t["card"], n)
+        sets = lattice.layer_sets_on(n, dev)
+        offs = layer_offsets(n)
+        for kk in range(2, n + 1):
+            minplus_layer(dp, t["card"], t["ok"], sets[offs[kk]:offs[kk + 1]],
+                          n, kk, t["conn"], t["seed_vals"], t["seed_ok"])
+        return dp
+
+    def mp_gather(n, t):
+        if t["conn"] is None:
+            layer, inputs = lattice._value_layer, (t["card"], t["ok"])
+        else:
+            layer = lattice._connected_layer
+            inputs = (t["card"], t["conn"]) + (
+                () if t["seed_ok"] is None else (t["seed_vals"], t["seed_ok"]))
+        return lattice._minplus_sweep(t["card"], n, layer, inputs, None,
+                                      lattice.SHARD_CHUNK_ELEMS)
+
+    def mp_check(label, n, t):
+        want = mp_gather(n, t)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        got = mp_kernel(n, t)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        check(counts["minplus_layer"] == n - 1
+              and sum(counts.values()) == n - 1,
+              f"minplus {label}: launches {counts}, {n - 1} expected")
+        check(got.cpu().numpy().tobytes() == want.cpu().numpy().tobytes(),
+              f"minplus {label}: the kernel differs from the gather sweep")
+        return int(torch.isfinite(got[..., -1]).sum())
+
+    n13, b13 = 13, 16
+    makers13 = (qg.chain, qg.star, qg.cycle,
+                lambda m: qg.random_sparse(m, extra_edges=2, seed=m))
+    qs13 = [makers13[b % 4](n13) for b in range(b13)]
+    cards13 = np.stack([qg.make_cardinalities(
+        q, seed=600 + b, base_range=(1e2, 1e6),
+        selectivity_range=(1e-4, 1.0), cap=1e8) for b, q in enumerate(qs13)])
+    conn13 = on_card(np.stack([connectivity_masks(q) for q in qs13]))
+    t13 = {"card": on_card(cards13), "ok": conn13, "conn": conn13,
+           "seed_vals": None, "seed_ok": None}
+    cold13 = mp_gather(n13, t13)
+    # seeds as a layer cache replays them: the sets of up to three
+    # relations and every fifth larger set, every tenth off the sweep's
+    # own value
+    pc13 = on_card(popcounts(n13))
+    ids13 = torch.arange(1 << n13, device=dev)
+    t13["seed_ok"] = (((pc13 <= 3) | (ids13 % 5 == 0))[None, :]
+                      & conn13).contiguous()
+    t13["seed_vals"] = torch.where(ids13 % 10 == 0, cold13 * 1.5,
+                                   cold13).contiguous()
+    fin13 = mp_check("n=13 B=16 connected seeded", n13, t13)
+    check(fin13 == b13, f"minplus n=13: {fin13} of {b13} rows finite")
+    n19 = 19
+    q19 = qg.clique(n19)
+    card19 = qg.make_cardinalities(q19, seed=619, base_range=(1e2, 1e6),
+                                   selectivity_range=(1e-4, 1.0), cap=1e8)
+    gamma19 = float(engine.fused_dpconv_max(card19[None, :], n19,
+                                            extract_tree=False,
+                                            device=dev).optima[0])
+    ok19 = (card19 <= gamma19) | (popcounts(n19) < 2)
+    t19 = {"card": on_card(card19[None, :]), "ok": on_card(ok19[None, :]),
+           "conn": None, "seed_vals": None, "seed_ok": None}
+    fin19 = mp_check("n=19 B=1 value", n19, t19)
+    check(fin19 == 1, "minplus n=19: the full set's value is not finite")
+    print(f"minplus: minplus_layer == gather sweep bitwise at n=13 B=16 "
+          f"(connected, seeded; 12 launches) and n=19 B=1 (value, gated "
+          f"at gamma* {gamma19!r}, {int(ok19.sum())} of {1 << n19} sets "
+          f"on; 18 launches) {card}", flush=True)
+
+    def mp_splits(n):
+        return sum(math.comb(n, kk) * ((1 << (kk - 1)) - 1)
+                   for kk in range(2, n + 1))
+
+    no_minplus = "no PyTorch call computes a (min,+) subset sweep"
+    # least bytes: every table the sweep reads once (card 8 B, the
+    # connectivity mask that is also the gate 1 B, seed values 8 B and
+    # flags 1 B) and dp read once and written once (16 B), per set and
+    # row; operations: an add and a min per split of layers 2..n
+    row("minplus_layer", ("minplus_layer_kernel",),
+        "src/repro_torch/csrc/minplus.cu",
+        "src/repro/core/lattice.py:357 (XLA gathers, no pallas_call)",
+        lambda: mp_kernel(n13, t13), lambda: mp_gather(n13, t13),
+        b13 * (1 << n13) * (8 + 1 + 8 + 1 + 16), 2 * b13 * mp_splits(n13),
+        launches["minplus_layer"],
+        "(16, 2^13) float64, connected, seeded, layers 2..13",
+        library_note=no_minplus, per_call=n13 - 1,
+        ops_per_s=F64_OPS_PER_S)
+    # card 8 B, gate 1 B, dp 16 B per set
+    row("minplus_layer", ("minplus_layer_kernel",),
+        "src/repro_torch/csrc/minplus.cu",
+        "src/repro/core/lattice.py:357 (XLA gathers, no pallas_call)",
+        lambda: mp_kernel(n19, t19), lambda: mp_gather(n19, t19),
+        (1 << n19) * (8 + 1 + 16), 2 * mp_splits(n19),
+        launches["minplus_layer"], "(1, 2^19) float64, value, layers 2..19",
+        library_note=no_minplus, per_call=n19 - 1,
+        ops_per_s=F64_OPS_PER_S)
+    # drop the gather sweep's split tables (18.6 GB at n = 19, as much
+    # again on the host) before the phases that follow
+    for key in [key for key in lattice._DEVICE_TABLES
+                if key[0] == "direct" and key[1] in (n13, n19)
+                and key[2] > 4]:
+        del lattice._DEVICE_TABLES[key]
+    lattice.direct_layer_indices.cache_clear()
+    del t13, t19, cold13
+    torch.cuda.empty_cache()
     # one whole transform, warm in L2 and after a 64 MB write (L2 cold);
     # its bound sums the plan's launches: the cluster launch reads and
     # writes the table, a zeta_high launch over b bits reads it and

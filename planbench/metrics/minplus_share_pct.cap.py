@@ -1,0 +1,10 @@
+"""The (min,+) sweep kernel's share of the window's device kernel time,
+% (``minplus_roofline.cap.py``); None where the trace holds no such
+kernel."""
+from pbench import registry
+
+_SWEEP = registry._module("metrics", "minplus_roofline.cap")
+
+
+def read(run):
+    return _SWEEP.share_pct(run)

@@ -19,6 +19,10 @@ each it keeps the result line and adds:
   latency median;
 * ``idle_gaps``: the longest idle stretches of the device, each with the
   spans and program calls that cover its middle;
+* ``minplus_per_call``: the (min,+) sweep kernel's device time and
+  launches inside each sweeping program call (records with a
+  ``sweep_total``), by cost, n and batch bucket: calls, median and sum
+  of the milliseconds, median launches;
 * ``span_site_ns``: the host cost of one span site (open and close a
   child span) on a tracer without and with a profiler session, and of
   ``plan_one``'s site with no session (the shared null span).
@@ -57,7 +61,13 @@ SMALL = {
         {"cost": "out", "weight": 0.15, "n": [7, 7]}]},
     "plansvc.bigjoin": {"classes": [{"cost": "max", "weight": 1.0,
                                      "n": [8, 9]}], "block": 2},
+    "plansvc.bigjoin-cap": {"classes": [{"cost": "cap", "weight": 1.0,
+                                         "n": [8, 9]}], "block": 2},
+    "plansvc.sparse-outcap": {"clients": 4, "classes": [
+        {"cost": "out", "weight": 0.5, "n": [7, 8]},
+        {"cost": "cap", "weight": 0.5, "n": [7, 8]}]},
 }
+MINPLUS = "minplus_layer_kernel"
 
 
 def card() -> str:
@@ -101,6 +111,28 @@ def _covering(entries, t_ns):
     out = [(e[4] - e[3], e[0], e[5]) for e in entries if e[3] <= t_ns
            <= e[4]]
     return [f"{name}@{thread}" for _, name, thread in sorted(out)]
+
+
+def minplus_per_call(run, recs) -> dict:
+    """The sweep kernel's device time (ms) and launches inside each
+    sweeping program call, grouped by (cost, n, B)."""
+    dt = run.devtrace
+    ks = sorted((a, b) for a, b, name, k in dt.ops if k and MINPLUS in name)
+    by = collections.defaultdict(list)
+    for r in recs:
+        if not getattr(r, "sweep_total", 0):
+            continue
+        c = (r.t0_ns - dt.t0_ns) * 1e-9
+        d = (r.t1_ns - dt.t0_ns) * 1e-9
+        inside = [(a, b) for a, b in ks if a < d and b > c]
+        by[f"{r.cost} n={r.n} B={r.B}"].append(
+            (1e3 * sum(min(b, d) - max(a, c) for a, b in inside),
+             len(inside)))
+    return {k: {"calls": len(v),
+                "ms_p50": stats.percentile([t for t, _ in v], 50),
+                "ms_sum": sum(t for t, _ in v),
+                "launches_p50": stats.percentile([m for _, m in v], 50)}
+            for k, v in sorted(by.items())}
 
 
 def analyse(run) -> dict:
@@ -167,6 +199,7 @@ def analyse(run) -> dict:
                      "spans": [] if entries is None
                      else _covering(entries, mid)[:4]})
     out["idle_gaps"] = rows
+    out["minplus_per_call"] = minplus_per_call(run, recs)
     idle = dt.window_s - dt.busy_s
     out["idle_in_calls_s"] = idle - (
         dt.window_s - stats.union_length(

@@ -53,7 +53,11 @@ masks, the seed bracket, the uploads), ``readback_s`` the copies of the
 results to the host and ``trees_s`` the join trees' assembly; ``queries``
 is the real (unpadded) row count and ``t0_ns``/``t1_ns`` bound the call
 on ``time.time_ns()``'s clock, the one ``torch.profiler`` stamps, so a
-record lies over a profiled device trace.  ``flops`` and
+record lies over a profiled device trace.  A call with a (min,+) sweep
+(``cap``, ``cap_conn``, ``out``) also reports ``sweep_sets``, the sets of
+layers 2..n over its rows that passed the sweep's gate (counted on the
+device, ``lattice.live_sets``, and read back with the optima), and
+``sweep_total``, all the sets of those layers times its rows.  ``flops`` and
 ``bytes_accessed`` are the port's own count of the work
 (``program_work``), never a compiler's.  The serving runtime reads the
 records of its dispatches (``dispatch_mark``/``dispatches_since``) and
@@ -177,6 +181,8 @@ class DispatchRecord:
     t0_ns: int = 0             # the call's interval, epoch nanoseconds
     t1_ns: int = 0
     graphed: bool = False      # the call replayed the program's CUDA graphs
+    sweep_sets: int = 0        # sets the (min,+) sweep evaluated (gated on)
+    sweep_total: int = 0       # sets of its layers 2..n times the rows
 
     def as_dict(self) -> dict:
         d = dataclasses.asdict(self)
@@ -379,10 +385,11 @@ def sharded_ceiling(base_n: int, shards: int) -> int:
     +1 in n multiplies it by 3, so D devices buy ~log₃(D) extra
     relations; claim a conservative +1 per doubling, clamped at the
     int32 and extraction tier bound n = 15 (as the reference does).
-    """
+    The lift never lowers a ceiling: a base above the clamp stays."""
     if shards <= 1:
         return base_n
-    return min(base_n + max(0, int(shards).bit_length() - 1), 15)
+    return max(base_n,
+               min(base_n + max(0, int(shards).bit_length() - 1), 15))
 
 
 def get_program(n: int, B: int, C: int, tier: str, direct_layers: int,
@@ -662,6 +669,8 @@ def _finish_record(rec: DispatchRecord, rounds: int, gamma_batch: int,
                    extract: bool, direct_layers: int = 4) -> None:
     """Fill a record's rounds and work count once the solve is read."""
     rec.rounds = int(rounds)
+    if not rec.cost.startswith("max"):
+        rec.sweep_total = rec.B * ((1 << rec.n) - rec.n - 1)
     rec.flops, rec.bytes_accessed = program_work(
         rec.n, rec.B, rec.C, rec.cost, rec.backend, gamma_batch,
         rec.rounds, extract, direct_layers)
@@ -736,6 +745,13 @@ def _host(out) -> tuple:
     """Copy a program's result tensors to the host: ``(arrays, syncs)``,
     one sync per copy."""
     return [t.cpu().numpy() for t in out], len(out)
+
+
+def _sweep_read(host: list, rec: DispatchRecord) -> list:
+    """Take a sweep program's last result, its live-set count, into
+    ``rec.sweep_sets``; the other results are returned."""
+    rec.sweep_sets = int(host[-1])
+    return host[:-1]
 
 
 def _trees_from_arrays(nodes: np.ndarray, lidx: np.ndarray,
@@ -862,6 +878,7 @@ def fused_out(qs: list, cards, n: int, extract_tree: bool = True,
     _count_seeds(seeded)
     _finish_record(prof, 0, 1, extract_tree)
     host, syncs = _read_back(out, prof)
+    host = _sweep_read(host, prof)
     trees: list = [None] * B
     dpn = None
     if extract_tree:
@@ -936,6 +953,7 @@ def fused_ccap(cards, n: int, gamma_slack: float = 1.0,
     *result, rounds, syncs = out
     _finish_record(prof, rounds, gamma_batch, extract_tree, direct_layers)
     host, copies = _read_back(result, prof)
+    host = _sweep_read(host, prof)
     syncs += copies
     trees: list = [None] * B
     if extract_tree:

@@ -9,8 +9,12 @@ a gamma gate (``minplus_value_layers``, the C_cap pass 2); *connected
 value* — the same sweep under per-subset valid-split masks, DPccp's
 search space as bitset tensors (``minplus_connected_layers``, C_out).
 The (min,+) sweeps have no transform shortcut (that hardness is the
-paper's point): every layer gathers its split table directly, in f64 on
-either tier.
+paper's point): every layer enumerates its splits directly, in f64 on
+either tier.  On one CUDA device without a solve mesh each layer is one
+launch of the table-free ``minplus_layer`` kernel (``kernels.minplus``),
+which skips gated-off sets before any split; on CPU tensors and over a
+mesh each layer gathers its split table (``direct_layer_tables``), the
+plain version.  Both give the same values, bit for bit.
 
 Transform tiers (``transforms``), used by the feasibility recursion:
 
@@ -154,6 +158,16 @@ def direct_layer_tables(n: int, k: int, device):
     return _on_device(("direct", n, k, str(device)), lambda: tuple(
         torch.as_tensor(a, dtype=torch.int64, device=device)
         for a in direct_layer_indices(n, k)))
+
+
+def layer_sets_on(n: int, device) -> torch.Tensor:
+    """The 2^n masks ordered by popcount (``kernels.minplus.layer_sets``)
+    as an int32 tensor on ``device``: the sets of every layer of the
+    kernel sweep, one table per n."""
+    from repro_torch.kernels.minplus import layer_sets
+    device = torch.device(device)
+    return _on_device(("layer_sets", n, str(device)),
+                      lambda: torch.as_tensor(layer_sets(n), device=device))
 
 
 # The sharded layer sweeps gather at most this many elements per batch
@@ -428,6 +442,42 @@ def _minplus_sweep(card, n: int, layer, inputs: tuple, mesh, chunk: int):
     return dp
 
 
+def _uses_kernel(card, mesh) -> bool:
+    """Whether a (min,+) sweep runs the ``minplus_layer`` kernel: on one
+    CUDA device, with no solve mesh."""
+    return mesh is None and card.device.type == "cuda"
+
+
+def _kernel_sweep(card, n: int, ok, conn=None, seed_vals=None,
+                  seed_ok=None):
+    """A (min,+) sweep as one ``minplus_layer`` launch per layer 2..n,
+    in place on a fresh ``dp``: no split table is built.  ``ok`` gates
+    each set, ``conn`` (connected sweeps) checks both sides of each
+    split, ``seed_ok``/``seed_vals`` replace the values of seeded
+    sets."""
+    from repro_torch.kernels.minplus import layer_offsets, minplus_layer
+    dp = _minplus_init(card, n)
+    card, ok, conn, seed_vals, seed_ok = (
+        None if t is None else t.contiguous()
+        for t in (card, ok, conn, seed_vals, seed_ok))
+    sets = layer_sets_on(n, card.device)
+    offs = layer_offsets(n)
+    for k in range(2, n + 1):
+        minplus_layer(dp, card, ok, sets[offs[k]:offs[k + 1]], n, k, conn,
+                      seed_vals, seed_ok)
+    return dp
+
+
+def live_sets(ok, n: int, seed_ok=None) -> torch.Tensor:
+    """The sets of layers 2..n, summed over the rows, that a sweep
+    gated by ``ok`` evaluates: gated on and not seeded.  A 0-dim int64
+    tensor on ``ok``'s device, counted there (no host read)."""
+    live = ok & (popcounts_on(n, ok.device) >= 2)
+    if seed_ok is not None:
+        live = live & ~seed_ok
+    return live.sum(dtype=torch.int64)
+
+
 def _value_layer(dp, sets, subs, comps, card, gate_ok):
     """Layer values of the (min,+) value sweep at ``sets``."""
     combo = dp[..., subs]                              # (..., m, 2^k)
@@ -444,8 +494,10 @@ def minplus_value_layers(card, gate_ok, n: int, mesh=None,
 
     ``dp[S] = c(S) + min_T (dp[T] + dp[S\\T])`` for gated sets
     (``gate_ok``: c(S) <= gamma), +inf otherwise; singletons cost 0.
-    Every layer gathers its (..., C(n,k), 2^k) split table, and its
-    tensors are freed before the next layer.  Bit-identical to
+    On one CUDA device (``mesh`` None) every layer is one
+    ``minplus_layer`` launch (``_kernel_sweep``); elsewhere every layer
+    gathers its (..., C(n,k), 2^k) split table, and its tensors are
+    freed before the next layer.  Bit-identical to
     ``baselines.dpsub(mode="out", prune_gamma=gamma)``: min is
     order-independent and the add association ``(dp[T] + dp[S\\T]) +
     c(S)`` matches.
@@ -459,6 +511,8 @@ def minplus_value_layers(card, gate_ok, n: int, mesh=None,
     full 2^k split axis stays on one shard (same min, same add
     association), so the sweep stays bit-identical.
     """
+    if _uses_kernel(card, mesh):
+        return _kernel_sweep(card, n, gate_ok)
     return _minplus_sweep(card, n, _value_layer, (card, gate_ok), mesh,
                           shard_chunk)
 
@@ -491,7 +545,9 @@ def minplus_connected_layers(card, conn, n: int, seed_vals=None,
     connected S a crossing join edge is then implied), so the valid
     splits are exactly DPccp's csg/cmp pairs.  Disconnected sets stay
     +inf; singletons cost 0.  The valid-split masks of a layer are
-    gathers of ``conn`` by the same tables (``conn[subs] & conn[comps]``).
+    gathers of ``conn`` by the same tables (``conn[subs] & conn[comps]``);
+    on one CUDA device the ``minplus_layer`` kernel checks ``conn`` at
+    both sides of each split it enumerates instead.
     Bit-identical to ``dpccp.dpccp(q, card, mode="out")``: the same
     multiset of pairs, an order-independent min, and the enumerator's
     add association.
@@ -510,6 +566,8 @@ def minplus_connected_layers(card, conn, n: int, seed_vals=None,
     ``minplus_value_layers``; the valid-split masks are then only ever
     built for a shard's own block.
     """
+    if _uses_kernel(card, mesh):
+        return _kernel_sweep(card, n, conn, conn, seed_vals, seed_ok)
     seeds = () if seed_ok is None else (seed_vals, seed_ok)
     return _minplus_sweep(card, n, _connected_layer, (card, conn) + seeds,
                           mesh, shard_chunk)
@@ -1001,7 +1059,7 @@ def build_max_program(n: int, direct_layers: int, tier: str,
 def build_out_program(n: int, extract: bool, shards: int = 1, mesh=None,
                       seeded: bool = False, device=None):
     """The whole-solve connected C_out program (DPccp semantics):
-    ``(cards, conn) -> (cout[, dp, nodes, lidx])`` — or, with
+    ``(cards, conn) -> (cout[, dp, nodes, lidx], live)`` — or, with
     ``seeded=True``, ``(cards, conn, seed_vals, seed_ok) -> ...``: the
     sweep replays cached sub-table values where ``seed_ok`` (see
     ``minplus_connected_layers``).
@@ -1012,10 +1070,11 @@ def build_out_program(n: int, extract: bool, shards: int = 1, mesh=None,
     from ``conn`` and the value-mode extraction scan reads the same
     table, so disconnected witnesses carry +inf error.  No search loop:
     the program reads nothing back until its results.  Bit-identical
-    optima, DP tables and trees to ``dpccp_with_tree``.  ``shards > 1``
-    partitions every layer of the sweep over ``mesh``.  On a CUDA
-    ``device`` with no mesh the whole call is one CUDA graph, from its
-    second call on.
+    optima, DP tables and trees to ``dpccp_with_tree``.  ``live``
+    (0-dim int64) counts the sets the sweep evaluated (``live_sets``).
+    ``shards > 1`` partitions every layer of the sweep over ``mesh``.
+    On a CUDA ``device`` with no mesh the whole call is one CUDA graph,
+    from its second call on.
     """
     mesh = _solve_axis(shards, mesh)
 
@@ -1023,10 +1082,11 @@ def build_out_program(n: int, extract: bool, shards: int = 1, mesh=None,
         dpv = minplus_connected_layers(cards, conn, n, seed_vals=seed_vals,
                                        seed_ok=seed_ok, mesh=mesh)
         cout = dpv[..., -1]
+        live = live_sets(conn, n, seed_ok)
         if not extract:
-            return (cout,)
+            return cout, live
         nodes, lidx = extract_scan(dpv, n, card=cards)
-        return cout, dpv, nodes, lidx
+        return cout, dpv, nodes, lidx, live
 
     graphs = _Graphs(device) if uses_graphs(device, mesh) else None
 
@@ -1053,12 +1113,13 @@ def build_cap_program(n: int, direct_layers: int, tier: str,
                       seeded: bool = False, device=None):
     """The whole-solve C_cap program (paper Sec. 8, both passes):
     ``(cards, cand, lo0, hi0, slack[, conn]) ->
-    (gamma, cout[, nodes, lidx], rounds, syncs)``.
+    (gamma, cout[, nodes, lidx], live, rounds, syncs)``.
 
     Pass 1 is the lockstep feasibility search of DPconv[max] on
     ``tier`` (gamma* = optimal C_max); pass 2 runs the (min,+) value
     sweep under the gate ``c(S) <= slack · gamma*`` (singletons and ∅
-    pass); pass 3 extracts the C_out witness tree.  ``slack`` is the
+    pass; ``live`` counts the sets it lets through, ``live_sets``);
+    pass 3 extracts the C_out witness tree.  ``slack`` is the
     Sec. 11 resource-aware knob.  ``connected=True`` is the
     no-cross-products cap: pass 2 runs the connected sweep under ``gate
     & conn``, bit-identical to ``dpconv_max`` + ``dpccp(prune_gamma=
@@ -1081,15 +1142,16 @@ def build_cap_program(n: int, direct_layers: int, tier: str,
         gamma = gamma * slack
         gate_ok = (s.cards <= gamma[:, None]) | (pc < 2)
         if connected:
-            dpv = minplus_connected_layers(s.cards, gate_ok & s.extra[1], n,
-                                           mesh=mesh)
+            gate_ok = gate_ok & s.extra[1]
+            dpv = minplus_connected_layers(s.cards, gate_ok, n, mesh=mesh)
         else:
             dpv = minplus_value_layers(s.cards, gate_ok, n, mesh=mesh)
         cout = dpv[..., -1]
+        live = live_sets(gate_ok, n)
         if not extract:
-            return gamma, cout
+            return gamma, cout, live
         nodes, lidx = extract_scan(dpv, n, card=s.cards)
-        return gamma, cout, nodes, lidx
+        return gamma, cout, nodes, lidx, live
 
     search = _Searcher(n, direct_layers, tfm, gamma_batch, seeded, mesh)
     prog = _searching_program(search, tail, device, mesh)

@@ -31,8 +31,9 @@ solves, ``chunk = 1``) and the host DPccp enumerator for out.
 Solve mesh (``BatchPolicy.solve_shards = D``): chunks at ``n >=
 shard_min_n`` run the fused engine over a D-way solve mesh
 (``launch.mesh``; ``_shards`` clamps D to the devices the mesh may use),
-which is what lets the server lift its fused cap/out ceilings past
-n = 13 (``engine.sharded_ceiling``).  The host tiers never shard.
+which is what lets the server lift its fused out ceiling, and the cap
+ceiling of the mesh's gather sweep, past n = 13
+(``engine.sharded_ceiling``).  The host tiers never shard.
 
 Execution splits into ``submit`` (stage the items) and ``collect`` (run
 them, possibly on another thread): the serving runtime carries a

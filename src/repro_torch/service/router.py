@@ -20,11 +20,16 @@ different cost/optimality envelopes.  The router turns a request's
   approximation takes over once exact blows the budget or ``n`` grows
   past ``exact_out_max_n``.
 * ``cost="cap"``  -> the fused two-pass C_cap lattice program on the
-  *batch* lane for mid-size ``n`` (the serving tier batches ``cap``
+  *batch* lane for ``small_n < n <= fused_cap_max_n`` = 19, the largest
+  n the float64 C_max program serves (the serving tier batches ``cap``
   requests exactly like ``max`` ones since the whole pipeline is one
-  lattice program); tiny ``n`` and ``n`` past ``fused_cap_max_n`` (where
-  the device (min,+) pass's gather tables outgrow their worth) stay on
-  the single-lane host pipeline.
+  lattice program; on one card its (min,+) pass is the table-free
+  ``minplus_layer`` kernel, so no split table bounds it); tiny ``n`` and
+  ``n`` past the ceiling stay on the single-lane host pipeline.  On CPU
+  tensors and over a solve mesh the pass gathers split tables, so a
+  server off one card, or with ``solve_shards > 1``, starts from
+  ``GATHER_SWEEP_MAX_N`` instead (a mesh then lifts it,
+  ``engine.sharded_ceiling``).
 * ``cost="smj"``  -> DPsub with the sunk sort-merge term; approx fallback.
 
 Deadlines: the router keeps an EWMA latency model seeded with rough
@@ -58,6 +63,10 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.core.querygraph import QueryGraph
+
+# the fused (min,+) ceiling where the sweep gathers split tables (CPU
+# tensors, a solve mesh): the tables grow as 3^n, 6.2 GB at n = 18
+GATHER_SWEEP_MAX_N = 13
 
 # methods the single/batch lanes know how to execute
 _METHODS = ("dpconv", "dpsub", "dpccp", "approx", "goo")
@@ -93,7 +102,7 @@ class Route:
 class RouterConfig:
     small_n: int = 5            # below: numpy DPsub beats the device
     exact_out_max_n: int = 13   # exact C_out DPsub admission ceiling
-    fused_cap_max_n: int = 13   # fused C_cap batch-lane admission ceiling
+    fused_cap_max_n: int = 19   # fused C_cap batch-lane admission ceiling
     fused_out_max_n: int = 13   # fused connected-C_out batch-lane ceiling
     sparse_density: float = 0.5  # <=: route C_out to DPccp
     approx_eps: float = 0.25

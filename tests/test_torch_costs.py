@@ -251,8 +251,9 @@ def test_fused_ccap_matches_reference(connected, slack, G, tier):
     st = engine.stats()
     assert (st.dispatches, st.solves, st.queries, st.rounds) == \
         (1, 1, 3, got.rounds)
-    # one loop-condition read per round, the exit test, 4 result copies
-    assert st.host_syncs == got.syncs == got.rounds + 1 + 4
+    # one loop-condition read per round, the exit test, 5 result copies
+    # (the reference's 4 and the sweep's live-set count)
+    assert st.host_syncs == got.syncs == got.rounds + 1 + 5
 
 
 @pytest.mark.parametrize("n,B", [(5, 3), (7, 4), (8, 5)])
@@ -266,10 +267,11 @@ def test_fused_out_matches_reference(n, B):
     assert _strs(got.trees) == _strs(want.trees)
     st = engine.stats()
     assert (st.dispatches, st.solves, st.queries, st.rounds) == (1, 1, B, 0)
-    assert st.host_syncs == got.syncs == 4        # the result copies only
+    # the result copies only: the reference's 4 and the live-set count
+    assert st.host_syncs == got.syncs == 5
     short = engine.fused_out([_port(q) for q in qs], cards, n,
                              extract_tree=False, device=CPU)
-    assert _hex(short.couts) == _hex(want.couts) and short.syncs == 1
+    assert _hex(short.couts) == _hex(want.couts) and short.syncs == 2
 
 
 def test_fused_programs_reject_what_dpccp_excludes():

@@ -222,13 +222,14 @@ def test_launch_counts_under_capture_and_replay():
         build.count_launch("zeta_cluster")
         build.count_launch("ranked_conv")
         build.count_launch("ranked_conv")
-    assert rec == {"zeta_cluster": 1, "zeta_high": 0, "ranked_conv": 2}
+    assert rec == {"zeta_cluster": 1, "zeta_high": 0, "ranked_conv": 2,
+                   "minplus_layer": 0}
     assert build.launch_counts() == {"zeta_cluster": 1, "zeta_high": 0,
-                                     "ranked_conv": 0}
+                                     "ranked_conv": 0, "minplus_layer": 0}
     build.add_launches(rec)
     build.add_launches(rec)
     assert build.launch_counts() == {"zeta_cluster": 3, "zeta_high": 0,
-                                     "ranked_conv": 4}
+                                     "ranked_conv": 4, "minplus_layer": 0}
     build.count_launch("zeta_high")           # recording is over
     assert build.launch_counts()["zeta_high"] == 1
     build.reset_launch_counts()

@@ -131,7 +131,7 @@ def test_ops_on_cpu_launch_no_kernel():
     ops.mobius_batch_op(ops.zeta_batch_op(x))
     ops.ranked_conv_op(torch.ones((13, 1 << 12), dtype=torch.int32), 7)
     assert ops.launch_counts() == {"zeta_cluster": 0, "zeta_high": 0,
-                                   "ranked_conv": 0}
+                                   "ranked_conv": 0, "minplus_layer": 0}
     with pytest.raises(ValueError):
         ops.zeta_batch_op(x[0])
 

@@ -175,8 +175,9 @@ def test_verified_seed_costs_one_round(cost):
     ref_warm = _solve(ref_optimize, form.q, form.card, cost, seed_opt=opt)
     assert engine.stats().rounds == ref_engine.stats().rounds == 1
     assert cold_rounds > 1
-    # the loop's exit test and four result copies: the probe adds none
-    assert engine.stats().host_syncs == 1 + 4
+    # the loop's exit test and the result copies (four, and the cap
+    # sweep's live-set count): the probe adds none
+    assert engine.stats().host_syncs == 1 + (5 if cost == "cap" else 4)
     assert _key(warm) == _key(cold) == _key(ref_warm)
     fs = engine.fused_dpconv_max(form.card, 8, seed_opt=[opt], device=CPU)
     assert (fs.rounds, fs.seeded, fs.syncs) == (1, 1, 1 + 4)

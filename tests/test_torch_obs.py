@@ -254,10 +254,12 @@ def test_engine_dispatch_records_compile_execute_split():
     assert engine.stats().exec_cache_hits == 1
 
 
-# the port's split of a record's host time, and whether its call replayed
-# CUDA graphs, beyond the reference's fields
+# the port's split of a record's host time, whether its call replayed
+# CUDA graphs, and its (min,+) sweep's live and total sets, beyond the
+# reference's fields
 HOST_SPLIT = {"queries", "prepare_s", "launch_s", "sync_s", "readback_s",
-              "trees_s", "t0_ns", "t1_ns", "graphed"}
+              "trees_s", "t0_ns", "t1_ns", "graphed", "sweep_sets",
+              "sweep_total"}
 
 
 @pytest.mark.parametrize("cost", ["max", "cap", "out"])

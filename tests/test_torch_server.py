@@ -123,8 +123,13 @@ ROUTE_CASES = [(cost, maker, n, connected)
 @pytest.mark.parametrize("cost", ["max", "out", "cap", "smj"])
 def test_router_matches_reference(cost):
     """Method, lane, params and reason equal the reference's for every
-    topology, size and connectivity flag, without a budget."""
-    router, ref = Router(), RefRouter()
+    topology, size and connectivity flag, without a budget, under the
+    same ceilings: the port's fused C_cap ceiling is 19 (its one-card
+    (min,+) sweep builds no split tables), the reference's 13."""
+    from repro.service.router import RouterConfig as RefConfig
+    router = Router()
+    ref = RefRouter(RefConfig(
+        fused_cap_max_n=router.config.fused_cap_max_n))
     for c, maker, n, connected in ROUTE_CASES:
         if c != cost:
             continue
@@ -136,8 +141,9 @@ def test_router_matches_reference(cost):
         assert _route(got) == _route(want)
         assert got.lane_cost == want.lane_cost
     assert router.config.small_n == 5
-    assert router.config.fused_cap_max_n == router.config.fused_out_max_n \
-        == 13
+    assert router.config.fused_cap_max_n == 19
+    assert router.config.fused_out_max_n == \
+        RefRouter().config.fused_out_max_n == 13
 
 
 # --------------------------------------------------------------- workload
@@ -525,6 +531,7 @@ def test_sharded_server_lifts_ceilings_and_matches_reference():
     assert sorted(r.cost for r in recs) == ["cap", "cap_conn", "max",
                                             "out"]
     assert all(r.shards == 4 and len(r.devices) == 4 for r in recs)
-    # an unsharded server keeps the single-device ceilings
+    # an unsharded CPU server keeps the single-device ceilings (its
+    # (min,+) sweep gathers split tables, so cap's is the gather sweep's)
     cfg = PlanServer(device=CPU).router.config
     assert (cfg.fused_cap_max_n, cfg.fused_out_max_n) == (13, 13)
