@@ -37,6 +37,21 @@ def layer_indices(n: int) -> tuple:
     )
 
 
+def lattice_map(targets) -> np.ndarray:
+    """(2^r,) int64 map ``m`` with ``m[S]`` = OR of ``targets[i]`` over the
+    bits ``i`` of ``S``, for ``r = len(targets)``.
+
+    Built by bit doubling: ``m[2^i : 2^(i+1)] = m[:2^i] | targets[i]``, so
+    2^r writes in all.  ``targets[i] = 1 << perm[i]`` gives a relabeling
+    map, ``1 << rels[i]`` a compact-to-outer subset map.
+    """
+    m = np.zeros(1 << len(targets), np.int64)
+    for i, t in enumerate(targets):
+        half = 1 << i
+        np.bitwise_or(m[:half], int(t), out=m[half:2 * half])
+    return m
+
+
 def bits_of(mask: int) -> list[int]:
     """Positions of the set bits of ``mask`` (ascending)."""
     out = []

@@ -25,6 +25,8 @@ from typing import Sequence
 
 import numpy as np
 
+from repro_torch.core.bitset import lattice_map
+
 
 @dataclasses.dataclass(frozen=True)
 class QueryGraph:
@@ -207,16 +209,13 @@ def permute_card(card: np.ndarray, n: int, perm: Sequence[int]) -> np.ndarray:
 
     Pure gather — values are moved, never recomputed, so two tables that
     differ only by a relabeling stay byte-identical after canonicalization
-    (this is what makes the plan-cache key exact).
+    (this is what makes the plan-cache key exact).  Gathered through the
+    inverse relabeling's lattice map: ``out[T] = card[perm^-1(T)]``.
     """
-    size = 1 << n
-    S = np.arange(size, dtype=np.int64)
-    Sp = np.zeros(size, dtype=np.int64)
+    inv = [0] * n
     for i in range(n):
-        Sp |= ((S >> i) & 1) << int(perm[i])
-    out = np.empty_like(np.asarray(card))
-    out[Sp] = np.asarray(card)
-    return out
+        inv[int(perm[i])] = i
+    return np.asarray(card)[lattice_map([1 << j for j in inv])]
 
 
 # ------------------------------------------------------------ cardinalities

@@ -32,6 +32,13 @@ byte-exact: key equality implies the two instances are relabelings of one
 another, and a cached canonical-space plan can be replayed by relabeling
 its join tree back through the inverse permutation (``relabel_tree``).
 
+Each form permutes its cardinality table once: the search keeps the
+winning leaf's relabeled graph and table, and ``canonicalize`` and
+``subset_signature`` hash them in place.  With one leaf (every
+random-cardinality input) no byte string is built at all; with several,
+each leaf builds its bytes for the comparison.  The ``canon`` provider
+of a server's ``MetricsRegistry`` reads its counters (``stats()``).
+
 ``topology_signature`` additionally buckets the graph into a coarse
 topology class (chain/star/cycle/clique/grid-like/tree/sparse/dense) —
 the admission router keys its policy and its latency model on it.
@@ -44,13 +51,28 @@ import math
 
 import numpy as np
 
+from repro_torch.core.bitset import lattice_map
 from repro_torch.core.jointree import JoinTree
 from repro_torch.core.querygraph import (QueryGraph, permute_card, permute_mask,
                                    relabel)
+from repro_torch.obs import metrics as obs_metrics
 
 # log-space quantization for refinement colors: coarse enough to absorb
 # float noise, fine enough to separate genuinely different cardinalities
 _QUANT = 1e6
+
+
+# canonicalization counters, thread-safe: whole-query forms
+# (canonicalize), induced sub-problem forms (subset_signature),
+# individualization leaves explored, cardinality tables permuted (one a
+# leaf)
+_COUNTERS = {f: obs_metrics.Counter("canon." + f)
+             for f in ("forms", "subset_forms", "leaves", "table_perms")}
+
+
+def stats() -> dict:
+    """The canonicalization counters (the server's ``canon`` provider)."""
+    return {f: c.value for f, c in _COUNTERS.items()}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,23 +133,38 @@ def _refine(q: QueryGraph, card: np.ndarray, colors: list) -> list:
     return colors
 
 
-def _canonical_bytes(q: QueryGraph, card: np.ndarray, perm) -> bytes:
+def _leaf(q: QueryGraph, card: np.ndarray, perm) -> tuple:
+    """``(perm, qc, table, head)`` of one relabeling: the canonical bytes
+    are ``head`` followed by ``table``'s float64 bytes."""
     qc = relabel(q, perm)
-    cc = permute_card(card, q.n, perm)
-    head = (f"n={q.n};e={qc.edges};h={qc.hyperedges};"
-            .encode())
-    return head + np.ascontiguousarray(cc, np.float64).tobytes()
+    table = permute_card(card, q.n, perm)
+    _COUNTERS["table_perms"].inc()
+    head = f"n={q.n};e={qc.edges};h={qc.hyperedges};".encode()
+    return tuple(perm), qc, table, head
 
 
-def canonical_perm(q: QueryGraph, card: np.ndarray,
-                   branch_cap: int = 64) -> tuple:
-    """Canonical relabeling via refinement + capped individualization."""
+def _leaf_bytes(leaf: tuple) -> bytes:
+    return leaf[3] + np.ascontiguousarray(leaf[2], np.float64).tobytes()
+
+
+def _leaf_key(prefix: bytes, leaf: tuple) -> str:
+    """SHA-256 of ``prefix`` + the leaf's canonical bytes, with no copy of
+    a float64 table."""
+    h = hashlib.sha256(prefix + leaf[3])
+    h.update(np.ascontiguousarray(leaf[2], np.float64))
+    return h.hexdigest()
+
+
+def _canonical_leaf(q: QueryGraph, card: np.ndarray,
+                    branch_cap: int) -> tuple:
+    """Refinement + capped individualization: the leaf (``_leaf``) of
+    the lexicographically smallest canonical bytes."""
     n = q.n
     deg = [bin(int(a)).count("1") for a in q.adjacency()]
     init = [(deg[i], _qlog(card[1 << i])) for i in range(n)]
     colors = _refine(q, card, _compress(init))
 
-    best: list = [None, None]          # [bytes, perm]
+    best: list = [None, None]          # [bytes (from the 2nd leaf), leaf]
     leaves = [0]
 
     def finish(colors: list):
@@ -135,15 +172,22 @@ def canonical_perm(q: QueryGraph, card: np.ndarray,
         perm = [0] * n
         for rank, i in enumerate(order):
             perm[i] = rank
-        byt = _canonical_bytes(q, card, perm)
-        if best[0] is None or byt < best[0]:
-            best[0], best[1] = byt, tuple(perm)
+        leaf = _leaf(q, card, perm)
+        if best[1] is None:
+            best[1] = leaf
+            return
+        if best[0] is None:
+            best[0] = _leaf_bytes(best[1])
+        byt = _leaf_bytes(leaf)
+        if byt < best[0]:
+            best[0], best[1] = byt, leaf
 
     def rec(colors: list):
-        if leaves[0] >= branch_cap and best[0] is not None:
+        if leaves[0] >= branch_cap and best[1] is not None:
             return
         if len(set(colors)) == n:
             leaves[0] += 1
+            _COUNTERS["leaves"].inc()
             finish(colors)
             return
         # first non-singleton class (smallest color value)
@@ -153,7 +197,7 @@ def canonical_perm(q: QueryGraph, card: np.ndarray,
         target = min(c for c, k in counts.items() if k > 1)
         members = [i for i in range(n) if colors[i] == target]
         for v in members:
-            if leaves[0] >= branch_cap and best[0] is not None:
+            if leaves[0] >= branch_cap and best[1] is not None:
                 return
             forked = [c * 2 for c in colors]
             forked[v] -= 1                     # v precedes its old class
@@ -161,6 +205,12 @@ def canonical_perm(q: QueryGraph, card: np.ndarray,
 
     rec(colors)
     return best[1]
+
+
+def canonical_perm(q: QueryGraph, card: np.ndarray,
+                   branch_cap: int = 64) -> tuple:
+    """Canonical relabeling via refinement + capped individualization."""
+    return _canonical_leaf(q, card, branch_cap)[0]
 
 
 def topology_signature(q: QueryGraph) -> str:
@@ -188,12 +238,11 @@ def topology_signature(q: QueryGraph) -> str:
 
 def canonicalize(q: QueryGraph, card: np.ndarray,
                  branch_cap: int = 64) -> CanonicalForm:
-    perm = canonical_perm(q, card, branch_cap=branch_cap)
-    qc = relabel(q, perm)
-    cc = permute_card(card, q.n, perm)
-    byt = _canonical_bytes(q, card, perm)
+    leaf = _canonical_leaf(q, card, branch_cap)
+    _COUNTERS["forms"].inc()
+    perm, qc, cc, _ = leaf
     return CanonicalForm(
-        key=hashlib.sha256(byt).hexdigest(),
+        key=_leaf_key(b"", leaf),
         perm=perm,
         signature=topology_signature(q),
         q=qc,
@@ -258,25 +307,13 @@ def induced_subproblem(q: QueryGraph, card: np.ndarray,
                          for a, b in q.hyperedges
                          if (a | b) & mask == (a | b)))
     q_sub = QueryGraph(r, edges, hyper)
-    # expand[t] = the outer-lattice index of compact subset t
-    expand = np.zeros(1 << r, np.int64)
-    for i, rel in enumerate(rels):
-        bit = 1 << i
-        idx = np.arange(1 << r)
-        expand[(idx & bit) != 0] |= 1 << rel
-    card_sub = np.ascontiguousarray(
-        np.asarray(card, np.float64)[expand])
+    card_sub = np.asarray(card, np.float64)[subset_expand(rels)]
     return q_sub, card_sub, rels
 
 
 def subset_expand(rels: tuple) -> np.ndarray:
     """(2^r,) int64 map: compact subset index -> outer lattice index."""
-    r = len(rels)
-    expand = np.zeros(1 << r, np.int64)
-    idx = np.arange(1 << r)
-    for i, rel in enumerate(rels):
-        expand[(idx & (1 << i)) != 0] |= 1 << rel
-    return expand
+    return lattice_map([1 << rel for rel in rels])
 
 
 def subset_signature(q: QueryGraph, card: np.ndarray, mask: int,
@@ -289,10 +326,10 @@ def subset_signature(q: QueryGraph, card: np.ndarray, mask: int,
     across queries exactly on relabeled-identical induced sub-problems.
     """
     q_sub, card_sub, rels = induced_subproblem(q, card, mask)
-    perm = canonical_perm(q_sub, card_sub, branch_cap=branch_cap)
-    byt = b"frag;" + _canonical_bytes(q_sub, card_sub, perm)
-    return SubsetForm(key=hashlib.sha256(byt).hexdigest(),
-                      rels=rels, perm=perm)
+    leaf = _canonical_leaf(q_sub, card_sub, branch_cap)
+    _COUNTERS["subset_forms"].inc()
+    return SubsetForm(key=_leaf_key(b"frag;", leaf), rels=rels,
+                      perm=leaf[0])
 
 
 def relabel_tree(tree: "JoinTree | None", perm) -> "JoinTree | None":

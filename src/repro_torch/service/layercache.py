@@ -47,6 +47,7 @@ import zipfile
 
 import numpy as np
 
+from repro_torch.core.bitset import lattice_map, popcounts
 from repro_torch.service.canon import subset_expand, subset_signature
 
 # on-disk fragment-store format version (``save``/``load``): bump on any
@@ -95,21 +96,8 @@ class LayerCacheStats:
 
 def _perm_masks(perm) -> np.ndarray:
     """(2^r,) int64 map: compact subset mask -> its image under ``perm``
-    (bit ``i`` -> bit ``perm[i]``), vectorized over the whole lattice."""
-    r = len(perm)
-    idx = np.arange(1 << r)
-    out = np.zeros(1 << r, np.int64)
-    for i, p in enumerate(perm):
-        out[(idx & (1 << i)) != 0] |= 1 << int(p)
-    return out
-
-
-def _popcounts(n: int) -> np.ndarray:
-    idx = np.arange(1 << n)
-    pc = np.zeros(1 << n, np.int64)
-    for i in range(n):
-        pc += (idx >> i) & 1
-    return pc
+    (bit ``i`` -> bit ``perm[i]``)."""
+    return lattice_map([1 << int(p) for p in perm])
 
 
 class LayerCache:
@@ -254,7 +242,7 @@ class LayerCache:
             return None
         # the lattice recurrence starts at layer 2; empty/singleton
         # slots carry base values the program owns
-        ok[_popcounts(n) < 2] = False
+        ok[popcounts(n) < 2] = False
         self.stats.seeded_solves += 1
         self.stats.seeded_sets += int(ok.sum())
         return {"vals": vals, "ok": ok}

@@ -46,6 +46,7 @@ from repro_torch.core.dpconv import optimize
 from repro_torch.core.querygraph import QueryGraph
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.service import canon as canon_mod
 from repro_torch.service import faults
 from repro_torch.service import router as router_mod
 from repro_torch.service.batch import BatchedSolver, BatchPolicy
@@ -222,6 +223,7 @@ class PlanServer:
         self.registry.register_provider("cache", self.cache.stats.as_dict)
         self.registry.register_provider(
             "layercache", lambda: self.layers.stats.as_dict())
+        self.registry.register_provider("canon", canon_mod.stats)
         self.registry.register_provider(
             "router", lambda: {"decisions": dict(self.router.decisions),
                                "engine_hint":

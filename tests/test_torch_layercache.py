@@ -28,12 +28,13 @@ from repro.service.canon import canonicalize as ref_canonicalize
 from repro.service.layercache import LayerCache as RefLayerCache
 from repro.service.server import PlanRequest as RefRequest
 from repro.service.server import PlanServer as RefServer
-from repro_torch.core import engine, lattice, querygraph
+from repro_torch.core import bitset, engine, lattice, querygraph
 from repro_torch.core.dpconv import optimize
 from repro_torch.kernels import ops
 from repro_torch.service.batch import BatchedSolver
+from repro_torch.service import canon
 from repro_torch.service.canon import canonicalize
-from repro_torch.service.layercache import LayerCache
+from repro_torch.service.layercache import LayerCache, _perm_masks
 from repro_torch.service.server import PlanRequest, PlanServer
 
 CPU = "cpu"
@@ -304,6 +305,50 @@ def test_value_fragment_transfers_to_relabeled_subgraph():
     assert _key(warm2) == _key(cold2)
     assert warm2.meta["dp_table"].tobytes() == dp2.tobytes()
     assert lc.stats.as_dict() == rlc.stats.as_dict()
+
+
+@pytest.mark.parametrize("r", range(11))
+def test_perm_masks_match_a_per_subset_loop(r):
+    """A fragment's relabeling map is each compact subset's image under
+    a random ``perm``, subset by subset; the popcounts the probe masks
+    with are each subset's bit count."""
+    perm = np.random.default_rng(200 + r).permutation(r)
+    got = _perm_masks(tuple(perm.tolist()))
+    assert got.dtype == np.int64
+    assert got.tolist() == [querygraph.permute_mask(t, perm)
+                            for t in range(1 << r)]
+    assert bitset.popcounts(r).tolist() == \
+        [bin(t).count("1") for t in range(1 << r)]
+
+
+@pytest.mark.parametrize("card_kind", ["random", "equal"])
+@pytest.mark.parametrize("topo", ["chain", "star", "cycle"])
+def test_fragment_harvest_and_probe_permute_once_a_leaf(topo, card_kind):
+    """A harvest and a probe of n = 9 take n + 1 subset signatures each,
+    every leaf permuting its table once (one leaf a signature on random
+    cardinalities), with the reference's payload and stats."""
+    mk = {"chain": chain, "star": star, "cycle": cycle}[topo]
+    q = mk(9)
+    card = make_cardinalities(q, seed=5) if card_kind == "random" \
+        else np.full(1 << 9, 11.0)
+    form, rform = canonicalize(_pq(q), card), ref_canonicalize(q, card)
+    dp = np.arange(1 << 9, dtype=np.float64) * 0.5
+    lc, rlc = LayerCache(admission_min_probes=0), \
+        RefLayerCache(admission_min_probes=0)
+    before = canon.stats()
+    lc.observe(form, "out", 1.0, {}, dp=dp)
+    seed = lc.seed_for(form, "out")
+    now = canon.stats()
+    d = {k: now[k] - before[k] for k in now}
+    rlc.observe(rform, "out", 1.0, {}, dp=dp)
+    rseed = rlc.seed_for(rform, "out")
+    assert seed["vals"].tobytes() == rseed["vals"].tobytes()
+    assert seed["ok"].tobytes() == rseed["ok"].tobytes()
+    assert lc.stats.as_dict() == rlc.stats.as_dict()
+    assert d["forms"] == 0 and d["subset_forms"] >= 10
+    assert d["table_perms"] == d["leaves"]
+    if card_kind == "random":
+        assert d["leaves"] == d["subset_forms"]
 
 
 @pytest.mark.parametrize("store", ["search", "value"])

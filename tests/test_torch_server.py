@@ -30,19 +30,21 @@ from repro.service.canon import canonicalize as ref_canonicalize
 from repro.service.canon import subset_signature as ref_subset_signature
 from repro.service.canon import topology_signature as ref_topology
 from repro_torch import service as port_service
-from repro_torch.core import engine, querygraph
+from repro_torch.core import bitset, engine, querygraph
 from repro_torch.kernels import ops
 from repro_torch.service import (LatencyHistogram, PlanServer, Router,
                                  WorkloadSpec, make_workload, workload)
 from repro_torch.service.batch import BatchPolicy
+from repro_torch.service import canon
 from repro_torch.service.canon import (canonicalize, subset_signature,
-                                       topology_signature)
+                                       subset_expand, topology_signature)
 from repro_torch.service.server import PlanRequest
 
 from _torch_spans import reference_shape
 
 CPU = "cpu"
-PROVIDERS = {"cache", "layercache", "router", "serve", "solver", "engine"}
+PROVIDERS = {"cache", "layercache", "canon", "router", "serve", "solver",
+             "engine"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -109,6 +111,113 @@ def test_canonical_keys_match_reference(graph, perm_seed):
             assert (s.key, s.rels, s.perm) == (r.key, r.rels, r.perm)
         forms.append(got)
     assert forms[0].key == forms[1].key
+
+
+# ------------------------------------------------- subset-lattice maps
+def _or_loop(targets, S):
+    """OR of ``targets[i]`` over the bits ``i`` of ``S``, bit by bit."""
+    out = 0
+    for i, t in enumerate(targets):
+        if (S >> i) & 1:
+            out |= int(t)
+    return out
+
+
+@pytest.mark.parametrize("r", range(11))
+def test_lattice_maps_match_a_per_subset_loop(r):
+    """``lattice_map``, ``permute_card`` and ``subset_expand`` equal a
+    plain loop over every subset, on random relabelings and subsets."""
+    rng = np.random.default_rng(100 + r)
+    targets = rng.integers(0, 1 << 40, size=r)
+    got = bitset.lattice_map(targets)
+    assert got.dtype == np.int64 and got.shape == (1 << r,)
+    assert got.tolist() == [_or_loop(targets, S) for S in range(1 << r)]
+    perm = rng.permutation(r)
+    card = rng.random(1 << r)
+    want = np.empty_like(card)
+    for S in range(1 << r):
+        want[querygraph.permute_mask(S, perm)] = card[S]
+    got = querygraph.permute_card(card, r, perm)
+    assert got.tobytes() == want.tobytes()
+    assert got.tobytes() == permute_card(card, r, perm).tobytes()
+    n = r + int(rng.integers(0, 4))
+    rels = tuple(sorted(rng.choice(n, size=r, replace=False).tolist()))
+    assert subset_expand(rels).tolist() == \
+        [_or_loop([1 << rel for rel in rels], t) for t in range(1 << r)]
+
+
+def _canon_delta(before):
+    now = canon.stats()
+    return {k: now[k] - before[k] for k in now}
+
+
+TIED = {
+    "clique6": lambda: clique(6),
+    "cycle8": lambda: cycle(8),
+    "star7": lambda: star(7),
+    "grid2x4": lambda: grid(2, 4),
+    "chain9": lambda: chain(9),
+    "hyper6": lambda: ref_querygraph.QueryGraph(
+        6, ((0, 1), (2, 3), (4, 5)), ((0b11, 0b1100), (0b1100, 0b110000))),
+}
+
+
+@pytest.mark.parametrize("branch_cap", [3, 64])
+@pytest.mark.parametrize("card_kind", ["equal", "parity"])
+@pytest.mark.parametrize("graph", sorted(TIED))
+def test_tied_canonical_forms_match_reference(graph, card_kind, branch_cap):
+    """Equal (or popcount-parity) cardinalities leave every vertex tied:
+    several leaves, up to ``branch_cap``.  Keys, permutations, graphs and
+    tables equal the reference's byte for byte, and each leaf permutes
+    the table once, the winner's reused."""
+    q = TIED[graph]()
+    size = 1 << q.n
+    card = np.full(size, 7.0) if card_kind == "equal" else \
+        1.0 + (bitset.popcounts(q.n) % 2).astype(np.float64)
+    before = canon.stats()
+    got = canonicalize(_pq(q), card, branch_cap=branch_cap)
+    d = _canon_delta(before)
+    want = ref_canonicalize(q, card, branch_cap=branch_cap)
+    assert (got.key, got.perm, got.q.edges, got.q.hyperedges) == \
+        (want.key, want.perm, want.q.edges, want.q.hyperedges)
+    assert got.card.tobytes() == want.card.tobytes()
+    assert d["forms"] == 1 and d["leaves"] > 1
+    assert d["leaves"] <= branch_cap
+    assert d["table_perms"] == d["leaves"]
+    for mask in (q.full_mask, q.full_mask ^ 1, 0b10111):
+        before = canon.stats()
+        s = subset_signature(_pq(q), card, mask, branch_cap=branch_cap)
+        d = _canon_delta(before)
+        r = ref_subset_signature(q, card, mask, branch_cap=branch_cap)
+        assert (s.key, s.rels, s.perm) == (r.key, r.rels, r.perm)
+        assert d["subset_forms"] == 1
+        assert d["table_perms"] == d["leaves"] >= 1
+
+
+def test_tied_search_reaches_the_branch_cap():
+    """A uniform clique(6) has 720 leaves: the search stops at the cap."""
+    q = clique(6)
+    before = canon.stats()
+    canonicalize(_pq(q), np.full(64, 3.0), branch_cap=5)
+    assert _canon_delta(before)["leaves"] == 5
+
+
+def test_clique19_canonical_form_matches_reference():
+    """clique(19) with the paper's cardinalities (bigjoin's largest query):
+    one leaf and one table permutation, bytes equal to the reference's."""
+    q = clique(19)
+    card = make_cardinalities(q, seed=19)
+    before = canon.stats()
+    got = canonicalize(_pq(q), card)
+    assert _canon_delta(before) == {"forms": 1, "subset_forms": 0,
+                                    "leaves": 1, "table_perms": 1}
+    want = ref_canonicalize(q, card)
+    assert (got.key, got.perm) == (want.key, want.perm)
+    assert got.card.tobytes() == want.card.tobytes()
+    mask = q.full_mask ^ (1 << 7)
+    s, r = subset_signature(_pq(q), card, mask), \
+        ref_subset_signature(q, card, mask)
+    assert (s.key, s.rels, s.perm) == (r.key, r.rels, r.perm)
 
 
 # ----------------------------------------------------------------- router
@@ -272,11 +381,26 @@ def test_registry_snapshot_shows_providers():
     assert prov["cache"] == srv.cache.stats.as_dict()
     assert prov["cache"]["hits"] == 1
     assert prov["layercache"] == srv.layers.stats.as_dict()
+    assert prov["canon"] == canon.stats()
     assert prov["router"]["decisions"] == {"dpccp": 2}
     assert prov["router"]["engine_hint"] == {"dpconv": "fused",
                                              "dpccp": "fused"}
     assert prov["solver"]["total_solved"] == 1
     assert prov["engine"]["dispatches"] >= 1
+
+
+def test_canon_provider_counts_one_table_permutation_per_form():
+    """Through ``plan_one`` on random cliques (bigjoin's traffic in
+    small), every form permutes its table once."""
+    srv = PlanServer(device=CPU)
+    before = srv.registry.snapshot()["providers"]["canon"]
+    for n, seed in ((6, 1), (7, 2), (8, 3)):
+        q = clique(n)
+        srv.plan_one(_pq(q), make_cardinalities(q, seed=seed), cost="max")
+    after = srv.registry.snapshot()["providers"]["canon"]
+    d = {k: after[k] - before[k] for k in after}
+    assert d["forms"] == 3
+    assert d["table_perms"] == d["leaves"] == d["forms"] + d["subset_forms"]
 
 
 def test_dp_table_never_reaches_a_response_or_the_cache():
