@@ -8,6 +8,8 @@ the benchmark's own ``planbench/run.py`` path (``--cpu``: on the CPU at
 the harness tests' small sizes, to try the script without a card).  For
 each it keeps the result line and adds:
 
+* ``device_ops``: the 40 device operations that took most time,
+  summed by name (the result line's breakdown keeps 10);
 * ``kernel_in_calls``: the share of the window's device kernel time
   (kernels, not copies) inside the dispatch records' program calls
   (``t0_ns``..``t1_ns``), which holds only if the program's clock is the
@@ -163,7 +165,8 @@ def analyse(run) -> dict:
                                   "SPAN_LOG").dropped,
            "kernel_s": k_total,
            "kernel_in_calls": inside / k_total if k_total else None,
-           "window_s": dt.window_s, "busy_s": dt.busy_s}
+           "window_s": dt.window_s, "busy_s": dt.busy_s,
+           "device_ops": dt.device_ops(top=40)}
     answered = [o for o in run.outcomes if o.answered]
     q = sum(r.queries for r in recs)
     per = {"window_per_plan": 1e3 * dt.window_s / max(len(answered), 1),

@@ -514,12 +514,14 @@ def program_work(n: int, B: int, C: int, cost: str, tier: str,
     * a zeta/Moebius transform of a (rows, 2^n) table: rows·2^(n-1)·n
       adds, its table read and written once;
     * a feasibility pass: a zeta for each direct layer 2..dl, then for
-      each middle layer the scan-form convolution (3 operations per slot
-      and cell over n//2 slots, the ranked buffer read, the layer
-      written), a Moebius and a zeta; the final layer is one more
-      convolution (and a Moebius with the extraction table).  A search
-      round runs one over B·G rows, the seed verification over 2B, the
-      extraction over B; direct-layer gathers add 2·Σ C(n,k)·2^k;
+      each middle layer the tier's ranked convolution, a Moebius and a
+      zeta; the final layer is one more convolution (and a Moebius with
+      the extraction table).  The convolution at layer k takes
+      ⌊(k-1)/2⌋ + [k even] products per cell, 2 operations each
+      (multiply, add), reads rank slices 1..k-1 once and writes its
+      table once.  A search round runs one pass over B·G rows, the seed
+      verification over 2B, the extraction over B; direct-layer gathers
+      add 2·Σ C(n,k)·2^k;
     * a (min,+) sweep: 2 operations per split (add, min), 3 with the
       connectivity mask, over Σ_k C(n,k)·2^k splits per row; its tables
       read and the value table written once;
@@ -534,15 +536,15 @@ def program_work(n: int, B: int, C: int, cost: str, tier: str,
     base = cost[:-len("_seeded")] if seeded else cost
     s = 4 if tier == "cuda" and base != "out" else 8
     dl = min(direct_layers, n - 1)
-    D = max(n // 2, 1)
-    mid = max(n - 1 - dl, 0)
+    conv = range(max(dl + 1, 2), n + 1)      # middle layers, then layer n
+    mid = len(conv) - 1
+    products = sum((k - 1) // 2 + (k % 2 == 0) for k in conv)
     direct = sum(math.comb(n, k) << k for k in range(2, dl + 1))
 
     def feas(rows: int, full: bool) -> tuple:
         t = max(dl - 1, 0) + 2 * mid + (1 if full else 0)
-        ops = rows * (t * (N // 2) * n + (mid + 1) * 3 * D * N
-                      + 2 * direct)
-        nbytes = rows * s * N * (2 * t + (mid + 1) * (n + 2))
+        ops = rows * (t * (N // 2) * n + 2 * products * N + 2 * direct)
+        nbytes = rows * s * N * (2 * t + sum(conv))
         return ops, nbytes
 
     ops = nbytes = 0
@@ -638,44 +640,6 @@ def _run(fn, args, record: DispatchRecord, t_entry: float):
     return out
 
 
-def _record(cost: str, n: int, Bp: int, C: int, tier: str, meta: dict,
-            hit: bool, B: int) -> DispatchRecord:
-    return DispatchRecord(seq=0, cost=cost, n=n, B=Bp, C=C, backend=tier,
-                          key=meta["key"], aot_cache_hit=hit,
-                          compile_s=0.0 if hit else meta["compile_s"],
-                          execute_s=0.0, shards=meta["shards"],
-                          devices=meta["devices"], lane=current_lane(),
-                          queries=B)
-
-
-def _read_back(result, rec: DispatchRecord) -> tuple:
-    """``_host`` with its seconds in ``rec.readback_s``."""
-    t0 = time.perf_counter()  # timing: measured-duration (readback)
-    host = _host(result)
-    rec.readback_s = time.perf_counter() - t0  # timing: measured-duration
-    return host
-
-
-def _trees(nodes: np.ndarray, lidx: np.ndarray, B: int,
-           rec: DispatchRecord) -> list:
-    """``_trees_from_arrays`` with its seconds in ``rec.trees_s``."""
-    t0 = time.perf_counter()  # timing: measured-duration (tree assembly)
-    trees = _trees_from_arrays(nodes, lidx, B)
-    rec.trees_s = time.perf_counter() - t0  # timing: measured-duration
-    return trees
-
-
-def _finish_record(rec: DispatchRecord, rounds: int, gamma_batch: int,
-                   extract: bool, direct_layers: int = 4) -> None:
-    """Fill a record's rounds and work count once the solve is read."""
-    rec.rounds = int(rounds)
-    if not rec.cost.startswith("max"):
-        rec.sweep_total = rec.B * ((1 << rec.n) - rec.n - 1)
-    rec.flops, rec.bytes_accessed = program_work(
-        rec.n, rec.B, rec.C, rec.cost, rec.backend, gamma_batch,
-        rec.rounds, extract, direct_layers)
-
-
 def host_cards(cards) -> np.ndarray:
     """A (B, 2^n) or (2^n,) cardinality table — numpy or a tensor — as a
     float64 numpy array (candidate tables are built on the host, as in
@@ -734,33 +698,79 @@ def _seed_bracket(cand_pad: np.ndarray, hi0: np.ndarray, seed_opt,
     return lo0, hi0, hits
 
 
-def _count_seeds(seeded: int) -> None:
-    """Count a seeded program call and its engaged seeds."""
+# -------------------------------------------------------------- entry point
+def _cards_in(cards, n: int) -> np.ndarray:
+    """The entry points' input: ``cards`` (a (B, 2^n) or (2^n,) table,
+    numpy or a tensor) as a (B, 2^n) float64 array; raises unless its
+    width is 2^n for n >= 2."""
+    cards = host_cards(cards)
+    if cards.ndim == 1:
+        cards = cards[None, :]
+    if cards.shape[1] != 1 << n or n < 2:
+        raise ValueError(f"cards of width {cards.shape[1]} do not fit "
+                         f"n={n} >= 2")
+    return cards
+
+
+def _solve(cost: str, n: int, Bp: int, C: int, tier: str,
+           direct_layers: int, extract: bool, gamma_batch: int, dev,
+           shards: int, args: tuple, B: int, seeded: int,
+           t_entry: float) -> tuple:
+    """The one call path of the entry points: the bucket's program (built
+    on a miss), its ``DispatchRecord``, the call (``_run``) on ``args``
+    (numpy arrays uploaded to ``dev``), the seed counts, the record's
+    rounds and work count, the copies of the results to the host (one
+    sync each), the sweep's live-set count (every cost but ``max``: the
+    program's last result), the trees of the ``B`` real rows and the
+    solve's counters.  A searching program (every cost but ``out``)
+    returns its rounds and syncs after its results.  Returns ``(host,
+    trees, rounds, syncs)``: the result arrays less the live-set count,
+    a tree per real row (None each without ``extract``), the search
+    rounds and the host syncs of the solve."""
+    fn, meta, hit = _program(n, Bp, C, tier, direct_layers, extract,
+                             gamma_batch, dev, cost, shards)
+    rec = DispatchRecord(seq=0, cost=cost, n=n, B=Bp, C=C, backend=tier,
+                         key=meta["key"], aot_cache_hit=hit,
+                         compile_s=0.0 if hit else meta["compile_s"],
+                         execute_s=0.0, shards=meta["shards"],
+                         devices=meta["devices"], lane=current_lane(),
+                         queries=B)
+    rec0 = jointree.recursive_extractions()
+    args = tuple(torch.as_tensor(a, device=dev) if isinstance(a, np.ndarray)
+                 else a for a in args)
+    out = _run(fn, args, rec, t_entry)
     if seeded:
         _STATS.inc("seeded_solves")
         _STATS.inc("seeded_rows", seeded)
+    rounds = syncs = 0
+    if not cost.startswith("out"):
+        *out, rounds, syncs = out
+    rec.rounds = int(rounds)
+    if not cost.startswith("max"):
+        rec.sweep_total = Bp * ((1 << n) - n - 1)
+    rec.flops, rec.bytes_accessed = program_work(
+        n, Bp, C, cost, tier, gamma_batch, rounds, extract, direct_layers)
+    t0 = time.perf_counter()  # timing: measured-duration (readback)
+    host = [t.cpu().numpy() for t in out]
+    rec.readback_s = time.perf_counter() - t0  # timing: measured-duration
+    syncs += len(out)
+    if not cost.startswith("max"):
+        rec.sweep_sets = int(host.pop())
+    trees = [None] * B
+    if extract:
+        t0 = time.perf_counter()  # timing: measured-duration (tree assembly)
+        trees = [jointree.tree_from_split_arrays(host[-2][b], host[-1][b])
+                 for b in range(B)]
+        rec.trees_s = time.perf_counter() - t0  # timing: measured-duration
+    _STATS.inc("host_extractions",
+               jointree.recursive_extractions() - rec0)
+    _STATS.inc("host_syncs", syncs)
+    _STATS.inc("solves")
+    _STATS.inc("queries", B)
+    _STATS.inc("rounds", rounds)
+    return host, trees, rounds, syncs
 
 
-def _host(out) -> tuple:
-    """Copy a program's result tensors to the host: ``(arrays, syncs)``,
-    one sync per copy."""
-    return [t.cpu().numpy() for t in out], len(out)
-
-
-def _sweep_read(host: list, rec: DispatchRecord) -> list:
-    """Take a sweep program's last result, its live-set count, into
-    ``rec.sweep_sets``; the other results are returned."""
-    rec.sweep_sets = int(host[-1])
-    return host[:-1]
-
-
-def _trees_from_arrays(nodes: np.ndarray, lidx: np.ndarray,
-                       B: int) -> list:
-    return [jointree.tree_from_split_arrays(nodes[b], lidx[b])
-            for b in range(B)]
-
-
-# -------------------------------------------------------------- entry point
 def fused_dpconv_max(cards, n: int, direct_layers: int = 4,
                      extract_tree: bool = True, backend: str = "f64",
                      gamma_batch: int = 1, shards: int = 1,
@@ -783,47 +793,22 @@ def fused_dpconv_max(cards, n: int, direct_layers: int = 4,
     """
     t_entry = time.perf_counter()  # timing: measured-duration (prep)
     dev = resolve_device(device)
-    cards = host_cards(cards)
-    if cards.ndim == 1:
-        cards = cards[None, :]
-    B, size = cards.shape
-    if size != 1 << n or n < 2:
-        raise ValueError(f"cards of width {size} do not fit n={n} >= 2")
+    cards = _cards_in(cards, n)
+    B = cards.shape[0]
     if gamma_batch < 1:
         raise ValueError("gamma_batch must be >= 1")
     cards_pad, cand_pad, hi0, Bp, C = _pad_candidates(cards, n)
     lo0, hi0, seeded = _seed_bracket(cand_pad, hi0, seed_opt, B)
-    cost = "max_seeded" if seeded else "max"
-    fn, meta, hit = _program(n, Bp, C, backend, direct_layers, extract_tree,
-                             gamma_batch, dev, cost, shards)
-    prof = _record(cost, n, Bp, C, backend, meta, hit, B)
-    rec0 = jointree.recursive_extractions()
-    out = _run(fn, (torch.as_tensor(cards_pad, device=dev),
-                    torch.as_tensor(cand_pad, device=dev),
-                    torch.as_tensor(lo0, device=dev),
-                    torch.as_tensor(hi0, device=dev)), prof, t_entry)
-    _count_seeds(seeded)
-    *result, rounds, syncs = out
-    _finish_record(prof, rounds, gamma_batch, extract_tree, direct_layers)
-    host, copies = _read_back(result, prof)
-    syncs += copies
-    opt = host[0]
-    trees: list = [None] * B
-    dpn = None
-    if extract_tree:
-        _, dpn, nodes, lidx = host
-        dpn = dpn[:B]
-        trees = _trees(nodes, lidx, B, prof)
-    _STATS.inc("host_extractions",
-               jointree.recursive_extractions() - rec0)
-    _STATS.inc("host_syncs", syncs)
-    _STATS.inc("solves")
-    _STATS.inc("queries", B)
-    _STATS.inc("rounds", rounds)
-    return FusedSolve(optima=np.asarray(opt, np.float64)[:B], trees=trees,
-                      rounds=rounds,
+    host, trees, rounds, syncs = _solve(
+        "max_seeded" if seeded else "max", n, Bp, C, backend,
+        direct_layers, extract_tree, gamma_batch, dev, shards,
+        (cards_pad, cand_pad, lo0, hi0), B, seeded, t_entry)
+    return FusedSolve(optima=np.asarray(host[0], np.float64)[:B],
+                      trees=trees, rounds=rounds,
                       passes=rounds + (1 if extract_tree else 0),
-                      dispatches=1, syncs=syncs, dp=dpn, seeded=seeded)
+                      dispatches=1, syncs=syncs,
+                      dp=host[1][:B] if extract_tree else None,
+                      seeded=seeded)
 
 
 def fused_out(qs: list, cards, n: int, extract_tree: bool = True,
@@ -849,49 +834,25 @@ def fused_out(qs: list, cards, n: int, extract_tree: bool = True,
     """
     t_entry = time.perf_counter()  # timing: measured-duration (prep)
     dev = resolve_device(device)
-    cards = host_cards(cards)
-    if cards.ndim == 1:
-        cards = cards[None, :]
+    cards = _cards_in(cards, n)
     B, size = cards.shape
-    if size != 1 << n or n < 2:
-        raise ValueError(f"cards of width {size} do not fit n={n} >= 2")
     conn = _connectivity(qs, B, "fused_out")
     Bp = _next_pow2(B)
     seeded = 0
-    extra = ()
+    args = (_pad_rows(cards, Bp), _pad_rows(conn, Bp))
     if seed_ok is not None and np.any(seed_ok):
         sv = np.zeros((Bp, size), np.float64)
         so = np.zeros((Bp, size), bool)
         sv[:B] = np.asarray(seed_vals, np.float64)
         so[:B] = np.asarray(seed_ok, bool)
         seeded = int(np.count_nonzero(so[:B].any(axis=1)))
-        extra = (torch.as_tensor(sv, device=dev),
-                 torch.as_tensor(so, device=dev))
-    cost = "out_seeded" if seeded else "out"
-    fn, meta, hit = _program(n, Bp, 0, "f64", 4, extract_tree, 1, dev, cost,
-                             shards)
-    prof = _record(cost, n, Bp, 0, "f64", meta, hit, B)
-    rec0 = jointree.recursive_extractions()
-    out = _run(fn, (torch.as_tensor(_pad_rows(cards, Bp), device=dev),
-                    torch.as_tensor(_pad_rows(conn, Bp), device=dev))
-               + extra, prof, t_entry)
-    _count_seeds(seeded)
-    _finish_record(prof, 0, 1, extract_tree)
-    host, syncs = _read_back(out, prof)
-    host = _sweep_read(host, prof)
-    trees: list = [None] * B
-    dpn = None
-    if extract_tree:
-        _, dpn, nodes, lidx = host
-        dpn = dpn[:B]
-        trees = _trees(nodes, lidx, B, prof)
-    _STATS.inc("host_extractions",
-               jointree.recursive_extractions() - rec0)
-    _STATS.inc("host_syncs", syncs)
-    _STATS.inc("solves")
-    _STATS.inc("queries", B)
+        args += (sv, so)
+    host, trees, _, syncs = _solve(
+        "out_seeded" if seeded else "out", n, Bp, 0, "f64", 4,
+        extract_tree, 1, dev, shards, args, B, seeded, t_entry)
     return FusedOutSolve(couts=np.asarray(host[0], np.float64)[:B],
-                         trees=trees, dispatches=1, syncs=syncs, dp=dpn,
+                         trees=trees, dispatches=1, syncs=syncs,
+                         dp=host[1][:B] if extract_tree else None,
                          seeded=seeded)
 
 
@@ -922,48 +883,22 @@ def fused_ccap(cards, n: int, gamma_slack: float = 1.0,
     """
     t_entry = time.perf_counter()  # timing: measured-duration (prep)
     dev = resolve_device(device)
-    cards = host_cards(cards)
-    if cards.ndim == 1:
-        cards = cards[None, :]
-    B, size = cards.shape
-    if size != 1 << n or n < 2:
-        raise ValueError(f"cards of width {size} do not fit n={n} >= 2")
+    cards = _cards_in(cards, n)
+    B = cards.shape[0]
     if gamma_batch < 1:
         raise ValueError("gamma_batch must be >= 1")
     cards_pad, cand_pad, hi0, Bp, C = _pad_candidates(cards, n)
     lo0, hi0, seeded = _seed_bracket(cand_pad, hi0, seed_opt, B)
-    extra = ()
+    args = (cards_pad, cand_pad, lo0, hi0, float(gamma_slack))
     cost = "cap"
     if qs is not None:
         conn = _connectivity(qs, B, "the connected C_cap pass")
-        extra = (torch.as_tensor(_pad_rows(conn, Bp), device=dev),)
+        args += (_pad_rows(conn, Bp),)
         cost = "cap_conn"
-    if seeded:
-        cost += "_seeded"
-    fn, meta, hit = _program(n, Bp, C, backend, direct_layers, extract_tree,
-                             gamma_batch, dev, cost, shards)
-    prof = _record(cost, n, Bp, C, backend, meta, hit, B)
-    rec0 = jointree.recursive_extractions()
-    out = _run(fn, (torch.as_tensor(cards_pad, device=dev),
-                    torch.as_tensor(cand_pad, device=dev),
-                    torch.as_tensor(lo0, device=dev),
-                    torch.as_tensor(hi0, device=dev), float(gamma_slack))
-               + extra, prof, t_entry)
-    _count_seeds(seeded)
-    *result, rounds, syncs = out
-    _finish_record(prof, rounds, gamma_batch, extract_tree, direct_layers)
-    host, copies = _read_back(result, prof)
-    host = _sweep_read(host, prof)
-    syncs += copies
-    trees: list = [None] * B
-    if extract_tree:
-        trees = _trees(host[2], host[3], B, prof)
-    _STATS.inc("host_extractions",
-               jointree.recursive_extractions() - rec0)
-    _STATS.inc("host_syncs", syncs)
-    _STATS.inc("solves")
-    _STATS.inc("queries", B)
-    _STATS.inc("rounds", rounds)
+    host, trees, rounds, syncs = _solve(
+        cost + ("_seeded" if seeded else ""), n, Bp, C, backend,
+        direct_layers, extract_tree, gamma_batch, dev, shards, args, B,
+        seeded, t_entry)
     return FusedCapSolve(gammas=np.asarray(host[0], np.float64)[:B],
                          couts=np.asarray(host[1], np.float64)[:B],
                          trees=trees, rounds=rounds, dispatches=1,

@@ -16,17 +16,21 @@ which skips gated-off sets before any split; on CPU tensors and over a
 mesh each layer gathers its split table (``direct_layer_tables``), the
 plain version.  Both give the same values, bit for bit.
 
-Transform tiers (``transforms``), used by the feasibility recursion:
+Transform tiers (``transforms``), used by the feasibility recursion;
+each owns its ranked convolution, which every pass takes at every middle
+layer and at the final one:
 
 ========= ============================================== ================
 port      what                                            in ``repro``
 ========= ============================================== ================
-``f64``   PyTorch float64 butterflies (``core.zeta``),    ``"xla"``
-          exact counts to n = 26
+``f64``   PyTorch float64 butterflies (``core.zeta``)     ``"xla"``
+          and the plain convolution
+          (``kernels.ref.ranked_conv_ref``), exact
+          counts to n = 26
 ``cuda``  int32 counting through the CUDA kernels         ``"pallas"``
-          (``kernels.ops``; plain versions on CPU
-          tensors), exact to n = 15, plus the ranked-
-          convolution kernel on the unrolled path
+          (``kernels.ops``: zeta/Moebius and
+          ``ranked_conv``; plain versions on CPU
+          tensors), exact to n = 15
 ========= ============================================== ================
 
 Differences from the reference, none of which changes a result:
@@ -51,11 +55,13 @@ Differences from the reference, none of which changes a result:
   each zeta transform writes straight into its slot; each (min,+) layer
   writes its sets into ``dp``; each round writes the bracket ``lo``/``hi``);
   JAX rebuilds them functionally.
+* The layer index is a Python int in every loop, so the feasibility
+  recursion has one middle-layer form in every program, the reference's
+  unrolled one.  The reference's fused programs take its scan form,
+  which ``fori_loop``'s traced index needs, and sum int32 products in
+  int64 there.  Both forms are exact, so the counts agree.
 * Bracket indices (``lo``, ``hi``, pivots) are int64 tensors (PyTorch
   gathers take int64); the reference keeps int32.  Values are equal.
-* The scan-form convolution sums int32 products in int32; the reference
-  promotes the sum to int64.  Counts at n <= 15 fit either way, and
-  two's-complement intermediates are exact modulo 2^32.
 
 Warm starts, as in the reference: ``feasibility_layers(seed_layers=)``
 replays a solved layer prefix, ``minplus_connected_layers(seed_vals=,
@@ -96,28 +102,30 @@ from repro_torch.core.bitset import layer_indices, popcounts, submask_table
 class Transforms:
     """The transform backend of a lattice program: zeta/Moebius pair
     (``f -> table``; ``out=`` writes the table into a given contiguous
-    tensor, such as a slot of the ranked buffer), the DP dtype they are
-    exact in, and (optionally) a fused ranked-conv kernel for the
-    unrolled static-``k`` path."""
+    tensor, such as a slot of the ranked buffer), the layer-k ranked
+    convolution (``(Z, k) -> table``, the symmetry-halved
+    ``Σ_{d=1..k-1} Z[d] Z[k-d]``) and the DP dtype they are exact in."""
     name: str
     zeta: callable
     mobius: callable
     dtype: torch.dtype
-    ranked_conv: "callable | None" = None
+    ranked_conv: callable
 
 
 def transforms(tier: str) -> Transforms:
     """The two transform tiers (see the module docstring)."""
     if tier == "f64":
         from repro_torch.core.zeta import mobius, zeta
-        return Transforms("f64", zeta, mobius, torch.float64)
+        from repro_torch.kernels.ref import ranked_conv_ref
+        return Transforms("f64", zeta, mobius, torch.float64,
+                          ranked_conv_ref)
     if tier == "cuda":
         # int32 counting tier: exact while counts < 2^31 (n <= 15),
         # enforced by the caller (BatchPolicy.kernel_max_n)
         from repro_torch.kernels.ops import (mobius_batch_op,
                                              ranked_conv_op, zeta_batch_op)
         return Transforms("cuda", zeta_batch_op, mobius_batch_op,
-                          torch.int32, ranked_conv=ranked_conv_op)
+                          torch.int32, ranked_conv_op)
     raise ValueError(f"unknown lattice tier {tier!r}")
 
 
@@ -275,34 +283,6 @@ def direct_layer_full_sharded(dp, gate, n: int, k: int, pc, dtype, mesh,
                                                         device=dp.device))
 
 
-def conv_fixed(Z, k: int, ranked_conv=None):
-    """Symmetry-halved ranked convolution at layer k:
-    conv_k = Σ_{d=1..k-1} Z[d] Z[k-d] = 2 Σ_{d<k/2} Z[d] Z[k-d]
-    (+ Z[k/2]^2 if k even).  ``ranked_conv`` routes to the fused kernel
-    (one read of the ranked table instead of k)."""
-    if ranked_conv is not None:
-        return ranked_conv(Z, k)
-    acc = torch.zeros_like(Z[0])
-    for d in range(1, (k - 1) // 2 + 1):
-        acc = acc + Z[d] * Z[k - d]
-    acc = acc + acc        # *2 in the table's dtype
-    if k % 2 == 0:
-        acc = acc + Z[k // 2] * Z[k // 2]
-    return acc
-
-
-def conv_masked(Z, k: int, n: int, dtype):
-    """The same convolution in the uniform scan form: all D = n//2 slots
-    are computed, and slots with d > k-d (stale values of an earlier
-    round) are masked by w = 0."""
-    D = max(n // 2, 1)
-    d = torch.arange(1, D + 1, device=Z.device)
-    w = torch.where(d < k - d, 2, torch.where(d == k - d, 1, 0))
-    Zhi = Z[torch.clamp(k - d, 1, n)]
-    wb = w.to(dtype).reshape((D,) + (1,) * (Z.ndim - 1))
-    return torch.sum(wb * Z[1:D + 1] * Zhi, dim=0, dtype=dtype)
-
-
 def moebius_at_v(acc, pc, n: int):
     """Moebius transform evaluated at the single point V: the signed
     O(2^n) sum Σ_T (-1)^{n-|T|} conv[T], reduced in f64 (exact integers,
@@ -314,8 +294,7 @@ def moebius_at_v(acc, pc, n: int):
 # --------------------------------------------- the feasibility recursion
 def feasibility_layers(gate, n: int, direct_layers: int = 4,
                        tfm: "Transforms | None" = None,
-                       final_shortcut: bool = True,
-                       Z=None, scan_middle: bool = False,
+                       final_shortcut: bool = True, Z=None,
                        seed_layers=None, mesh=None,
                        shard_chunk: int = SHARD_CHUNK_ELEMS):
     """One full layered feasibility DP under ``gate`` (paper Sec. 5 + 6).
@@ -329,10 +308,11 @@ def feasibility_layers(gate, n: int, direct_layers: int = 4,
     ``gate`` (..., 2^n) may carry any leading batch axes.  ``Z`` — the
     carried ``(n+1, ..., 2^n)`` ranked-zeta buffer, updated in place;
     slot Z[1] (the singleton transform) must already be set.  ``Z=None``
-    allocates fresh.  ``scan_middle`` selects the middle-layer form:
-    unrolled (``conv_fixed``, the host-loop path and the ranked-conv
-    kernel) or scan form (``conv_masked``, the fused engine).  Both are
-    exact, so results are bit-identical across forms.
+    allocates fresh.  Layers 2..min(direct_layers, n) are enumerated
+    directly; every later layer is the tier's ranked convolution
+    (``tfm.ranked_conv``) and a Moebius transform.  The fused programs
+    pass ``direct_layers <= n - 1``, so their final layer is always a
+    convolution.
 
     ``seed_layers`` — the warm start: a ``(k0, dp_seed)`` pair where
     ``dp_seed`` (broadcastable to ``gate``) is an accumulated feasibility
@@ -363,7 +343,7 @@ def feasibility_layers(gate, n: int, direct_layers: int = 4,
                         device=dev)
         tfm.zeta(singles, out=Z[1])
 
-    dl = min(direct_layers, n - 1) if scan_middle else min(direct_layers, n)
+    dl = min(direct_layers, n)
     start_k = 2
     if seed_layers is not None:                # warm-start solved prefix
         k0, dp_seed = seed_layers
@@ -389,14 +369,12 @@ def feasibility_layers(gate, n: int, direct_layers: int = 4,
         return dp, Z, dp[..., -1] > 0.5
 
     for k in range(max(dl + 1, 2), n):         # middle layers
-        conv = (conv_masked(Z, k, n, dtype) if scan_middle
-                else conv_fixed(Z, k, tfm.ranked_conv))
+        conv = tfm.ranked_conv(Z, k)
         h = tfm.mobius(conv, out=conv)         # conv is a fresh table
         layer_full = torch.where(pc == k, (h > 0.5).to(dtype) * gate, zero)
         dp = dp + layer_full
         tfm.zeta(layer_full, out=Z[k])
-    acc = (conv_masked(Z, n, n, dtype) if scan_middle
-           else conv_fixed(Z, n, tfm.ranked_conv))
+    acc = tfm.ranked_conv(Z, n)
 
     if final_shortcut:
         count_v = moebius_at_v(acc, pc, n)
@@ -745,7 +723,7 @@ def _verify_round(s: _Solve, n: int, dl: int, tfm: Transforms, mesh):
     piv = torch.where(has[None, :], piv, hi[None, :])
     gamma = torch.gather(s.cand, 1, piv.T).T
     _, _, ok = feasibility_layers(s.gate_of(gamma), n, dl, tfm, True,
-                                  Z=s.Zv, scan_middle=True, mesh=mesh)
+                                  Z=s.Zv, mesh=mesh)
     new_lo, new_hi = bracket_update(floor, hi, piv, ok, has)
     lo.copy_(new_lo)
     hi.copy_(new_hi)
@@ -763,7 +741,7 @@ def _search_round(s: _Solve, n: int, dl: int, tfm: Transforms, G: int,
         mid = torch.where(active, (lo + hi) // 2, hi)
         gamma = torch.gather(s.cand, 1, mid[:, None])[:, 0]
         _, _, ok = feasibility_layers(s.gate_of(gamma), n, dl, tfm, True,
-                                      Z=s.Z, scan_middle=True, mesh=mesh)
+                                      Z=s.Z, mesh=mesh)
         new_lo = torch.where(active & ~ok, mid + 1, lo)
         new_hi = torch.where(active & ok, mid, hi)
     else:
@@ -771,7 +749,7 @@ def _search_round(s: _Solve, n: int, dl: int, tfm: Transforms, G: int,
         piv = torch.where(active[None, :], piv, hi[None, :])
         gamma = torch.gather(s.cand, 1, piv.T).T
         _, _, ok = feasibility_layers(s.gate_of(gamma), n, dl, tfm, True,
-                                      Z=s.Z, scan_middle=True, mesh=mesh)
+                                      Z=s.Z, mesh=mesh)
         new_lo, new_hi = bracket_update(lo, hi, piv, ok, active)
     lo.copy_(new_lo)
     hi.copy_(new_hi)
@@ -1047,7 +1025,7 @@ def build_max_program(n: int, direct_layers: int, tier: str,
         # the recursion reads it.
         Zx = s.Z if G == 1 else s.Z[:, 0].contiguous()
         dp, _, _ = feasibility_layers(s.gate_of(opt), n, dl, tfm, False,
-                                      Z=Zx, scan_middle=True, mesh=mesh)
+                                      Z=Zx, mesh=mesh)
         dpf = dp.to(torch.float64)
         nodes, lidx = extract_scan(dpf, n)
         return opt, dpf, nodes, lidx

@@ -3,9 +3,9 @@ instantiation (counterpart of ``repro.core.layered``).
 
 The recursion lives in ``core.lattice.feasibility_layers``; this module
 is the per-pass instantiation the host-loop solvers and the ``dp_fn``
-hooks use: one call is one feasibility pass, unrolled over static layers
-so that the ranked-convolution kernel can take each middle layer.  It
-also holds the paper's early-exit pass
+hooks use: one call is one feasibility pass on one transform tier
+(``lattice.transforms``), whose ranked convolution takes each middle
+layer.  It also holds the paper's early-exit pass
 (``layered_feasibility_early_exit``), which reads each layer on the host
 and stops as soon as no larger set can be feasible.
 """
@@ -16,7 +16,6 @@ import torch
 
 from repro_torch.core import lattice
 from repro_torch.core.bitset import popcounts
-from repro_torch.core.zeta import mobius, zeta
 
 
 def direct_layer_feasible(dp: torch.Tensor, n: int, k: int) -> torch.Tensor:
@@ -34,26 +33,21 @@ def layered_feasibility_dp(
     n: int,
     direct_layers: int = 4,
     final_layer_shortcut: bool = True,
-    zeta_fn=zeta,
-    mobius_fn=mobius,
-    ranked_conv_fn=None,
+    tier: str = "f64",
 ) -> torch.Tensor:
     """Boolean DP over the lattice: a set S (|S| >= 2) is *feasible* iff
     gate[S] and it splits into two disjoint feasible parts; singletons
-    are feasible.  Returns the (..., 2^n) feasibility table in the gate's
-    dtype — float64 for the f64 tier, int32 for the kernel tier.
-
-    ``zeta_fn``/``mobius_fn`` select the transform backend (default: the
-    f64 butterflies; ``kernels.ops.zeta_batch_op``/``mobius_batch_op`` for
-    the kernel tier; both take ``out=``) and ``ranked_conv_fn`` optionally routes the
-    middle-layer convolutions to ``kernels.ops.ranked_conv_op``.
+    are feasible.  Returns the (..., 2^n) feasibility table in the tier's
+    dtype — float64 for ``"f64"``, int32 for the kernel tier ``"cuda"``
+    (zeta, Moebius and the ranked convolution through ``kernels.ops``;
+    it takes a batched gate) — into which the gate is cast.
     """
-    tfm = lattice.Transforms("host", zeta_fn, mobius_fn, gate.dtype,
-                             ranked_conv=ranked_conv_fn)
+    tfm = lattice.transforms(tier)
+    gate = gate.to(tfm.dtype)
     dp, _, feas = lattice.feasibility_layers(
         gate, n, direct_layers, tfm, final_layer_shortcut)
     if final_layer_shortcut and direct_layers < n:
-        dp[..., -1] = feas.to(gate.dtype)
+        dp[..., -1] = feas.to(tfm.dtype)
     return dp
 
 
@@ -66,28 +60,29 @@ def layered_feasibility_dp(
 # above it, is empty, and V is infeasible.  Infeasible gamma probes of
 # Alg. 3's search typically die within a few layers.
 # --------------------------------------------------------------------------
-def _one_layer_step(Z, dp, gate, n: int, k: int, direct_layers: int):
-    """Layer k of the recursion: returns ``(dp, any_new)``, where
-    ``any_new`` is a 0-d bool tensor (at k = n: V is feasible).  ``Z[k]``
-    is written in place for k < n."""
+def _one_layer_step(Z, dp, gate, n: int, k: int, direct_layers: int,
+                    tfm: lattice.Transforms):
+    """Layer k of the recursion on ``tfm``'s tier: returns ``(dp,
+    any_new)``, where ``any_new`` is a 0-d bool tensor (at k = n: V is
+    feasible).  ``Z[k]`` is written in place for k < n."""
     pc = lattice.popcounts_on(n, dp.device)
     dtype = dp.dtype
     if k <= direct_layers:
         layer_full = lattice.direct_layer_full(dp, gate, n, k, pc, dtype)
     else:
-        acc = lattice.conv_fixed(Z, k)
+        acc = tfm.ranked_conv(Z, k)
         if k == n:
             count_v = lattice.moebius_at_v(acc, pc, n)
             feas_v = (count_v > 0.5).to(dtype) * gate[..., -1]
             dp[..., -1] = feas_v
             return dp, feas_v > 0.5
-        h = mobius(acc, out=acc)
+        h = tfm.mobius(acc, out=acc)
         layer_full = torch.where(pc == k, (h > 0.5).to(dtype) * gate,
                                  torch.zeros((), dtype=dtype,
                                              device=dp.device))
     dp = dp + layer_full
     if k < n:
-        zeta(layer_full, out=Z[k])
+        tfm.zeta(layer_full, out=Z[k])
     return dp, torch.any(layer_full > 0.5)
 
 
@@ -98,16 +93,18 @@ def layered_feasibility_early_exit(gate: torch.Tensor, n: int,
     layer.  The ranked-zeta buffer ``Z`` is updated in place."""
     size = 1 << n
     dev = gate.device
+    tfm = lattice.transforms("f64")
     pc = lattice.popcounts_on(n, dev)
     dp = (pc == 1).to(torch.float64)
     Z = torch.zeros((n + 1, size), dtype=torch.float64, device=dev)
-    zeta(dp, out=Z[1])
+    tfm.zeta(dp, out=Z[1])
     nonempty = [True] * 2 + [False] * (n - 1)     # indexed by layer size
     for k in range(2, n + 1):
         lo = (k + 1) // 2
         if not any(nonempty[lo:k]):
             return False                          # provably dead above
-        dp, any_new = _one_layer_step(Z, dp, gate, n, k, direct_layers)
+        dp, any_new = _one_layer_step(Z, dp, gate, n, k, direct_layers,
+                                      tfm)
         if k == n:
             return bool(any_new)
         nonempty[k] = bool(any_new)

@@ -24,9 +24,12 @@ runs on the f64 tier in this lane and the (min,+) sweeps are f64, so
 cap and out results report ``meta["backend"] == "f64"``.
 Engines (``BatchPolicy.engine``): ``"fused"`` runs each chunk's whole
 solve on the device (``core.engine``); ``"host"`` is the per-round host
-loop for max (whose kernel tier also takes the ranked-convolution
-kernel, ``kernel_dp_fn``), the host pipeline for cap (B independent
-solves, ``chunk = 1``) and the host DPccp enumerator for out.
+loop for max (a feasibility pass per round on the chunk's tier: the
+kernel tier's is ``kernel_dp_fn``), the host pipeline for cap (B
+independent solves, ``chunk = 1``) and the host DPccp enumerator for
+out.  Both engines run the same recursion on a tier
+(``lattice.feasibility_layers``): on a card each middle layer of the
+kernel tier is one ``ranked_conv`` launch either way.
 
 Solve mesh (``BatchPolicy.solve_shards = D``): chunks at ``n >=
 shard_min_n`` run the fused engine over a D-way solve mesh
@@ -63,8 +66,6 @@ from repro_torch.core.engine import host_cards
 from repro_torch.core.layered import layered_feasibility_dp
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import mesh_devices
-from repro_torch.kernels.ops import (mobius_batch_op, ranked_conv_op,
-                                     zeta_batch_op)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,14 +104,12 @@ def _pow2_chunks(b: int, cap: int):
 
 def kernel_dp_fn(n: int, direct_layers: int = 4):
     """Host-loop feasibility pass on the kernel tier (counterpart of
-    ``repro.service.batch.pallas_dp_fn``): the gate is cast to int32 and
-    the layered DP runs zeta/Moebius and the middle-layer ranked
-    convolutions through ``kernels.ops``."""
+    ``repro.service.batch.pallas_dp_fn``): the layered DP on the
+    ``"cuda"`` tier, whose zeta/Moebius and middle-layer ranked
+    convolutions run in int32 through ``kernels.ops``."""
     def dp_fn(gate: torch.Tensor, final_layer_shortcut: bool):
-        dp = layered_feasibility_dp(
-            gate.to(torch.int32), n, direct_layers, final_layer_shortcut,
-            zeta_fn=zeta_batch_op, mobius_fn=mobius_batch_op,
-            ranked_conv_fn=ranked_conv_op)
+        dp = layered_feasibility_dp(gate, n, direct_layers,
+                                    final_layer_shortcut, tier="cuda")
         return dp.to(torch.float64)
     return dp_fn
 

@@ -12,8 +12,9 @@ each replay, against the eager program, bitwise.  On the card
 (``cuda``-marked, skipped without one): graphed against eager, bitwise,
 in optima, tables, trees, rounds and syncs, over three calls on
 different inputs (eager parts, captures, replays); returned tensors
-that no later call changes; and the engine's counters and launch
-counts under replay.
+that no later call changes; the engine's counters and launch counts
+under replay; and one ``ranked_conv`` launch per convolution layer of
+every pass of a fused int32 solve.
 """
 import numpy as np
 import pytest
@@ -338,3 +339,22 @@ def test_engine_counts_graph_calls_and_launches_on_card(cuda_device):
         counts.append({k: after[k] - before[k] for k in after})
     assert counts[0] == counts[1] and counts[0]["zeta_cluster"] > 0
     assert out[-2:] == eager(*args)[-2:]       # rounds, syncs
+
+
+@pytest.mark.cuda
+def test_fused_int32_max_launches_ranked_conv_per_layer(cuda_device):
+    """A fused int32 max solve at n = 13 launches the ranked-convolution
+    kernel once per middle layer and once at the final layer of every
+    pass (layers 5..13: four direct layers), eager, captured and
+    replayed."""
+    n = 13
+    _, cards = _queries(n, 4, seed=13)
+    engine.fused_dpconv_max(cards, n, backend="cuda", device=cuda_device)
+    for _ in range(3):
+        before = build.launch_counts()["ranked_conv"]
+        fs = engine.fused_dpconv_max(cards, n, backend="cuda",
+                                     device=cuda_device)
+        torch.cuda.synchronize()
+        assert fs.passes == fs.rounds + 1 > 1
+        assert build.launch_counts()["ranked_conv"] - before == \
+            (n - 4) * fs.passes

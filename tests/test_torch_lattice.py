@@ -1,11 +1,12 @@
 """The port's lattice layer against ``repro.core.lattice``, bitwise.
 
 Same gates (made with numpy from fixed seeds) through both packages: the
-layered feasibility DP in unrolled and scan form on both transform tiers
-(``f64`` / ``"xla"`` and the int32 kernel tier ``cuda`` / ``"pallas"``,
-whose kernels run as plain versions here and in interpret mode in the
-reference), the probe pivots and bracket updates of the (G+1)-ary
-search, and the on-device extraction scan.
+port's one layered feasibility DP against the reference's unrolled and
+scan forms on both transform tiers (``f64`` / ``"xla"`` and the int32
+kernel tier ``cuda`` / ``"pallas"``, whose kernels run as plain versions
+here and in interpret mode in the reference), the calls the recursion
+makes to its tier's convolution, the probe pivots and bracket updates of
+the (G+1)-ary search, and the on-device extraction scan.
 """
 import jax  # noqa: F401
 import jax.numpy as jnp
@@ -15,7 +16,8 @@ import torch
 
 from repro.core import lattice as ref_lattice
 from repro.core.querygraph import chain, clique, make_cardinalities
-from repro_torch.core import lattice
+from repro_torch.core import engine, layered, lattice
+from repro_torch.kernels import ops, ref
 
 TIERS = {"f64": ("xla", np.float64), "cuda": ("pallas", np.int32)}
 
@@ -45,6 +47,12 @@ def _gate(n: int, dtype, seed: int) -> np.ndarray:
     return np.stack(rows).astype(dtype)
 
 
+def _cards(n: int, B: int) -> np.ndarray:
+    """(B, 2^n) cardinalities of clique and chain queries in turn."""
+    return np.stack([make_cardinalities((clique, chain)[b % 2](n),
+                                        seed=n + b) for b in range(B)])
+
+
 def _np(x) -> np.ndarray:
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
@@ -53,6 +61,8 @@ def _np(x) -> np.ndarray:
 @pytest.mark.parametrize("scan", [False, True], ids=["unrolled", "scan"])
 @pytest.mark.parametrize("n", [5, 8, 11])
 def test_feasibility_layers_bitwise(n, scan, tier):
+    """The port's one recursion against each of the reference's two
+    middle-layer forms (``scan``: the reference's scan form)."""
     ref_name, dtype = TIERS[tier]
     gate = _gate(n, dtype, seed=n)
     rtfm = ref_lattice.transforms(ref_name)
@@ -62,12 +72,55 @@ def test_feasibility_layers_bitwise(n, scan, tier):
             jnp.asarray(gate), n=n, direct_layers=4, tfm=rtfm,
             final_shortcut=shortcut, scan_middle=scan)
         got = lattice.feasibility_layers(
-            torch.from_numpy(gate), n, 4, ptfm, shortcut, scan_middle=scan)
+            torch.from_numpy(gate), n, 4, ptfm, shortcut)
         for w, g in zip(want, got):
             assert np.array_equal(_np(g), _np(w))
             assert _np(g).dtype == _np(w).dtype
     # the full-table run decides V the same way the shortcut does
     assert np.array_equal(_np(got[2]), _np(want[2]))
+
+
+def _counting_conv(monkeypatch, tier: str) -> list:
+    """Route ``tier``'s ranked convolution through a wrapper that logs
+    each call's layer; returns the log.  ``lattice.transforms`` reads
+    the op at each call, so programs built afterwards take the wrapper."""
+    mod, name = ((ops, "ranked_conv_op") if tier == "cuda"
+                 else (ref, "ranked_conv_ref"))
+    inner, ks = getattr(mod, name), []
+
+    def conv(Z, k):
+        ks.append(k)
+        return inner(Z, k)
+    monkeypatch.setattr(mod, name, conv)
+    return ks
+
+
+@pytest.mark.parametrize("case", ["fused-max-cuda", "host-cuda",
+                                  "host-f64"])
+def test_recursion_calls_its_tiers_convolution_once_per_layer(
+        monkeypatch, case):
+    """Every pass, fused or host loop, takes its tier's convolution once
+    at each middle layer and once at the final layer, and nothing else
+    does: layers 5..n with four direct layers."""
+    where, tier = case.rsplit("-", 1)
+    n = 8
+    ks = _counting_conv(monkeypatch, tier)
+    per_pass = list(range(5, n + 1))
+    if where == "fused-max":
+        cards, cand, hi0, B, _ = engine._pad_candidates(_cards(n, 2), n)
+        prog = lattice.build_max_program(n, 4, tier, True)
+        *_, rounds, _ = prog(torch.from_numpy(cards),
+                             torch.from_numpy(cand),
+                             torch.zeros(B, dtype=torch.int64),
+                             torch.from_numpy(hi0))
+        assert rounds > 0
+        assert ks == per_pass * (rounds + 1)       # search + extraction
+    else:
+        gate = torch.from_numpy(_gate(n, np.float64, seed=7))
+        for shortcut in (True, False):
+            ks.clear()
+            layered.layered_feasibility_dp(gate, n, 4, shortcut, tier=tier)
+            assert ks == per_pass
 
 
 @pytest.mark.parametrize("G", [1, 3])
@@ -99,7 +152,7 @@ def test_extract_scan_bitwise(n):
     full = np.ones_like(gate)
     for g in (gate, full):
         dp, _, feas = lattice.feasibility_layers(
-            torch.from_numpy(g), n, 4, None, False, scan_middle=True)
+            torch.from_numpy(g), n, 4, None, False)
         dpf = dp.to(torch.float64)
         want_nodes, want_lidx = ref_lattice.extract_scan(
             jnp.asarray(dpf.numpy()), n)
@@ -126,7 +179,8 @@ def test_search_state_and_direct_tables():
 def test_transform_tiers():
     assert lattice.transforms("f64").dtype == torch.float64
     assert lattice.transforms("cuda").dtype == torch.int32
-    assert lattice.transforms("cuda").ranked_conv is not None
+    assert lattice.transforms("cuda").ranked_conv is ops.ranked_conv_op
+    assert lattice.transforms("f64").ranked_conv is ref.ranked_conv_ref
     with pytest.raises(ValueError):
         lattice.transforms("xla")          # the reference's names only
 

@@ -192,7 +192,8 @@ TIERS = {"f64": ("xla", np.float64), "cuda": ("pallas", np.int32)}
 @pytest.mark.parametrize("tier", sorted(TIERS))
 def test_feasibility_layers_seed_replay(tier, scan):
     """Layers 2..k0 replayed from a solved table (``seed_layers``) give
-    the cold recursion's tables bitwise, as in the reference."""
+    the cold recursion's tables bitwise, and the reference's seeded run
+    in each of its two middle-layer forms (``scan``)."""
     n = 7
     ref_name, dtype = TIERS[tier]
     pc = np.array([bin(s).count("1") for s in range(1 << n)])
@@ -201,11 +202,10 @@ def test_feasibility_layers_seed_replay(tier, scan):
                     True).astype(dtype)[None, :]
     tfm = lattice.transforms(tier)
     cold = lattice.feasibility_layers(torch.from_numpy(gate), n, 4, tfm,
-                                      False, scan_middle=scan)
+                                      False)
     seed = (4, cold[0].numpy())
     warm = lattice.feasibility_layers(torch.from_numpy(gate), n, 4, tfm,
-                                      False, scan_middle=scan,
-                                      seed_layers=seed)
+                                      False, seed_layers=seed)
     ref = ref_lattice.feasibility_layers(
         jnp.asarray(gate), n, 4, ref_lattice.transforms(ref_name), False,
         scan_middle=scan, seed_layers=seed)
