@@ -8,11 +8,12 @@ Phases (any failed check exits non-zero; nothing is caught):
 1. card      — name, count, and ``nvidia-smi`` name and power limit;
 2. build     — ``nvcc`` builds every kernel of ``src/repro_torch/csrc``;
 3. zeta      — every launch of a transform's plan (``zeta_cluster``
-               for the low min(n, 15) bits, ``zeta_high`` for each chunk
-               of at most 5 higher bits) against its plain PyTorch
+               for the low min(n, 15) bits, 14 in f64, ``zeta_high`` for
+               each chunk of at most 5 higher bits) against its plain
+               PyTorch
                version on the card, bitwise, n = 0..17 and, for the
-               high bits, (1, 2^n) at n = 18..21 and (8, 2^20), int32
-               and f32, fresh and in place;
+               high bits, (1, 2^n) at n = 18..21 and (8, 2^20), int32,
+               f32 and f64 (the float64 tier's), fresh and in place;
 4. conv      — the ranked-convolution kernel against its plain version;
 5. fused     — the DPconv[max] batch lane (``BatchedSolver``, default
                policy: fused engine, int32 kernel tier for n = 12..15) on
@@ -25,15 +26,22 @@ Phases (any failed check exits non-zero; nothing is caught):
                the ranked-convolution kernel runs; optima equal the f64
                tier's;
 7. large     — 4 clique(18) queries, above the int32 envelope: ``auto``
-               takes the f64 tier and launches no kernel;
+               takes the f64 tier, which launches the zeta kernels only:
+               one ``zeta_cluster`` launch and one ``zeta_high`` launch
+               per transform (the plan's ceil((n - 15) / 5) at n = 18),
+               no ``ranked_conv`` (the tier's convolution is the plain
+               one);
 8. cap       — the C_cap lane (default policy: fused engine, pass 1 on
                the f64 tier as in the reference) on 16 clique(15) queries
                as ``"cap"`` and chain/star/cycle(15) as ``"cap_conn"``;
                caps, C_out values and trees equal the host pipeline's
-               (``ccap(engine="host")``); then ``fused_ccap`` on the
-               kernel tier over the 16 cliques equals the f64 tier, with
-               one ``zeta_cluster`` launch per transform, no ``zeta_high``;
-               pass 2 is one ``minplus_layer`` launch per layer;
+               (``ccap(engine="host")``); pass 1 launches the zeta
+               kernels only (a ``zeta_cluster`` and a ``zeta_high``
+               launch per f64 transform at n = 15, no ``ranked_conv``);
+               then ``fused_ccap`` on the kernel tier over the 16 cliques
+               equals the f64 tier, with one ``zeta_cluster`` launch per
+               transform, no ``zeta_high``; pass 2 is one
+               ``minplus_layer`` launch per layer;
 9. out       — the C_out lane (fused DPccp, one program call per chunk)
                on 16 clique(15) plus chain/star/cycle(15): optima, trees
                and DP tables equal numpy DPsub (cliques) and the DPccp
@@ -1622,25 +1630,27 @@ def main() -> int:
     # ------------------------------------------------------------ 3. zeta
     # Every launch of the plan against its plain version, n = 0..17, and
     # for the zeta_high chunks (1, 2^n) at n = 18..21 (one chunk of 3..5
-    # bits, then 5 + 1 bits) and (8, 2^20): full-range int32, integer f32
-    # and random f32 (bits in increasing order, each add rounded alone,
-    # so all three are bitwise); each zeta_high launch in place and into
-    # another tensor; the whole transform into a fresh tensor and in
-    # place; mobius(zeta(x)) == x on the exact inputs.
+    # bits, then 5 + 1 bits) and (8, 2^20): full-range int32, integer and
+    # random f32, integer and random f64 (bits in increasing order, each
+    # add rounded alone, so all five are bitwise); each zeta_high launch
+    # in place and into another tensor; the whole transform into a fresh
+    # tensor and in place; mobius(zeta(x)) == x on the exact inputs.
     shapes = [(1 << n,) for n in range(18)]
     shapes += [(16, 1 << n) for n in range(18)]
     shapes += [(2, 16, 1 << n) for n in range(18)] + [(16, 16, 1 << 15)]
     shapes += [(1, 1 << n) for n in range(18, 22)] + [(8, 1 << 20)]
     for shape in shapes:
         n = shape[-1].bit_length() - 1
-        plan = launch_plan(n)
         inputs = [
-            rng.integers(-2**31, 2**31, shape, dtype=np.int64)
-            .astype(np.int32),
-            rng.integers(-8, 9, shape).astype(np.float32),
-            rng.random(shape, dtype=np.float32)]
-        for i, a in enumerate(inputs):
+            (rng.integers(-2**31, 2**31, shape, dtype=np.int64)
+             .astype(np.int32), True),
+            (rng.integers(-8, 9, shape).astype(np.float32), True),
+            (rng.random(shape, dtype=np.float32), False),
+            (rng.integers(-2**20, 2**20, shape).astype(np.float64), True),
+            (rng.standard_normal(shape), False)]
+        for a, exact in inputs:
             x = on_card(a)
+            plan = launch_plan(n, x.element_size())
             for sign in (1, -1):
                 low = plan[0][2]
                 out = torch.empty_like(x)
@@ -1671,15 +1681,15 @@ def main() -> int:
                 ops.zeta_op(y, inverse=sign < 0, out=y)
                 check(torch.equal(y, want),
                       f"zeta_op in place {x.dtype} {shape} sign {sign}")
-            if i < 2:
+            if exact:
                 check(torch.equal(ops.mobius_op(ops.zeta_op(x)), x),
                       f"mobius(zeta(x)) != x on {x.dtype} {shape}")
     torch.cuda.synchronize()
     print(f"zeta: every launch == its plain version, bitwise, n = 0..17 on "
           f"(2^n,), (16, 2^n), (2, 16, 2^n) and (16, 16, 2^15), n = 18..21 "
           f"on (1, 2^n) and (8, 2^20), both signs, int32 full range, "
-          f"integer and random f32, fresh and in place; mobius(zeta(x)) "
-          f"== x", flush=True)
+          f"integer and random f32 and f64, fresh and in place; "
+          f"mobius(zeta(x)) == x", flush=True)
 
     # ------------------------------------------------------------ 4. conv
     Zshape = (16, 16, 1 << 15)
@@ -1818,15 +1828,22 @@ def main() -> int:
     t_big = time.perf_counter() - t0
     check(all(r.meta["backend"] == "f64" for r in got7),
           "auto left the f64 tier above n = 15")
-    check(sum(ops.launch_counts().values()) == 0,
-          "a kernel launched above the int32 envelope")
+    # the f64 tier launches the zeta kernels only, as launch_plan(18, 8)
+    # says: one zeta_cluster and one zeta_high launch per transform
+    counts7 = ops.launch_counts()
+    high7 = len(launch_plan(18, 8)) - 1
+    check(high7 == 1 and counts7["zeta_cluster"] > 0
+          and counts7["zeta_high"] == high7 * counts7["zeta_cluster"]
+          and counts7["ranked_conv"] == counts7["minplus_layer"] == 0,
+          f"the f64 tier launched {counts7} at n = 18: zeta_cluster and "
+          f"{high7} zeta_high per transform expected, nothing else")
     for (q, cq), r in zip(big, got7):
         check(r.tree.validate() and r.tree.cost_max(cq) == r.cost,
               "n=18: tree does not realize its optimum")
     qps7 = len(big) / t_big
     print(f"large: 4 clique(18) queries on the f64 tier in {t_big:.4f} s "
-          f"(first call of this bucket), {qps7:.3f} queries/s {card}",
-          flush=True)
+          f"(first call of this bucket), {qps7:.3f} queries/s, launches "
+          f"{counts7} {card}", flush=True)
 
     def lane_run(solver, lane_items):
         """One timed ``solve`` after a warm-up call: results, wall
@@ -1862,13 +1879,19 @@ def main() -> int:
     cap_items = ([(q, c, "cap") for q, c in cliques15]
                  + [(q, c, "cap_conn") for q, c in sparse15])
     got8, t_cap, mem8, syncs8, counts8 = lane_run(BatchedSolver(), cap_items)
-    # pass 1 runs the f64 tier (no zeta kernel); pass 2 is one
-    # minplus_layer launch per layer 2..15 of each program call
+    # pass 1 runs the f64 tier (the zeta kernels only, as launch_plan(15,
+    # 8) says: a zeta_cluster and a zeta_high launch per transform; no
+    # ranked_conv); pass 2 is one minplus_layer launch per layer 2..15
+    # of each program call
     check(counts8["minplus_layer"] > 0
           and counts8["minplus_layer"] % 14 == 0
-          and sum(counts8.values()) == counts8["minplus_layer"],
-          f"the cap lane launched {counts8}: its pass 1 runs the f64 tier, "
-          f"its pass 2 14 minplus_layer launches a call")
+          and counts8["zeta_cluster"] > 0
+          and counts8["zeta_high"] == counts8["zeta_cluster"] * (
+              len(launch_plan(15, 8)) - 1)
+          and counts8["ranked_conv"] == 0,
+          f"the cap lane launched {counts8}: its pass 1 runs the f64 tier "
+          f"(a zeta_cluster and a zeta_high launch per transform), its "
+          f"pass 2 14 minplus_layer launches a call")
     for (q, c, cost), r in zip(cap_items, got8):
         check(r.meta["engine"] == "fused" and r.meta["backend"] == "f64",
               f"cap lane meta {r.meta}")
@@ -2849,7 +2872,8 @@ def main() -> int:
           f"{t_replay:.4f} s, {len(ereqs) / t_replay:.2f} requests/s; "
           f"{held} answers == optimize with the route's method, "
           f"{len(ereqs) - held} goo/approx; launches over the planner "
-          f"phase {counts13} (no plan reaches n = 12) {card}", flush=True)
+          f"phase {counts13} (no plan reaches n = 12: any zeta launch is "
+          f"the f64 tier's) {card}", flush=True)
 
     # --------------------------------------------------------- 14. cluster
     # Three loopback replicas on the card (fused engine, batch lane) on
@@ -3082,8 +3106,17 @@ def main() -> int:
                 + counts9[k] + server_launches[k] + runtime_launches[k]
                 + counts12[k] + counts13[k] + counts14[k]
                 for k in build.KERNELS}
-    check(launches["zeta_high"] == 0,
-          f"phases 5-14 launched zeta_high {launches['zeta_high']} times")
+    # zeta_high serves transforms of more than 15 bits, 14 in f64: the
+    # f64 tier's at n = 15..19 (phases 7, 8 and 12), none on the int32
+    # tier (phases 5, 6 and the kernel tier of 8) or at n <= 14 (9)
+    high15 = sum(c["zeta_high"] for c in (counts5, counts6, counts8k,
+                                          counts9))
+    check(high15 == 0 and counts7["zeta_high"] > 0
+          and counts8["zeta_high"] > 0 and counts12["zeta_high"] > 0,
+          f"zeta_high launches: {high15} on the int32 tier (none "
+          f"expected), {counts7['zeta_high']}, {counts8['zeta_high']} and "
+          f"{counts12['zeta_high']} in phases 7, 8 and 12 (the f64 tier "
+          f"at n = 15..19)")
     check(launches["minplus_layer"] > 0,
           "phases 5-14 ran no minplus_layer: the cap and out lanes left "
           "the kernel sweep")
@@ -3391,7 +3424,9 @@ def main() -> int:
                           f"what it held before the solve; == unsharded "
                           f"fused and host pipeline {card}", flush=True)
     counts16 = ops.launch_counts()
-    check(counts16["zeta_cluster"] > 0 and counts16["zeta_high"] == 0,
+    # the kernel tier's max solves launch zeta_cluster and ranked_conv;
+    # the f64 tier's transforms at n = 15 (cap's pass 1) zeta_high too
+    check(counts16["zeta_cluster"] > 0 and counts16["ranked_conv"] > 0,
           f"the sharded max solves launched {counts16}")
     print(f"sharded: max (kernel tier), cap, connected cap and out at "
           f"n = 14, 15 on {', '.join(f'{k} D = {w}' for k, _, w in meshes16)}"

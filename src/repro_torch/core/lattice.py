@@ -23,8 +23,11 @@ layer and at the final one:
 ========= ============================================== ================
 port      what                                            in ``repro``
 ========= ============================================== ================
-``f64``   PyTorch float64 butterflies (``core.zeta``)     ``"xla"``
-          and the plain convolution
+``f64``   float64 counting: zeta/Moebius through the      ``"xla"``
+          CUDA kernels (``kernels.ops``; the plain
+          butterflies of ``core.zeta`` on CPU
+          tensors), bitwise the butterflies, and the
+          plain convolution
           (``kernels.ref.ranked_conv_ref``), exact
           counts to n = 26
 ``cuda``  int32 counting through the CUDA kernels         ``"pallas"``
@@ -115,9 +118,9 @@ class Transforms:
 def transforms(tier: str) -> Transforms:
     """The two transform tiers (see the module docstring)."""
     if tier == "f64":
-        from repro_torch.core.zeta import mobius, zeta
+        from repro_torch.kernels.ops import mobius_op, zeta_op
         from repro_torch.kernels.ref import ranked_conv_ref
-        return Transforms("f64", zeta, mobius, torch.float64,
+        return Transforms("f64", zeta_op, mobius_op, torch.float64,
                           ranked_conv_ref)
     if tier == "cuda":
         # int32 counting tier: exact while counts < 2^31 (n <= 15),

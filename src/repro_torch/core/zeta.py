@@ -1,5 +1,7 @@
 """Zeta and Moebius transforms over the subset lattice (paper Sec. 4) —
-the f64 tier of the port.
+the plain version of the port's float64 tier (which runs the CUDA
+kernels of ``kernels.ops`` on a card, bitwise these) and the transforms
+of every direct caller.
 
 Yates' butterfly (Lst. 1 of the paper) on the LAST axis of a batched
 tensor: pass ``j`` views the lattice as (high, 2, low) and adds the

@@ -63,14 +63,17 @@ _SIGNATURES = {
 }
 
 
-_DTYPE_CODES = {torch.int32: 0, torch.float32: 1}   # csrc/common.cuh
+# csrc/common.cuh
+_DTYPE_CODES = {torch.int32: 0, torch.float32: 1, torch.float64: 2}
 
 
 def dtype_code(t) -> int:
-    """The kernels' dtype code of a tensor: int32 or float32 only."""
+    """The kernels' dtype code of a tensor: int32, float32 or float64
+    (float64 the zeta kernels only; the others refuse its code)."""
     code = _DTYPE_CODES.get(t.dtype)
     if code is None:
-        raise TypeError(f"the kernels take int32 or float32, not {t.dtype}")
+        raise TypeError(f"the kernels take int32, float32 or float64, not "
+                        f"{t.dtype}")
     return code
 
 

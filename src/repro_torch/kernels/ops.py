@@ -9,7 +9,9 @@ error propagates.
 Exactness envelopes, as in the reference: the f32 path is exact while
 values stay below 2^24, the int32 path while the final counts stay below
 2^31 (intermediates may wrap: two's-complement arithmetic is exact
-modulo 2^32, and feasibility counts at n <= 15 fit).
+modulo 2^32, and feasibility counts at n <= 15 fit).  The f64 zeta and
+Moebius (the float64 tier's) are bitwise the plain butterflies on any
+input, and exact on feasibility counts to n = 26.
 """
 from __future__ import annotations
 

@@ -36,8 +36,8 @@ def zeta_stages_ref(f: torch.Tensor, sign: int, lo: int,
                     hi: int) -> torch.Tensor:
     """Butterfly stages ``lo..hi-1`` only: the plain version of one
     launch of ``zeta_cuda.launch_plan`` (``zeta_cluster``: ``lo = 0``,
-    ``hi = min(n, 15)``; ``zeta_high``: ``15 <= lo < hi <= lo +
-    HIGH_BITS``)."""
+    ``hi = min(n, LOW_BITS)``, 15 at 4 bytes an element and 14 at 8;
+    ``zeta_high``: ``LOW_BITS <= lo < hi <= lo + HIGH_BITS``)."""
     return butterfly(f, sign, range(lo, hi))
 
 

@@ -479,7 +479,8 @@ def test_fused_ccap_on_card_matches_cpu(cuda_device, connected):
         assert _strs(got.trees) == _strs(cpu.trees)
         assert got.rounds == cpu.rounds
         counts = ops.launch_counts()
-        assert (counts["zeta_cluster"] > 0) == (tier == "cuda")
+        assert counts["zeta_cluster"] > 0      # both tiers' transforms
+        assert (counts["ranked_conv"] > 0) == (tier == "cuda")
         assert counts["zeta_high"] == 0
 
 

@@ -10,10 +10,12 @@ zeta (positive terms) holds to rtol = 1e-6; Moebius cancels, so it holds
 to the sum's error bound, n * 2^-24 * Σ|f|, per table.
 
 The launch plan of a transform (one ``zeta_cluster`` launch for the low
-15 bits, then ``zeta_high`` launches of at most ``HIGH_BITS`` higher bits
-each) is plain Python and is checked here.  The ``cuda`` cases hold each
-CUDA kernel against its plain version on the card; they skip without
-one.
+15 bits, 14 at 8 bytes an element, then ``zeta_high`` launches of at most
+``HIGH_BITS`` higher bits each) is plain Python and is checked here.  The ``cuda`` cases hold each
+CUDA kernel against its plain version on the card, bitwise: int32, f32
+and f64 (the float64 tier's transforms; bits run in increasing order
+with each add rounded alone, so random floats are bitwise too); they
+skip without one.
 """
 import re
 from pathlib import Path
@@ -26,9 +28,12 @@ import torch
 
 from repro.kernels.ranked_conv import ranked_conv_pallas
 from repro.kernels.ops import zeta_op as ref_zeta_op
+from repro_torch.core import engine, lattice
+from repro_torch.core.querygraph import paper_clique_instance
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.ranked_conv import ranked_conv_cuda
-from repro_torch.kernels.zeta_cuda import (HIGH_BITS, LOW_BITS,
+from repro_torch.kernels.zeta_cuda import (CLUSTER_BITS, HIGH_BITS,
+                                           LOW_BITS, TILE_BITS,
                                            cluster_size, launch_cluster,
                                            launch_high, launch_plan)
 
@@ -98,7 +103,7 @@ def test_zeta_high_chunks_against_reference(dtype):
     chunks after the cluster launch; the reference runs one
     ``_pair_pass`` per block bit.  Bitwise: full-range int32, and f32 of
     small integers (every partial sum below 2^24)."""
-    n = LOW_BITS + HIGH_BITS + 1
+    n = LOW_BITS[4] + HIGH_BITS + 1
     rng = np.random.default_rng(n)
     if dtype == np.int32:
         x = rng.integers(-2**31, 2**31, 1 << n,
@@ -129,6 +134,7 @@ def test_ops_on_cpu_launch_no_kernel():
     ops.reset_launch_counts()
     x = torch.arange(3 << 12, dtype=torch.int32).reshape(3, 1 << 12)
     ops.mobius_batch_op(ops.zeta_batch_op(x))
+    ops.mobius_op(ops.zeta_op(x[0].double()))      # the float64 tier's
     ops.ranked_conv_op(torch.ones((13, 1 << 12), dtype=torch.int32), 7)
     assert ops.launch_counts() == {"zeta_cluster": 0, "zeta_high": 0,
                                    "ranked_conv": 0, "minplus_layer": 0}
@@ -136,19 +142,21 @@ def test_ops_on_cpu_launch_no_kernel():
         ops.zeta_batch_op(x[0])
 
 
-@pytest.mark.parametrize("dtype", [np.int32, np.float32])
-@pytest.mark.parametrize("n", [17, LOW_BITS + HIGH_BITS + 1])
+@pytest.mark.parametrize("dtype", [np.int32, np.float32, np.float64])
+@pytest.mark.parametrize("n", [17, LOW_BITS[4] + HIGH_BITS + 1])
 def test_stage_plain_versions_compose_to_the_transform(n, dtype):
     """The per-launch plain versions of the launch plan (one cluster
-    launch for the low 15 bits + ``zeta_high`` chunks of at most
-    ``HIGH_BITS`` higher bits) compose to the whole transform: what the
-    card checks launch by launch is the function the reference computes.
-    At n = 15 + HIGH_BITS + 1 the plan crosses a chunk boundary."""
+    launch for the low 15 bits, 14 in float64, + ``zeta_high`` chunks of
+    at most ``HIGH_BITS`` higher bits) compose to the whole transform:
+    what the card checks launch by launch is the function the reference
+    computes.  At n = 15 + HIGH_BITS + 1 the plan crosses a chunk
+    boundary."""
     rng = np.random.default_rng(5 + n)
     x = torch.from_numpy(rng.integers(-9, 10, (2, 1 << n)).astype(dtype))
-    plan = launch_plan(n)
+    low = LOW_BITS[x.element_size()]
+    plan = launch_plan(n, x.element_size())
     assert [k for k, _, _ in plan] == (
-        ["zeta_cluster"] + ["zeta_high"] * -(-(n - LOW_BITS) // HIGH_BITS))
+        ["zeta_cluster"] + ["zeta_high"] * -(-(n - low) // HIGH_BITS))
     for sign in (1, -1):
         y = x
         for _, lo, hi in plan:
@@ -157,32 +165,56 @@ def test_stage_plain_versions_compose_to_the_transform(n, dtype):
         assert torch.equal(y, full)
 
 
+@pytest.mark.parametrize("itemsize,low", [(4, 15), (8, 14)])
 @pytest.mark.parametrize("n", range(25))
-def test_launch_plan_covers_each_bit_once(n):
-    plan = launch_plan(n)
+def test_launch_plan_covers_each_bit_once(n, itemsize, low):
+    plan = launch_plan(n, itemsize)
     bits = [j for _, lo, hi in plan for j in range(lo, hi)]
     assert bits == list(range(n))          # each bit once, increasing
-    assert plan[0] == ("zeta_cluster", 0, min(n, 15))
+    assert plan[0] == ("zeta_cluster", 0, min(n, low))
     assert all(k == "zeta_high" and lo < hi <= lo + HIGH_BITS
                for k, lo, hi in plan[1:])
-    assert len(plan) == 1 + -(-max(n - LOW_BITS, 0) // HIGH_BITS)
+    assert len(plan) == 1 + -(-max(n - low, 0) // HIGH_BITS)
+    if itemsize == 8 and 15 <= n <= 19:    # the float64 tier's cliques
+        assert len(plan) == 2
 
 
 def test_high_bits_match_the_kernel_source():
-    """``HIGH_BITS`` is the CUDA source's ``kHighMaxBits``: the plan never
-    asks a ``zeta_high`` launch for more bits than the kernel takes."""
+    """``HIGH_BITS`` is the CUDA source's ``kHighMaxBits`` and
+    ``TILE_BITS`` its ``Tile<T>::kBits``: the plan never asks a launch
+    for more bits than the kernel takes."""
     src = (Path(build.CSRC) / "zeta.cu").read_text()
     assert re.search(rf"constexpr int kHighMaxBits = {HIGH_BITS};", src)
+    assert re.search(rf"kBits = sizeof\(T\) == 4 \? {TILE_BITS[4]} : "
+                     rf"{TILE_BITS[8]};", src)
+    assert re.search(rf"constexpr int kMaxClusterBits = {CLUSTER_BITS};",
+                     src)
+
+
+@pytest.mark.parametrize("dtype,code", [(torch.int32, 0), (torch.float32, 1),
+                                        (torch.float64, 2)])
+def test_dtype_code_matches_the_kernel_source(dtype, code):
+    """``build.dtype_code`` takes int32, float32 and float64 (the float64
+    tier's zeta and Moebius), with the codes of ``csrc/common.cuh``'s
+    enum; any other dtype is refused before a launch."""
+    assert build.dtype_code(torch.zeros(1, dtype=dtype)) == code
+    src = (Path(build.CSRC) / "common.cuh").read_text()
+    name = {0: "kInt32", 1: "kFloat32", 2: "kFloat64"}[code]
+    assert re.search(rf"\b{name} = {code}\b", src)
+    with pytest.raises(TypeError):
+        build.dtype_code(torch.zeros(1, dtype=torch.int64))
 
 
 def test_cluster_size():
     assert [cluster_size(n) for n in range(19)] == (
         [1] * 13 + [2, 4, 8, 8, 8, 8])
+    assert [cluster_size(n, 8) for n in range(19)] == (
+        [1] * 12 + [2, 4, 8, 8, 8, 8, 8])
     for n in range(19):
         assert cluster_size(n) == 2 ** max(min(n, 15) - 12, 0)
 
 
-@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("dtype", [np.int32, np.float32, np.float64])
 @pytest.mark.parametrize("inverse", [False, True], ids=["zeta", "mobius"])
 @pytest.mark.parametrize("where", ["fresh", "other", "self"])
 def test_zeta_op_out_on_cpu(where, inverse, dtype):
@@ -212,29 +244,37 @@ CARD_SHAPES = {"flat": lambda n: (1 << n,), "batch": lambda n: (16, 1 << n),
                "batch2": lambda n: (2, 16, 1 << n)}
 
 
-def _card_inputs(shape, seed, device):
-    """Full-range int32, integer f32 and random f32, on the card."""
+def _card_inputs(shape, seed, device, dtype=None):
+    """Full-range int32, integer and random f32, integer and random f64,
+    on the card; only those of ``dtype`` if given.  The integer inputs
+    are exact (mobius(zeta(x)) == x)."""
     rng = np.random.default_rng(seed)
     xi = rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)
     xf = rng.integers(-8, 9, shape).astype(np.float32)
     xr = rng.random(shape, dtype=np.float32)
-    return [torch.from_numpy(a).to(device) for a in (xi, xf, xr)]
+    xd = rng.integers(-2**20, 2**20, shape).astype(np.float64)
+    xdr = rng.standard_normal(shape)
+    inputs = [(xi, True), (xf, True), (xr, False), (xd, True), (xdr, False)]
+    return [(torch.from_numpy(a).to(device), exact) for a, exact in inputs
+            if dtype is None or a.dtype == dtype]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int32, np.float32, np.float64])
 @pytest.mark.parametrize("kind", sorted(CARD_SHAPES))
-@pytest.mark.parametrize("n", [0, 3, 11, 12, 13, 15, 16, 17, 18, 19, 20,
-                               21])
-def test_zeta_cluster_kernel_matches_plain_on_card(cuda_device, n, kind):
+@pytest.mark.parametrize("n", range(22))
+def test_zeta_cluster_kernel_matches_plain_on_card(cuda_device, n, kind,
+                                                   dtype):
     """Each launch of the plan against its plain version (``zeta_high``
     in place and into another tensor), the whole transform (fresh output
     and in place), and mobius(zeta(x)) == x.  Bits run in increasing
-    order with each add rounded alone, so random f32 is bitwise too."""
+    order with each add rounded alone, so random f32 and f64 are bitwise
+    too."""
     inputs = _card_inputs(CARD_SHAPES[kind](n), 10 * n + len(kind),
-                          cuda_device)
-    for i, x in enumerate(inputs):
+                          cuda_device, dtype)
+    for x, exact in inputs:
         for sign in (1, -1):
-            plan = launch_plan(n)
+            plan = launch_plan(n, x.element_size())
             out = torch.empty_like(x)
             launch_cluster(x, out, plan[0][2], sign)
             assert torch.equal(out,
@@ -252,29 +292,81 @@ def test_zeta_cluster_kernel_matches_plain_on_card(cuda_device, n, kind):
             y = x.clone()
             assert ops.zeta_op(y, inverse=sign < 0, out=y) is y
             assert torch.equal(y, want)
-        if i < 2:               # exact inputs: int32, integer f32
+        if exact:
             assert torch.equal(ops.mobius_op(ops.zeta_op(x)), x)
         torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
-def test_zeta_cluster_kernel_main_shape_on_card(cuda_device):
-    """The path's largest stack, (16, 16, 2^15): one launch, in place,
-    into a slot of a ranked buffer."""
-    ops.reset_launch_counts()
-    for x in _card_inputs((16, 16, 1 << 15), 15, cuda_device):
-        Z = torch.zeros((3,) + tuple(x.shape), dtype=x.dtype,
-                        device=cuda_device)
-        for sign in (1, -1):
-            want = ref.zeta_ref(x) if sign > 0 else ref.mobius_ref(x)
-            got = ops.zeta_batch_op(x, inverse=sign < 0, out=Z[1])
-            assert got.data_ptr() == Z[1].data_ptr()
-            assert torch.equal(Z[1], want)
-            assert torch.equal(Z[0], torch.zeros_like(x))
-            assert torch.equal(Z[2], torch.zeros_like(x))
-    torch.cuda.synchronize()
-    assert ops.launch_counts()["zeta_cluster"] == 6
-    assert ops.launch_counts()["zeta_high"] == 0
+@pytest.mark.parametrize("shape", [(16, 16, 1 << 15), (16, 1 << 13),
+                                   (1, 1 << 16), (1, 1 << 19),
+                                   (17, 1, 1 << 16)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_zeta_cluster_kernel_main_shape_on_card(cuda_device, shape):
+    """The main path's stacks: the int32 lane's largest, (16, 16, 2^15),
+    and the float64 tier's, (B, 2^n) at n = 13, 16 and 19 and a ranked
+    buffer's (n+1, B, 2^n), each into a slot of a ranked buffer, as
+    ``launch_plan`` says: one ``zeta_cluster`` launch a transform and
+    one ``zeta_high`` launch past 15 bits (14 in float64)."""
+    n = shape[-1].bit_length() - 1
+    dtypes = [np.int32, np.float32] if n == 15 else [np.float64]
+    for dtype in dtypes:
+        per = {"zeta_cluster": 1, "zeta_high":
+               len(launch_plan(n, np.dtype(dtype).itemsize)) - 1}
+        ops.reset_launch_counts()
+        inputs = _card_inputs(shape, n, cuda_device, dtype)
+        for x, _ in inputs:
+            Z = torch.zeros((3,) + tuple(x.shape), dtype=x.dtype,
+                            device=cuda_device)
+            for sign in (1, -1):
+                want = ref.zeta_ref(x) if sign > 0 else ref.mobius_ref(x)
+                got = ops.zeta_batch_op(x, inverse=sign < 0, out=Z[1])
+                assert got.data_ptr() == Z[1].data_ptr()
+                assert torch.equal(Z[1], want)
+                assert torch.equal(Z[0], torch.zeros_like(x))
+                assert torch.equal(Z[2], torch.zeros_like(x))
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        assert {k: counts[k] for k in per} == \
+            {k: 2 * len(inputs) * v for k, v in per.items()}
+
+
+@pytest.mark.cuda
+def test_fused_f64_program_launches_the_zeta_kernels(cuda_device,
+                                                     monkeypatch):
+    """A fused float64 C_max program at n = 16, eager on the card: every
+    transform is one ``zeta_cluster`` and one ``zeta_high`` launch, no
+    other kernel runs (the tier's convolution is the plain one), and
+    the optima, trees and rounds are the CPU program's, bitwise."""
+    n, B = 16, 2
+    cards = np.stack([paper_clique_instance(n, seed)[1]
+                      for seed in range(B)])
+    cpu = engine.fused_dpconv_max(cards, n, backend="f64", device="cpu")
+    transforms = [0]
+    zeta_cuda = ops.zeta_cuda
+
+    def counted(*args, **kw):
+        transforms[0] += 1
+        return zeta_cuda(*args, **kw)
+
+    engine.clear_executable_cache()
+    monkeypatch.setattr(lattice, "uses_graphs", lambda device, mesh: False)
+    monkeypatch.setattr(ops, "zeta_cuda", counted)
+    try:
+        ops.reset_launch_counts()
+        got = engine.fused_dpconv_max(cards, n, backend="f64",
+                                      device=cuda_device)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    finally:
+        engine.clear_executable_cache()
+    assert counts == {"zeta_cluster": transforms[0],
+                      "zeta_high": transforms[0], "ranked_conv": 0,
+                      "minplus_layer": 0}
+    assert transforms[0] > 0
+    assert [o.hex() for o in got.optima] == [o.hex() for o in cpu.optima]
+    assert [str(t) for t in got.trees] == [str(t) for t in cpu.trees]
+    assert (got.rounds, got.passes) == (cpu.rounds, cpu.passes)
 
 
 @pytest.mark.cuda

@@ -181,6 +181,10 @@ def test_transform_tiers():
     assert lattice.transforms("cuda").dtype == torch.int32
     assert lattice.transforms("cuda").ranked_conv is ops.ranked_conv_op
     assert lattice.transforms("f64").ranked_conv is ref.ranked_conv_ref
+    # both tiers' transforms launch the kernels on a card
+    assert lattice.transforms("f64").zeta is ops.zeta_op
+    assert lattice.transforms("f64").mobius is ops.mobius_op
+    assert lattice.transforms("cuda").zeta is ops.zeta_batch_op
     with pytest.raises(ValueError):
         lattice.transforms("xla")          # the reference's names only
 
