@@ -45,8 +45,10 @@ Phases (any failed check exits non-zero; nothing is caught):
 9. out       — the C_out lane (fused DPccp, one program call per chunk)
                on 16 clique(15) plus chain/star/cycle(15): optima, trees
                and DP tables equal numpy DPsub (cliques) and the DPccp
-               enumerator (sparse graphs), one ``minplus_layer`` launch
-               per layer and no other kernel; one micro-batch at n = 13
+               enumerator (sparse graphs), one ``connmask`` launch (the
+               connected-subset masks) and one ``minplus_layer`` launch
+               per layer a call, and no other kernel; one micro-batch at
+               n = 13
                with all four lane costs comes back in request order;
 10. server   — the plan server (``PlanServer._process``, one micro-batch
                per pass, plan cache off, layer cache with
@@ -66,11 +68,13 @@ Phases (any failed check exits non-zero; nothing is caught):
                fused server and to DPsub;
 11. runtime  — the serving runtime on one seeded stream
                (``make_workload``: 96 requests, n = 12..15, clique, chain,
-               star and cycle, the default cost mix, 200 requests/s) and
-               a connected C_cap request on clique(12) with a hyperedge,
+               star and cycle, the default cost mix, 200 requests/s), a
+               C_out request on chain(14) with a hyperedge, which the
+               DPccp enumerator answers on the single lane, and a
+               connected C_cap request on clique(12) with a hyperedge,
                which the host C_cap pipeline answers, equal to
-               ``ccap(engine="host")``; every other cap stays on the
-               fused batch lane; B = 16:
+               ``ccap(engine="host")``; every other cap and sparse out
+               stays on the fused batch lane; B = 16:
                (a) ``prewarm(range(12, 16))`` from a cold program cache,
                then ``serve``, every dispatch of a prewarmed bucket a
                program-cache hit; (b) ``serve(closed_loop=True)``; (c)
@@ -117,6 +121,9 @@ Phases (any failed check exits non-zero; nothing is caught):
                gather sweep on the card, bitwise, with the launch counts
                reset before it: n = 13, B = 16 connected and seeded, and
                n = 19, B = 1 value gated at a clique's C_max optimum;
+               the connected-subset mask kernel (``connmask``) against
+               ``QueryGraph.connected_mask`` and its plain version at
+               (4, 2^19) and (16, 2^13), bitwise, one launch a call;
                each kernel at the path's shapes (``minplus_layer`` as
                whole sweeps): device time per call
                (torch.profiler) warm and with L2 cold, the host-launched
@@ -132,12 +139,13 @@ Phases (any failed check exits non-zero; nothing is caught):
                connected cap, on D = 1, 2, 4, each built once and then
                timed three times, held bitwise against the unsharded
                fused solve and the host pipelines (DPsub for out), with
-               the median wall per solve and device memory; then a
-               ``BatchPolicy(solve_shards=4)`` server (cap/out ceilings
+               the median wall per solve and device memory, and one
+               ``connmask`` launch a connected (out, cap_conn) call; then
+               a ``BatchPolicy(solve_shards=4)`` server (cap/out ceilings
                lifted to 15) on the repeated card, prewarmed and serving
                phase 11's stream, every answer equal to an unsharded
-               server's ``plan_one``, n >= 14 cap/out on the batch lane
-               over the 4-slot mesh.  It runs after phase 15; its
+               server's ``plan_one``, n >= 14 simple-edge cap/out on the
+               batch lane over the 4-slot mesh.  It runs after phase 15; its
                launches join the kernel table;
 17. LM serve — the LM side, which runs none of the three kernels: (a)
                the ten reduced configs in float32, the port's
@@ -1950,9 +1958,12 @@ def main() -> int:
     got9, t_out, mem9, syncs9, counts9 = lane_run(BatchedSolver(), out_items)
     check(counts9["minplus_layer"] > 0
           and counts9["minplus_layer"] % 14 == 0
-          and sum(counts9.values()) == counts9["minplus_layer"],
-          f"the out lane launched {counts9}: 14 minplus_layer launches a "
-          f"call expected, nothing else")
+          and counts9["connmask"] == counts9["minplus_layer"] // 14
+          and sum(counts9.values()) == counts9["minplus_layer"]
+          + counts9["connmask"],
+          f"the out lane launched {counts9}: a connmask launch (the "
+          f"connected-subset masks) and 14 minplus_layer launches a call "
+          f"expected, nothing else")
     for i, ((q, c, _), r) in enumerate(zip(out_items, got9)):
         check(r.meta["engine"] == "fused", f"out lane meta {r.meta}")
         if i < len(cliques15):      # every subset of a clique is connected
@@ -2258,6 +2269,15 @@ def main() -> int:
                         pool_size=16, relabel_frac=0.5, fresh_frac=0.1,
                         rate=200.0)
     stream = make_workload(spec)
+    # a sparse C_out request on a chain with a hyperedge: the router
+    # sends it to the single lane's DPccp enumerator, which no sparse out
+    # of the n = 12..15 stream reaches under the card's fused out
+    # ceiling of 19
+    q_o = qg.QueryGraph(14, qg.chain(14).edges, ((0b11, 0b11 << 7),))
+    stream.append(PlanRequest(
+        q=q_o, card=qg.make_cardinalities(q_o, seed=314),
+        cost="out", arrival=stream[-1].arrival + 0.005,
+        req_id=len(stream)))
     # a connected C_cap request on a clique with a hyperedge: the router
     # sends it to the single lane's host pipeline (core.ccap), which no
     # cap of the n = 12..15 stream reaches under the card's fused cap
@@ -2290,6 +2310,12 @@ def main() -> int:
           and all(rt.lane == "batch" for r, rt in zip(stream, routes0)
                   if r.cost == "cap" and not r.connected),
           "the stream's cap requests at n = 12..15 left the fused lane")
+    check(Router().config.fused_out_max_n == 19
+          and all(rt.lane == "batch" for r, rt in zip(stream, routes0)
+                  if r.cost == "out" and rt.method == "dpccp"
+                  and not r.q.hyperedges),
+          "the stream's sparse out requests at n = 12..15 left the fused "
+          "lane")
 
     def is_clique(q):
         return len(q.edges) == q.n * (q.n - 1) // 2
@@ -3271,6 +3297,51 @@ def main() -> int:
         launches["minplus_layer"], "(1, 2^19) float64, value, layers 2..19",
         library_note=no_minplus, per_call=n19 - 1,
         ops_per_s=F64_OPS_PER_S)
+    # The connected-subset mask kernel against QueryGraph.connected_mask
+    # and against its plain version, bitwise, one launch a call: at (4,
+    # 2^19) (chain, star, cycle and a JOB-like sparse graph) and at
+    # qs13's (16, 2^13); then a row at (1, 2^19), the chain (the deepest
+    # fixpoint), and at (16, 2^13).  Bound: the masks written once, the
+    # adjacency read once.
+    from repro_torch.kernels.connmask import connmask_cuda
+
+    def adj_on_card(qs):
+        return on_card(np.stack([q.adjacency() for q in qs]).astype(np.int32))
+
+    qs19 = [qg.chain(n19), qg.star(n19), qg.cycle(n19),
+            qg.random_sparse(n19, extra_edges=12, seed=n19)]
+    for n_, qs_ in ((n19, qs19), (n13, qs13)):
+        a_ = adj_on_card(qs_)
+        ops.reset_launch_counts()
+        got_ = connmask_cuda(a_, n_)
+        torch.cuda.synchronize()
+        counts_ = ops.launch_counts()
+        check(counts_["connmask"] == 1 and sum(counts_.values()) == 1,
+              f"connmask n={n_}: launches {counts_}, one expected")
+        want_ = on_card(np.stack([q.connected_mask() for q in qs_]))
+        check(record("connmask", got_, want_)
+              and torch.equal(got_, ref.connmask_ref(a_, n_)),
+              f"connmask n={n_}: the kernel differs from connected_mask")
+    print(f"connmask: connmask_kernel == QueryGraph.connected_mask == "
+          f"connmask_ref bitwise at (4, 2^19) and (16, 2^13) {card}",
+          flush=True)
+    a19 = adj_on_card(qs19[:1])
+    a13 = adj_on_card(qs13)
+    no_connmask = "no PyTorch call computes connected-subset masks"
+    no_pallas = ("none: the reference builds the masks on the host "
+                 "(QueryGraph.connected_mask, numpy), no pallas_call")
+    for a_, n_, shape in ((a19, n19, "(1, 2^19) bool, chain(19)"),
+                          (a13, n13, "(16, 2^13) bool, chain/star/cycle/"
+                                     "sparse rows")):
+        rows_ = a_.shape[0]
+        row("connmask", ("connmask_kernel",),
+            "src/repro_torch/csrc/connmask.cu", no_pallas,
+            lambda a_=a_, n_=n_: connmask_cuda(a_, n_),
+            lambda a_=a_, n_=n_: ref.connmask_ref(a_, n_),
+            rows_ * (1 << n_) + 4 * rows_ * n_, 0, launches["connmask"],
+            shape, library_note=no_connmask)
+    check(launches["connmask"] > 0,
+          "phases 5-14 ran no connmask: the out lane left the kernel masks")
     # drop the gather sweep's split tables (18.6 GB at n = 19, as much
     # again on the host) before the phases that follow
     for key in [key for key in lattice._DEVICE_TABLES
@@ -3377,7 +3448,17 @@ def main() -> int:
                     at = f"sharded {cost} n={n} D={D} on {mesh_kind}"
                     check(mesh_mod.mesh_fingerprint(slots) == names,
                           f"{at}: mesh {slots}")
+                    # one connmask launch per connected call, on the
+                    # mesh's lead card; none for max and cap.  The
+                    # building call may add one: a program's build runs
+                    # its tail once eagerly before the call itself
+                    masks16 = int(cost in ("cap_conn", "out"))
+                    c0 = ops.launch_counts()["connmask"]
                     sharded_solve(cost, qq, cq, D)    # builds the program
+                    c1 = ops.launch_counts()["connmask"] - c0
+                    check(c1 in (masks16, 2 * masks16),
+                          f"{at}: the building call launched {c1} "
+                          f"connmask, {masks16} or {2 * masks16} expected")
                     walls, above, peak = [], 0, 0
                     for _ in range(3):
                         held = {}
@@ -3386,11 +3467,16 @@ def main() -> int:
                             torch.cuda.reset_peak_memory_stats(d)
                             held[d] = torch.cuda.memory_allocated(d)
                         mark = engine.dispatch_mark()
+                        c0 = ops.launch_counts()["connmask"]
                         t0 = time.perf_counter()
                         got = sharded_solve(cost, qq, cq, D)
                         for d in devs:
                             torch.cuda.synchronize(d)
                         walls.append(time.perf_counter() - t0)
+                        c1 = ops.launch_counts()["connmask"] - c0
+                        check(c1 == masks16,
+                              f"{at}: a call launched {c1} connmask, "
+                              f"{masks16} expected")
                         for d in devs:
                             p = torch.cuda.max_memory_allocated(d)
                             above = max(above, p - held[d])
@@ -3455,9 +3541,12 @@ def main() -> int:
     server16 = ops.launch_counts()
     same_as_plan_one("sharded server", stream, resps16, want)
     no_faults("sharded server", srv16.last_runtime)
+    # phase 11's hyperedge chain(14) C_out request takes the single
+    # lane's DPccp enumerator on every server, so it is left out here
     lanes16 = Counter(f"n={r.q.n} {r.cost} {resp.route.lane}"
                       for r, resp in zip(stream, resps16)
-                      if r.q.n >= 14 and r.cost in ("cap", "out"))
+                      if r.q.n >= 14 and r.cost in ("cap", "out")
+                      and not r.q.hyperedges)
     check(lanes16 and all(k.endswith(" batch") for k in lanes16),
           f"sharded server: n >= 14 cap/out lanes {dict(lanes16)}")
     big16 = [r for r in recs16 if r.n >= 14]

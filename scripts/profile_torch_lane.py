@@ -12,10 +12,12 @@ policy (fused engine, int32 kernel tier), the f64 tier, and the host
 engine on the kernel tier.  ``--cost cap`` runs phase 8's workload (16
 clique(15) as ``"cap"``, chain/star/cycle(15) as ``"cap_conn"``) and
 ``--cost out`` phase 9's (the same 19 graphs as ``"out"``) through the
-default policy, and then each part alone: the host's connected-subset
-masks of the 19 graphs (``dpccp.connectivity_masks``, numpy), and on
-the 16 cliques the pass-1 search (cap), the (min,+) sweep and the
-value-mode extraction scan.
+default policy, and then each part alone: the connected-subset masks
+of the connected graphs, on the card as the programs build them
+(``lattice.connected_masks``, the ``connmask`` kernel) beside the host's
+numpy masks (``dpccp.connectivity_masks``) that the lane built before,
+and on the 16 cliques the pass-1 search (cap), the (min,+) sweep and
+the value-mode extraction scan.
 
 Each run goes once to warm up, once without the profiler (wall,
 queries/s, peak device memory) and once under ``torch.profiler`` (the
@@ -172,9 +174,14 @@ def value_runs(qg, cost: str) -> list:
     runs.append({"label": "host: connected-subset masks", "queries":
                  len(graphs), "wall_s": host_s})
     print(f"== host: connected-subset masks of {len(graphs)} graphs "
-          f"(numpy, what the lane builds per solve): {host_s:.4f} s",
-          flush=True)
+          f"(numpy, what the lane built before the connmask kernel): "
+          f"{host_s:.4f} s", flush=True)
     dev = torch.device("cuda", 0)
+    adjs = torch.as_tensor(np.stack([q.adjacency() for q in graphs]),
+                           dtype=torch.int32, device=dev)
+    runs.append(profile(lambda: lattice.connected_masks(adjs, 15),
+                        len(graphs), "connected-subset masks alone, "
+                        "connmask kernel"))
     cards_np = np.stack([c for _, c in cliques])
     cards = torch.as_tensor(cards_np, device=dev)
     if cost == "cap":

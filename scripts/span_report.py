@@ -24,7 +24,11 @@ each it keeps the result line and adds:
 * ``minplus_per_call``: the (min,+) sweep kernel's device time and
   launches inside each sweeping program call (records with a
   ``sweep_total``), by cost, n and batch bucket: calls, median and sum
-  of the milliseconds, median launches;
+  of the milliseconds, median launches, and the median of the calls'
+  valid splits (``sweep_pairs``, a connected sweep's #ccp);
+* ``connmask_per_call``: the same for the connected-subset mask kernel
+  (``connmask_kernel``), which the connected programs launch once a
+  call;
 * ``span_site_ns``: the host cost of one span site (open and close a
   child span) on a tracer without and with a profiler session, and of
   ``plan_one``'s site with no session (the shared null span).
@@ -68,8 +72,11 @@ SMALL = {
     "plansvc.sparse-outcap": {"clients": 4, "classes": [
         {"cost": "out", "weight": 0.5, "n": [7, 8]},
         {"cost": "cap", "weight": 0.5, "n": [7, 8]}]},
+    "plansvc.sparse-out-large": {"classes": [{"cost": "out", "weight": 1.0,
+                                              "n": [8, 9]}], "block": 2},
 }
 MINPLUS = "minplus_layer_kernel"
+CONNMASK = "connmask_kernel"
 
 
 def card() -> str:
@@ -115,11 +122,11 @@ def _covering(entries, t_ns):
     return [f"{name}@{thread}" for _, name, thread in sorted(out)]
 
 
-def minplus_per_call(run, recs) -> dict:
-    """The sweep kernel's device time (ms) and launches inside each
-    sweeping program call, grouped by (cost, n, B)."""
+def kernel_per_call(run, recs, kernel: str = MINPLUS) -> dict:
+    """A kernel's device time (ms) and launches inside each sweeping
+    program call, grouped by (cost, n, B)."""
     dt = run.devtrace
-    ks = sorted((a, b) for a, b, name, k in dt.ops if k and MINPLUS in name)
+    ks = sorted((a, b) for a, b, name, k in dt.ops if k and kernel in name)
     by = collections.defaultdict(list)
     for r in recs:
         if not getattr(r, "sweep_total", 0):
@@ -129,11 +136,12 @@ def minplus_per_call(run, recs) -> dict:
         inside = [(a, b) for a, b in ks if a < d and b > c]
         by[f"{r.cost} n={r.n} B={r.B}"].append(
             (1e3 * sum(min(b, d) - max(a, c) for a, b in inside),
-             len(inside)))
+             len(inside), getattr(r, "sweep_pairs", 0)))
     return {k: {"calls": len(v),
-                "ms_p50": stats.percentile([t for t, _ in v], 50),
-                "ms_sum": sum(t for t, _ in v),
-                "launches_p50": stats.percentile([m for _, m in v], 50)}
+                "ms_p50": stats.percentile([t for t, _, _ in v], 50),
+                "ms_sum": sum(t for t, _, _ in v),
+                "launches_p50": stats.percentile([m for _, m, _ in v], 50),
+                "pairs_p50": stats.percentile([p for _, _, p in v], 50)}
             for k, v in sorted(by.items())}
 
 
@@ -202,7 +210,8 @@ def analyse(run) -> dict:
                      "spans": [] if entries is None
                      else _covering(entries, mid)[:4]})
     out["idle_gaps"] = rows
-    out["minplus_per_call"] = minplus_per_call(run, recs)
+    out["minplus_per_call"] = kernel_per_call(run, recs, MINPLUS)
+    out["connmask_per_call"] = kernel_per_call(run, recs, CONNMASK)
     idle = dt.window_s - dt.busy_s
     out["idle_in_calls_s"] = idle - (
         dt.window_s - stats.union_length(

@@ -48,17 +48,23 @@ copies, the replays (and a capture, once per part) and the result
 copies, and ``sync_s`` holds the device time: each loop read waits for
 the round the replay queued.  Around the call, ``prepare_s`` is the
 host's time from the entry point (``fused_dpconv_max``/``fused_ccap``/
-``fused_out``) to the call, less a build (candidate tables, padding, connectivity
-masks, the seed bracket, the uploads), ``readback_s`` the copies of the
-results to the host and ``trees_s`` the join trees' assembly; ``queries``
-is the real (unpadded) row count and ``t0_ns``/``t1_ns`` bound the call
-on ``time.time_ns()``'s clock, the one ``torch.profiler`` stamps, so a
-record lies over a profiled device trace.  A call with a (min,+) sweep
+``fused_out``) to the call, less a build (candidate tables, padding,
+adjacency bitmasks, the seed bracket, the uploads), ``readback_s`` the
+copies of the results to the host and ``trees_s`` the join trees'
+assembly; ``queries`` is the real (unpadded) row count and
+``t0_ns``/``t1_ns`` bound the call on ``time.time_ns()``'s clock, the
+one ``torch.profiler`` stamps, so a record lies over a profiled device
+trace.  A call with a (min,+) sweep
 (``cap``, ``cap_conn``, ``out``) also reports ``sweep_sets``, the sets of
 layers 2..n over its rows that passed the sweep's gate (counted on the
 device, ``lattice.live_sets``, and read back with the optima), and
-``sweep_total``, all the sets of those layers times its rows.  ``flops`` and
-``bytes_accessed`` are the port's own count of the work
+``sweep_total``, all the sets of those layers times its rows; a connected
+sweep (``cap_conn``, ``out``) reports ``sweep_pairs``, the valid splits
+``(T, S\\T)`` it found (T holding S's lowest relation, both halves
+connected) in the sets it evaluated, counted on the device by the
+(min,+) kernel (the gather sweep from its masks): an unseeded ``out``
+row's #ccp, whatever enumerates it, summed over the rows; 0 elsewhere.
+``flops`` and ``bytes_accessed`` are the port's own count of the work
 (``program_work``), never a compiler's.  The serving runtime reads the
 records of its dispatches (``dispatch_mark``/``dispatches_since``) and
 each record carries the serving lane that issued it (``dispatch_lane``).
@@ -103,7 +109,6 @@ import torch
 
 from repro_torch.core import jointree, lattice
 from repro_torch.core.bitset import popcounts
-from repro_torch.core.dpccp import connectivity_masks
 from repro_torch.device import resolve_device
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.obs import metrics as obs_metrics
@@ -183,6 +188,7 @@ class DispatchRecord:
     graphed: bool = False      # the call replayed the program's CUDA graphs
     sweep_sets: int = 0        # sets the (min,+) sweep evaluated (gated on)
     sweep_total: int = 0       # sets of its layers 2..n times the rows
+    sweep_pairs: int = 0       # valid splits of a connected sweep (#ccp)
 
     def as_dict(self) -> dict:
         d = dataclasses.asdict(self)
@@ -480,11 +486,13 @@ def _first_touch(fn, base: str, seeded: bool, n: int, B: int, C: int,
     counted."""
     size = 1 << n
     cards = torch.ones((B, size), dtype=torch.float64, device=device)
-    conn = torch.ones((B, size), dtype=torch.bool, device=device)
+    adj = torch.as_tensor(_clique_adjacency(n), device=device).expand(
+        B, n).contiguous()
     if base == "out":
-        extra = (torch.zeros_like(cards), torch.zeros_like(conn)) \
+        extra = (torch.zeros_like(cards),
+                 torch.zeros((B, size), dtype=torch.bool, device=device)) \
             if seeded else ()
-        fn(cards, conn, *extra)
+        fn(cards, adj, *extra)
         return
     cand = torch.ones((B, C), dtype=torch.float64, device=device)
     lo0 = torch.full((B,), -1 if seeded else 0, dtype=torch.int64,
@@ -495,7 +503,14 @@ def _first_touch(fn, base: str, seeded: bool, n: int, B: int, C: int,
     elif base == "cap":
         fn(cards, cand, lo0, hi0, 1.0)
     else:
-        fn(cards, cand, lo0, hi0, 1.0, conn)
+        fn(cards, cand, lo0, hi0, 1.0, adj)
+
+
+def _clique_adjacency(n: int) -> np.ndarray:
+    """The (n,) int32 neighbour bitmasks of the clique over n relations
+    (every set connected): the first touch's placeholder graph."""
+    full = (1 << n) - 1
+    return np.array([full ^ (1 << i) for i in range(n)], np.int32)
 
 
 def _sync(device) -> None:
@@ -657,17 +672,28 @@ def _pad_rows(a: np.ndarray, Bp: int) -> np.ndarray:
     return np.concatenate([a, np.repeat(a[:1], Bp - B, axis=0)], axis=0)
 
 
-def _connectivity(qs, B: int, what: str) -> np.ndarray:
-    """(B, 2^n) connected-subset masks of the query graphs; raises for a
-    hyperedge graph (``connectivity_masks``) or a disconnected one."""
+def _connectivity(qs, B: int, n: int, what: str) -> np.ndarray:
+    """(B, n) int32 neighbour bitmasks of the query graphs, from which
+    the connected programs build their connected-subset masks on the
+    device (``lattice.connected_masks``).  Raises for a hyperedge graph
+    (DPccp's masks are simple-edge only), a graph of another ``n`` or a
+    disconnected one: the last is one reachability test of the whole
+    query (O(n^2)), no pass over its 2^n sets."""
     if len(qs) != B:
         raise ValueError(f"{len(qs)} query graphs for {B} tables")
-    conn = np.stack([connectivity_masks(q) for q in qs])
-    if not conn[:, -1].all():
-        raise ValueError(f"{what} requires connected query graphs (DPccp "
-                         "excludes cross products); route disconnected "
-                         "queries to the full-lattice pipelines")
-    return conn
+    for q in qs:
+        if q.hyperedges:
+            raise ValueError("DPccp connectivity masks are simple-edge "
+                             "only; hyperedge queries take the "
+                             "full-lattice paths")
+        if q.n != n:
+            raise ValueError(f"a graph of {q.n} relations for n={n}")
+        if not q.is_connected(q.full_mask):
+            raise ValueError(f"{what} requires connected query graphs "
+                             "(DPccp excludes cross products); route "
+                             "disconnected queries to the full-lattice "
+                             "pipelines")
+    return np.stack([q.adjacency() for q in qs]).astype(np.int32)
 
 
 def _seed_bracket(cand_pad: np.ndarray, hi0: np.ndarray, seed_opt,
@@ -720,13 +746,13 @@ def _solve(cost: str, n: int, Bp: int, C: int, tier: str,
     on a miss), its ``DispatchRecord``, the call (``_run``) on ``args``
     (numpy arrays uploaded to ``dev``), the seed counts, the record's
     rounds and work count, the copies of the results to the host (one
-    sync each), the sweep's live-set count (every cost but ``max``: the
-    program's last result), the trees of the ``B`` real rows and the
-    solve's counters.  A searching program (every cost but ``out``)
-    returns its rounds and syncs after its results.  Returns ``(host,
-    trees, rounds, syncs)``: the result arrays less the live-set count,
-    a tree per real row (None each without ``extract``), the search
-    rounds and the host syncs of the solve."""
+    sync each), the sweep's counts (every cost but ``max``: the
+    program's last result, its live sets and valid splits), the trees
+    of the ``B`` real rows and the solve's counters.  A searching
+    program (every cost but ``out``) returns its rounds and syncs after
+    its results.  Returns ``(host, trees, rounds, syncs)``: the result
+    arrays less the sweep counts, a tree per real row (None each without
+    ``extract``), the search rounds and the host syncs of the solve."""
     fn, meta, hit = _program(n, Bp, C, tier, direct_layers, extract,
                              gamma_batch, dev, cost, shards)
     rec = DispatchRecord(seq=0, cost=cost, n=n, B=Bp, C=C, backend=tier,
@@ -755,7 +781,7 @@ def _solve(cost: str, n: int, Bp: int, C: int, tier: str,
     rec.readback_s = time.perf_counter() - t0  # timing: measured-duration
     syncs += len(out)
     if not cost.startswith("max"):
-        rec.sweep_sets = int(host.pop())
+        rec.sweep_sets, rec.sweep_pairs = (int(v) for v in host.pop())
     trees = [None] * B
     if extract:
         t0 = time.perf_counter()  # timing: measured-duration (tree assembly)
@@ -819,7 +845,8 @@ def fused_out(qs: list, cards, n: int, extract_tree: bool = True,
     on ``device`` (CUDA unless given).
 
     ``qs`` are the B query graphs (each row may carry another topology:
-    the connected-subset masks are a program input), ``cards`` is
+    their adjacency bitmasks are a program input, from which the program
+    builds the connected-subset masks on the device), ``cards`` is
     (B, 2^n).  Every graph must be connected and simple-edge, else
     ``ValueError``.  Optima, DP tables and trees are bit-identical to B
     ``dpccp_with_tree`` calls.  ``shards = D > 1`` runs the sweep over
@@ -836,10 +863,10 @@ def fused_out(qs: list, cards, n: int, extract_tree: bool = True,
     dev = resolve_device(device)
     cards = _cards_in(cards, n)
     B, size = cards.shape
-    conn = _connectivity(qs, B, "fused_out")
+    adj = _connectivity(qs, B, n, "fused_out")
     Bp = _next_pow2(B)
     seeded = 0
-    args = (_pad_rows(cards, Bp), _pad_rows(conn, Bp))
+    args = (_pad_rows(cards, Bp), _pad_rows(adj, Bp))
     if seed_ok is not None and np.any(seed_ok):
         sv = np.zeros((Bp, size), np.float64)
         so = np.zeros((Bp, size), bool)
@@ -892,8 +919,8 @@ def fused_ccap(cards, n: int, gamma_slack: float = 1.0,
     args = (cards_pad, cand_pad, lo0, hi0, float(gamma_slack))
     cost = "cap"
     if qs is not None:
-        conn = _connectivity(qs, B, "the connected C_cap pass")
-        args += (_pad_rows(conn, Bp),)
+        adj = _connectivity(qs, B, n, "the connected C_cap pass")
+        args += (_pad_rows(adj, Bp),)
         cost = "cap_conn"
     host, trees, rounds, syncs = _solve(
         cost + ("_seeded" if seeded else ""), n, Bp, C, backend,

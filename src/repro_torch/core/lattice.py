@@ -8,6 +8,10 @@ layer (``feasibility_layers``, C_max); *value* — (min,+) over f64 under
 a gamma gate (``minplus_value_layers``, the C_cap pass 2); *connected
 value* — the same sweep under per-subset valid-split masks, DPccp's
 search space as bitset tensors (``minplus_connected_layers``, C_out).
+The connected programs take each query's adjacency bitmasks and build
+those masks on the device inside the call (``connected_masks``: the
+``connmask`` kernel on a card), so no 2^n table of a solve is made on
+the host.
 The (min,+) sweeps have no transform shortcut (that hardness is the
 paper's point): every layer enumerates its splits directly, in f64 on
 either tier.  On one CUDA device without a solve mesh each layer is one
@@ -430,12 +434,12 @@ def _uses_kernel(card, mesh) -> bool:
 
 
 def _kernel_sweep(card, n: int, ok, conn=None, seed_vals=None,
-                  seed_ok=None):
+                  seed_ok=None, pairs=None):
     """A (min,+) sweep as one ``minplus_layer`` launch per layer 2..n,
     in place on a fresh ``dp``: no split table is built.  ``ok`` gates
     each set, ``conn`` (connected sweeps) checks both sides of each
     split, ``seed_ok``/``seed_vals`` replace the values of seeded
-    sets."""
+    sets, and ``pairs`` gains the valid splits the kernel counts."""
     from repro_torch.kernels.minplus import layer_offsets, minplus_layer
     dp = _minplus_init(card, n)
     card, ok, conn, seed_vals, seed_ok = (
@@ -445,7 +449,7 @@ def _kernel_sweep(card, n: int, ok, conn=None, seed_vals=None,
     offs = layer_offsets(n)
     for k in range(2, n + 1):
         minplus_layer(dp, card, ok, sets[offs[k]:offs[k + 1]], n, k, conn,
-                      seed_vals, seed_ok)
+                      seed_vals, seed_ok, pairs)
     return dp
 
 
@@ -457,6 +461,26 @@ def live_sets(ok, n: int, seed_ok=None) -> torch.Tensor:
     if seed_ok is not None:
         live = live & ~seed_ok
     return live.sum(dtype=torch.int64)
+
+
+def sweep_counts(ok, n: int, seed_ok=None, pairs=None) -> torch.Tensor:
+    """A program's sweep counts as one (2,) int64 tensor on ``ok``'s
+    device, read back in one copy: ``live_sets`` and the valid splits a
+    connected sweep counted into ``pairs`` (0 without it)."""
+    live = live_sets(ok, n, seed_ok)
+    if pairs is None:
+        pairs = torch.zeros((), dtype=torch.int64, device=ok.device)
+    return torch.stack([live, pairs])
+
+
+def connected_masks(adj, n: int):
+    """The (rows, 2^n) connected-subset masks of the rows' simple-edge
+    graphs, built from their (rows, n) int32 adjacency bitmasks on
+    ``adj``'s device: by the ``connmask`` kernel on a card (a solve
+    mesh's lead device included), by the plain version
+    (``kernels.ref.connmask_ref``) on CPU tensors."""
+    from repro_torch.kernels.ops import connmask_op
+    return connmask_op(adj, n)
 
 
 def _value_layer(dp, sets, subs, comps, card, gate_ok):
@@ -499,11 +523,20 @@ def minplus_value_layers(card, gate_ok, n: int, mesh=None,
 
 
 def _connected_layer(dp, sets, subs, comps, card, conn, seed_vals=None,
-                     seed_ok=None):
-    """Layer values of the connected (min,+) sweep at ``sets``."""
+                     seed_ok=None, pairs=None):
+    """Layer values of the connected (min,+) sweep at ``sets``; ``pairs``
+    (on the lead device) gains the valid splits of the sets the layer
+    evaluates, each unordered split once (the table holds both
+    orientations)."""
     inf = float("inf")
     split_ok = conn[..., subs]                         # (..., m, 2^k)
     split_ok &= conn[..., comps]
+    if pairs is not None:
+        live = conn[..., sets]
+        if seed_ok is not None:
+            live = live & ~seed_ok[..., sets]
+        valid = torch.where(live, split_ok.sum(dim=-1), 0).sum()
+        pairs += (valid // 2).to(pairs.device)
     combo = dp[..., subs]
     combo += dp[..., comps]
     val = combo.masked_fill_(~split_ok, inf).amin(dim=-1)
@@ -517,7 +550,8 @@ def _connected_layer(dp, sets, subs, comps, card, conn, seed_vals=None,
 
 def minplus_connected_layers(card, conn, n: int, seed_vals=None,
                              seed_ok=None, mesh=None,
-                             shard_chunk: int = SHARD_CHUNK_ELEMS):
+                             shard_chunk: int = SHARD_CHUNK_ELEMS,
+                             pairs=None):
     """DPccp's recursion as a dense layer program — the connectivity-
     masked C_out sweep.
 
@@ -546,12 +580,21 @@ def minplus_connected_layers(card, conn, n: int, seed_vals=None,
     ``mesh`` partitions the sets axis exactly as in
     ``minplus_value_layers``; the valid-split masks are then only ever
     built for a shard's own block.
+
+    ``pairs`` (a 0-dim int64 tensor on ``card``'s device) gains the
+    valid splits ``(T, S\\T)``, T holding S's lowest relation, of the
+    sets the sweep evaluates (gated on, not seeded): for an unseeded
+    C_out sweep, the query's #ccp.  The kernel counts them as it
+    enumerates, the gather sweep from its split masks; no host read.
     """
     if _uses_kernel(card, mesh):
-        return _kernel_sweep(card, n, conn, conn, seed_vals, seed_ok)
+        return _kernel_sweep(card, n, conn, conn, seed_vals, seed_ok,
+                             pairs)
     seeds = () if seed_ok is None else (seed_vals, seed_ok)
-    return _minplus_sweep(card, n, _connected_layer, (card, conn) + seeds,
-                          mesh, shard_chunk)
+    layer = _connected_layer if pairs is None else functools.partial(
+        _connected_layer, pairs=pairs)
+    return _minplus_sweep(card, n, layer, (card, conn) + seeds, mesh,
+                          shard_chunk)
 
 
 # ------------------------------------------------------ probe strategies
@@ -698,8 +741,8 @@ class _Solve:
     """The tensors of one program call: its inputs, the search bracket
     ``lo``/``hi`` and the ranked-zeta buffers ``Z`` (the loop's) and
     ``Zv`` (the seeded probe's), which the search updates in place, and
-    ``extra``, the tail's further inputs (C_cap's slack and connectivity
-    masks, C_out's masks and seeds).  An eager call makes one per call; a
+    ``extra``, the tail's further inputs (C_cap's slack and adjacency
+    bitmasks).  An eager call makes one per call; a
     graphed program keeps one for good, its static tensors, and copies
     each call's inputs into it (``_load``)."""
     cards: torch.Tensor
@@ -1040,42 +1083,48 @@ def build_max_program(n: int, direct_layers: int, tier: str,
 def build_out_program(n: int, extract: bool, shards: int = 1, mesh=None,
                       seeded: bool = False, device=None):
     """The whole-solve connected C_out program (DPccp semantics):
-    ``(cards, conn) -> (cout[, dp, nodes, lidx], live)`` — or, with
-    ``seeded=True``, ``(cards, conn, seed_vals, seed_ok) -> ...``: the
+    ``(cards, adj) -> (cout[, dp, nodes, lidx], counts)`` — or, with
+    ``seeded=True``, ``(cards, adj, seed_vals, seed_ok) -> ...``: the
     sweep replays cached sub-table values where ``seed_ok`` (see
     ``minplus_connected_layers``).
 
-    cards (B, 2^n) f64 and conn (B, 2^n) bool — the per-query
-    connected-subset masks (``dpccp.connectivity_masks``) — on one
-    device.  The (min,+) sweep runs under the valid-split masks derived
-    from ``conn`` and the value-mode extraction scan reads the same
-    table, so disconnected witnesses carry +inf error.  No search loop:
-    the program reads nothing back until its results.  Bit-identical
-    optima, DP tables and trees to ``dpccp_with_tree``.  ``live``
-    (0-dim int64) counts the sets the sweep evaluated (``live_sets``).
-    ``shards > 1`` partitions every layer of the sweep over ``mesh``.
-    On a CUDA ``device`` with no mesh the whole call is one CUDA graph,
-    from its second call on.
+    cards (B, 2^n) f64 and adj (B, n) int32 — each query's neighbour
+    bitmasks (``QueryGraph.adjacency``) — on one device.  The call
+    builds the connected-subset masks from ``adj`` on that device
+    (``connected_masks``: the ``connmask`` kernel on one card, inside
+    the graph), then runs the (min,+) sweep under the valid splits they
+    define; the value-mode extraction scan reads the same table, so
+    disconnected witnesses carry +inf error.  No search loop: the
+    program reads nothing back until its results.  Bit-identical
+    optima, DP tables and trees to ``dpccp_with_tree``.  ``counts``
+    ((2,) int64, ``sweep_counts``) holds the sets the sweep evaluated
+    (``live_sets``) and the valid splits it found, the #ccp of an
+    unseeded row summed over the rows.  ``shards > 1`` partitions every
+    layer of the sweep over ``mesh``.  On a CUDA ``device`` with no mesh
+    the whole call is one CUDA graph, from its second call on.
     """
     mesh = _solve_axis(shards, mesh)
 
-    def tail(cards, conn, seed_vals=None, seed_ok=None):
+    def tail(cards, adj, seed_vals=None, seed_ok=None):
+        conn = connected_masks(adj, n)
+        pairs = torch.zeros((), dtype=torch.int64, device=cards.device)
         dpv = minplus_connected_layers(cards, conn, n, seed_vals=seed_vals,
-                                       seed_ok=seed_ok, mesh=mesh)
+                                       seed_ok=seed_ok, mesh=mesh,
+                                       pairs=pairs)
         cout = dpv[..., -1]
-        live = live_sets(conn, n, seed_ok)
+        counts = sweep_counts(conn, n, seed_ok, pairs)
         if not extract:
-            return cout, live
+            return cout, counts
         nodes, lidx = extract_scan(dpv, n, card=cards)
-        return cout, dpv, nodes, lidx, live
+        return cout, dpv, nodes, lidx, counts
 
     graphs = _Graphs(device) if uses_graphs(device, mesh) else None
 
-    def fn(cards, conn, seed_vals=None, seed_ok=None):
+    def fn(cards, adj, seed_vals=None, seed_ok=None):
         if seeded != (seed_ok is not None):
             raise ValueError("the seeded out program takes seed_vals and "
                              "seed_ok, the cold one neither")
-        args = (cards, conn) + ((seed_vals, seed_ok) if seeded else ())
+        args = (cards, adj) + ((seed_vals, seed_ok) if seeded else ())
         if graphs is None:
             return tail(*args)
         with graphs.lock:
@@ -1093,22 +1142,25 @@ def build_cap_program(n: int, direct_layers: int, tier: str,
                       connected: bool = False, shards: int = 1, mesh=None,
                       seeded: bool = False, device=None):
     """The whole-solve C_cap program (paper Sec. 8, both passes):
-    ``(cards, cand, lo0, hi0, slack[, conn]) ->
-    (gamma, cout[, nodes, lidx], live, rounds, syncs)``.
+    ``(cards, cand, lo0, hi0, slack[, adj]) ->
+    (gamma, cout[, nodes, lidx], counts, rounds, syncs)``.
 
     Pass 1 is the lockstep feasibility search of DPconv[max] on
     ``tier`` (gamma* = optimal C_max); pass 2 runs the (min,+) value
     sweep under the gate ``c(S) <= slack · gamma*`` (singletons and ∅
-    pass; ``live`` counts the sets it lets through, ``live_sets``);
-    pass 3 extracts the C_out witness tree.  ``slack`` is the
-    Sec. 11 resource-aware knob.  ``connected=True`` is the
-    no-cross-products cap: pass 2 runs the connected sweep under ``gate
-    & conn``, bit-identical to ``dpconv_max`` + ``dpccp(prune_gamma=
-    gamma)``.  The cap stays the full-lattice C_max optimum, which a
-    cross-product-free plan may not attain: ``cout`` is then +inf, as in
-    the host pipeline.  ``seeded=True`` verifies cached pass-1 optima as
-    ``build_max_program`` does.  ``shards > 1`` partitions pass 1's
-    direct layers and every layer of pass 2 over ``mesh``.  On a CUDA
+    pass; ``counts`` = ``sweep_counts``: the sets it lets through and,
+    connected, the valid splits it found); pass 3 extracts the C_out
+    witness tree.  ``slack`` is the Sec. 11 resource-aware knob.
+    ``connected=True`` is the no-cross-products cap: the call builds the
+    connected-subset masks ``conn`` from ``adj`` ((B, n) int32 neighbour
+    bitmasks, ``connected_masks``) and pass 2 runs the connected sweep
+    under ``gate & conn``, bit-identical to ``dpconv_max`` +
+    ``dpccp(prune_gamma=gamma)``.  The cap stays the full-lattice C_max
+    optimum, which a cross-product-free plan may not attain: ``cout`` is
+    then +inf, as in the host pipeline.  ``seeded=True`` verifies cached
+    pass-1 optima as ``build_max_program`` does.  ``shards > 1``
+    partitions pass 1's direct layers and every layer of pass 2 over
+    ``mesh``.  On a CUDA
     ``device`` with no mesh pass 1's rounds and passes 2–3 run through
     CUDA graphs, as in ``build_max_program`` (``slack`` then rides a
     0-dim tensor: the same float64 product).
@@ -1122,24 +1174,28 @@ def build_cap_program(n: int, direct_layers: int, tier: str,
         gamma = torch.gather(s.cand, 1, s.hi[:, None])[:, 0]
         gamma = gamma * slack
         gate_ok = (s.cards <= gamma[:, None]) | (pc < 2)
+        pairs = None
         if connected:
-            gate_ok = gate_ok & s.extra[1]
-            dpv = minplus_connected_layers(s.cards, gate_ok, n, mesh=mesh)
+            gate_ok = gate_ok & connected_masks(s.extra[1], n)
+            pairs = torch.zeros((), dtype=torch.int64,
+                                device=s.cards.device)
+            dpv = minplus_connected_layers(s.cards, gate_ok, n, mesh=mesh,
+                                           pairs=pairs)
         else:
             dpv = minplus_value_layers(s.cards, gate_ok, n, mesh=mesh)
         cout = dpv[..., -1]
-        live = live_sets(gate_ok, n)
+        counts = sweep_counts(gate_ok, n, pairs=pairs)
         if not extract:
-            return gamma, cout, live
+            return gamma, cout, counts
         nodes, lidx = extract_scan(dpv, n, card=s.cards)
-        return gamma, cout, nodes, lidx, live
+        return gamma, cout, nodes, lidx, counts
 
     search = _Searcher(n, direct_layers, tfm, gamma_batch, seeded, mesh)
     prog = _searching_program(search, tail, device, mesh)
 
-    def fn(cards, cand, lo0, hi0, slack, conn=None):
+    def fn(cards, cand, lo0, hi0, slack, adj=None):
         return prog(cards, cand, lo0, hi0, slack,
-                    *((conn,) if connected else ()))
+                    *((adj,) if connected else ()))
 
     fn.graphed = prog.graphed
     return fn

@@ -35,6 +35,16 @@
 // and stores.  A layer reads only smaller sets and writes only its own,
 // so one launch per layer, in order, needs no other synchronisation.
 //
+// Split count.  Given `pairs` (a connected sweep), each lane also counts
+// the splits it found valid, both halves connected, in the sets it
+// evaluated: summed over a sweep's layers, DPccp's csg/cmp pairs (#ccp)
+// of each row's graph, whatever enumerates them.  A lane's count is
+// summed over its warp by shuffles and over the block in shared memory,
+// and one thread adds the block's total to *pairs (one global atomic a
+// block, none for a block with no valid split).  The count reads
+// nothing the values are made of and writes nothing they read, so it
+// changes no result bit.
+//
 // Bound.  2 operations per split (add, min) over (2^(k-1) - 1) C(n,k)
 // splits a row, at the float64 rate; per row the table read and written
 // once and card, the gate and conn read once: at n = 19, ~5.8e8 splits
@@ -57,13 +67,15 @@ __global__ void __launch_bounds__(kThreads) minplus_layer_kernel(
     const uint8_t* __restrict__ ok, const uint8_t* __restrict__ conn,
     const double* __restrict__ seed_vals,
     const uint8_t* __restrict__ seed_ok, const int32_t* __restrict__ sets,
-    long long m, long long items, int n, int k, int group_bits) {
+    unsigned long long* __restrict__ pairs, long long m, long long items,
+    int n, int k, int group_bits) {
   const int g = 1 << group_bits;
   const int lane = threadIdx.x & (g - 1);
   const long long item =
       (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >>
       group_bits;
   double best = CUDART_INF;
+  unsigned int valid = 0;
   bool eval = false;
   size_t base = 0;
   uint32_t S = 0;
@@ -99,8 +111,10 @@ __global__ void __launch_bounds__(kThreads) minplus_layer_kernel(
     for (uint32_t j = lane; j < splits; j += g) {
       const uint32_t T = low | sub;
       const uint32_t C = M ^ sub;
-      if (!kConn || (row_conn[T] && row_conn[C]))
+      if (!kConn || (row_conn[T] && row_conn[C])) {
         best = fmin(best, __dadd_rn(row_dp[T], row_dp[C]));
+        ++valid;
+      }
       sub = ((sub | ~M) + step) & M;
     }
   }
@@ -109,18 +123,29 @@ __global__ void __launch_bounds__(kThreads) minplus_layer_kernel(
   for (int off = g >> 1; off > 0; off >>= 1)
     best = fmin(best, __shfl_xor_sync(0xffffffffu, best, off, kWarp));
   if (eval && lane == 0) dp[base + S] = __dadd_rn(best, card[base + S]);
+  if (kConn && pairs != nullptr) {   // uniform: every thread of the block
+    __shared__ unsigned long long block_valid;
+    if (threadIdx.x == 0) block_valid = 0;
+    __syncthreads();
+    for (int off = kWarp >> 1; off > 0; off >>= 1)
+      valid += __shfl_xor_sync(0xffffffffu, valid, off, kWarp);
+    if ((threadIdx.x & (kWarp - 1)) == 0 && valid != 0)
+      atomicAdd(&block_valid, static_cast<unsigned long long>(valid));
+    __syncthreads();
+    if (threadIdx.x == 0 && block_valid != 0) atomicAdd(pairs, block_valid);
+  }
 }
 
 template <bool kConn, bool kSeed>
 void launch(double* dp, const double* card, const uint8_t* ok,
             const uint8_t* conn, const double* seed_vals,
-            const uint8_t* seed_ok, const int32_t* sets, long long m,
-            long long items, int n, int k, int group_bits, long long blocks,
-            cudaStream_t s) {
+            const uint8_t* seed_ok, const int32_t* sets,
+            unsigned long long* pairs, long long m, long long items, int n,
+            int k, int group_bits, long long blocks, cudaStream_t s) {
   minplus_layer_kernel<kConn, kSeed>
       <<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-          dp, card, ok, conn, seed_vals, seed_ok, sets, m, items, n, k,
-          group_bits);
+          dp, card, ok, conn, seed_vals, seed_ok, sets, pairs, m, items, n,
+          k, group_bits);
 }
 
 }  // namespace
@@ -129,13 +154,15 @@ void launch(double* dp, const double* card, const uint8_t* ok,
 // (dp, card, ok, conn, seed_vals, seed_ok: (rows, 2^n) contiguous; bools
 // one byte each), for the m sets listed at `sets` (int32 masks of
 // popcount k).  `conn` null: no split check (the value sweep); `seed_ok`
-// null: no seeds (then seed_vals is not read).  Returns a cudaError_t.
+// null: no seeds (then seed_vals is not read); `pairs` (one uint64, read
+// only with `conn`) gains the layer's valid splits, null: no count.
+// Returns a cudaError_t.
 extern "C" int repro_minplus_layer(void* dp, const void* card,
                                    const void* ok, const void* conn,
                                    const void* seed_vals,
                                    const void* seed_ok, const void* sets,
-                                   long long rows, long long m, int n, int k,
-                                   int device, void* stream) {
+                                   void* pairs, long long rows, long long m,
+                                   int n, int k, int device, void* stream) {
   if (n < 2 || n > 30 || k < 2 || k > n || rows <= 0 || m <= 0 ||
       (seed_ok != nullptr && seed_vals == nullptr))
     return cudaErrorInvalidValue;
@@ -154,17 +181,18 @@ extern "C" int repro_minplus_layer(void* dp, const void* card,
   auto* sv = static_cast<const double*>(seed_vals);
   auto* so = static_cast<const uint8_t*>(seed_ok);
   auto* st = static_cast<const int32_t*>(sets);
+  auto* pr = static_cast<unsigned long long*>(pairs);
   if (cn != nullptr && so != nullptr)
-    launch<true, true>(d, c, o, cn, sv, so, st, m, items, n, k, group_bits,
-                       blocks, s);
+    launch<true, true>(d, c, o, cn, sv, so, st, pr, m, items, n, k,
+                       group_bits, blocks, s);
   else if (cn != nullptr)
-    launch<true, false>(d, c, o, cn, sv, so, st, m, items, n, k,
+    launch<true, false>(d, c, o, cn, sv, so, st, pr, m, items, n, k,
                         group_bits, blocks, s);
   else if (so != nullptr)
-    launch<false, true>(d, c, o, cn, sv, so, st, m, items, n, k,
+    launch<false, true>(d, c, o, cn, sv, so, st, pr, m, items, n, k,
                         group_bits, blocks, s);
   else
-    launch<false, false>(d, c, o, cn, sv, so, st, m, items, n, k,
+    launch<false, false>(d, c, o, cn, sv, so, st, pr, m, items, n, k,
                          group_bits, blocks, s);
   return cudaGetLastError();
 }

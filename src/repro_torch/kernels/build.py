@@ -41,7 +41,8 @@ BUILD_DIR = PACKAGE / "_build"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v"]
-KERNELS = ("zeta_cluster", "zeta_high", "ranked_conv", "minplus_layer")
+KERNELS = ("zeta_cluster", "zeta_high", "ranked_conv", "minplus_layer",
+           "connmask")
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -56,10 +57,12 @@ _SIGNATURES = {
     "repro_zeta_high": [_VP, _VP, _LL, _I, _I, _I, _I, _I, _VP],
     # Z, out, rest, nranks, k, dtype, device, stream
     "repro_ranked_conv": [_VP, _VP, _LL, _I, _I, _I, _I, _VP],
-    # dp, card, ok, conn, seed_vals, seed_ok, sets, rows, m, n, k, device,
-    # stream
-    "repro_minplus_layer": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL,
-                            _I, _I, _I, _VP],
+    # dp, card, ok, conn, seed_vals, seed_ok, sets, pairs, rows, m, n, k,
+    # device, stream
+    "repro_minplus_layer": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL,
+                            _LL, _I, _I, _I, _VP],
+    # conn, adj, rows, n, device, stream
+    "repro_connmask": [_VP, _VP, _LL, _I, _I, _VP],
 }
 
 

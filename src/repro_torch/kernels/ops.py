@@ -18,8 +18,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.connmask import connmask_cuda
 from repro_torch.kernels.ranked_conv import ranked_conv_cuda
-from repro_torch.kernels.ref import mobius_ref, ranked_conv_ref, zeta_ref
+from repro_torch.kernels.ref import (connmask_ref, mobius_ref,
+                                     ranked_conv_ref, zeta_ref)
 from repro_torch.kernels.zeta_cuda import zeta_cuda
 
 F32_EXACT_LIMIT = float(1 << 24)
@@ -73,3 +75,11 @@ def ranked_conv_op(Z: torch.Tensor, k: int) -> torch.Tensor:
     if _route(Z) == "cuda":
         return ranked_conv_cuda(Z, k)
     return ranked_conv_ref(Z, k)
+
+
+def connmask_op(adj: torch.Tensor, n: int) -> torch.Tensor:
+    """The (rows, 2^n) connected-subset masks of ``rows`` simple-edge
+    graphs from their (rows, n) int32 adjacency bitmasks."""
+    if _route(adj) == "cuda":
+        return connmask_cuda(adj, n)
+    return connmask_ref(adj, n)

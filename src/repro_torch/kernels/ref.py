@@ -10,6 +10,8 @@ and on float32 values that are integers below 2^24:
   ranked_conv_ref — layer-k ranked convolution of a ranked zeta table
                     (paper Eq. 11 with the Sec. 5.2 symmetry halving):
                     acc = Σ_{d=1}^{k-1} Z[d] * Z[k-d]
+  connmask_ref    — connected-subset masks of simple-edge graphs from
+                    their adjacency bitmasks
 
 The kernel wrappers run these on CPU tensors; ``chip_smoke.py`` runs them
 on the card to check the kernels.  int32 arithmetic wraps (two's
@@ -50,3 +52,27 @@ def ranked_conv_ref(Z: torch.Tensor, k: int) -> torch.Tensor:
     if k % 2 == 0:
         acc = acc + Z[k // 2] * Z[k // 2]
     return acc
+
+
+def connmask_ref(adj: torch.Tensor, n: int) -> torch.Tensor:
+    """``adj`` (rows, n) integer neighbour bitmasks -> (rows, 2^n) bool,
+    ``conn[S]`` = S induces a connected subgraph (``conn[0]`` false).
+
+    The fixpoint ``reach = (reach | adj(reach)) & S`` from the lowest
+    relation of S, run n - 1 times (no host read decides when to stop),
+    ``adj(R)`` a gather of the table of neighbour unions of every set,
+    built by bit doubling."""
+    rows = adj.shape[0]
+    size = 1 << n
+    adj = adj.to(torch.int64)
+    nbr = torch.zeros((rows, size), dtype=torch.int64, device=adj.device)
+    for j in range(n):
+        lo = 1 << j
+        nbr[:, lo:2 * lo] = nbr[:, :lo] | adj[:, j:j + 1]
+    S = torch.arange(size, dtype=torch.int64, device=adj.device)
+    reach = (S & -S).expand(rows, size).contiguous()
+    for _ in range(n - 1):
+        reach = (reach | torch.gather(nbr, 1, reach)) & S
+    conn = reach == S
+    conn[:, 0] = False
+    return conn

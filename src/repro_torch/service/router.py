@@ -13,12 +13,18 @@ different cost/optimality envelopes.  The router turns a request's
   graphs (the classic no-cross-product production choice — its search
   space excludes cross joins, which is the semantics sparse workloads
   want).  Connected simple-edge DPccp traffic in the
-  ``small_n < n <= fused_out_max_n`` window rides the *batch* lane: the
-  connectivity-masked fused C_out lattice program solves same-``n``
-  chunks in one dispatch, bit-identical to the host enumerator; tiny and
-  past-ceiling ``n`` keep the per-query host DPccp.  The (1+eps)
-  approximation takes over once exact blows the budget or ``n`` grows
-  past ``exact_out_max_n``.
+  ``small_n < n <= fused_out_max_n`` = 19 window rides the *batch* lane:
+  the connectivity-masked fused C_out lattice program solves same-``n``
+  chunks in one dispatch, bit-identical to the host enumerator; on one
+  card it builds the connected-subset masks with the ``connmask`` kernel
+  and sweeps with the table-free ``minplus_layer`` kernel, so 19, the
+  largest n any fused lane serves, bounds it.  Tiny and past-ceiling
+  ``n`` keep the per-query host DPccp.  On CPU tensors and over a solve
+  mesh the sweep gathers split tables, so a server off one card, or
+  with ``solve_shards > 1``, starts from ``GATHER_SWEEP_MAX_N`` as for
+  C_cap below.  Dense C_out takes exact DPsub to ``exact_out_max_n``,
+  and the (1+eps) approximation once exact blows the budget or ``n``
+  grows past it.
 * ``cost="cap"``  -> the fused two-pass C_cap lattice program on the
   *batch* lane for ``small_n < n <= fused_cap_max_n`` = 19, the largest
   n the float64 C_max program serves (the serving tier batches ``cap``
@@ -103,7 +109,7 @@ class RouterConfig:
     small_n: int = 5            # below: numpy DPsub beats the device
     exact_out_max_n: int = 13   # exact C_out DPsub admission ceiling
     fused_cap_max_n: int = 19   # fused C_cap batch-lane admission ceiling
-    fused_out_max_n: int = 13   # fused connected-C_out batch-lane ceiling
+    fused_out_max_n: int = 19   # fused connected-C_out batch-lane ceiling
     sparse_density: float = 0.5  # <=: route C_out to DPccp
     approx_eps: float = 0.25
     ewma_alpha: float = 0.3

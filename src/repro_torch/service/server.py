@@ -188,17 +188,20 @@ class PlanServer:
         # admission estimates price the engine the batch lane will run
         self.router.engine_hint["dpconv"] = self.solver.policy.engine
         self.router.engine_hint["dpccp"] = self.solver.policy.engine
-        # the fused cap ceiling above the gather sweep's is the one-card
-        # kernel sweep's: off one CUDA device (CPU tensors, a solve mesh)
-        # the (min,+) sweep gathers split tables (lattice._uses_kernel),
-        # so the ceiling starts from the gather sweep's.  A solve mesh
-        # then lifts the fused cap/out admission ceilings: the
-        # per-device layer memory drops 1/D (engine.sharded_ceiling caps
-        # the lift at the int32 and extraction tier bound)
+        # the fused cap and out ceilings above the gather sweep's are
+        # the one-card kernel sweep's: off one CUDA device (CPU tensors,
+        # a solve mesh) the (min,+) sweep gathers split tables
+        # (lattice._uses_kernel), so the ceilings start from the gather
+        # sweep's.  A solve mesh then lifts the fused cap/out admission
+        # ceilings: the per-device layer memory drops 1/D
+        # (engine.sharded_ceiling caps the lift at the int32 and
+        # extraction tier bound)
         pol = self.solver.policy
         cfg = self.router.config
         if self.device.type != "cuda" or pol.solve_shards > 1:
             cfg.fused_cap_max_n = min(cfg.fused_cap_max_n,
+                                      router_mod.GATHER_SWEEP_MAX_N)
+            cfg.fused_out_max_n = min(cfg.fused_out_max_n,
                                       router_mod.GATHER_SWEEP_MAX_N)
         if pol.solve_shards > 1:
             cfg.fused_cap_max_n = engine_mod.sharded_ceiling(

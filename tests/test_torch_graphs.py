@@ -22,7 +22,6 @@ import torch
 
 from repro_torch.core import engine, lattice
 from repro_torch.core.bitset import popcounts
-from repro_torch.core.dpccp import connectivity_masks
 from repro_torch.core.querygraph import (chain, clique, cycle,
                                          make_cardinalities, star)
 from repro_torch.kernels import build
@@ -85,11 +84,11 @@ def _args(cost: str, n: int, B: int, seed: int, device, seeds=None):
     """A program's inputs for ``B`` (a power of two) queries."""
     qs, cards = _queries(n, B, seed)
     dev = torch.device(device)
-    conn = torch.as_tensor(np.stack([connectivity_masks(q) for q in qs]),
-                           device=dev)
+    adj = torch.as_tensor(np.stack([q.adjacency() for q in qs]),
+                          dtype=torch.int32, device=dev)
     cards_pad, cand, hi0, _, _ = engine._pad_candidates(cards, n)
     if cost == "out" or cost == "out_seeded":
-        args = (torch.as_tensor(cards_pad, device=dev), conn)
+        args = (torch.as_tensor(cards_pad, device=dev), adj)
         if cost == "out_seeded":
             # the cold sweep's values of the sets of up to 3 relations
             dpv = lattice.build_out_program(n, True)(*args)[1]
@@ -105,7 +104,7 @@ def _args(cost: str, n: int, B: int, seed: int, device, seeds=None):
     if cost.startswith("cap"):
         args += (1.0,)
         if cost.startswith("cap_conn"):
-            args += (conn,)
+            args += (adj,)
     return args
 
 
@@ -224,13 +223,15 @@ def test_launch_counts_under_capture_and_replay():
         build.count_launch("ranked_conv")
         build.count_launch("ranked_conv")
     assert rec == {"zeta_cluster": 1, "zeta_high": 0, "ranked_conv": 2,
-                   "minplus_layer": 0}
+                   "minplus_layer": 0, "connmask": 0}
     assert build.launch_counts() == {"zeta_cluster": 1, "zeta_high": 0,
-                                     "ranked_conv": 0, "minplus_layer": 0}
+                                     "ranked_conv": 0, "minplus_layer": 0,
+                                     "connmask": 0}
     build.add_launches(rec)
     build.add_launches(rec)
     assert build.launch_counts() == {"zeta_cluster": 3, "zeta_high": 0,
-                                     "ranked_conv": 4, "minplus_layer": 0}
+                                     "ranked_conv": 4, "minplus_layer": 0,
+                                     "connmask": 0}
     build.count_launch("zeta_high")           # recording is over
     assert build.launch_counts()["zeta_high"] == 1
     build.reset_launch_counts()

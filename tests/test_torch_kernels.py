@@ -136,8 +136,10 @@ def test_ops_on_cpu_launch_no_kernel():
     ops.mobius_batch_op(ops.zeta_batch_op(x))
     ops.mobius_op(ops.zeta_op(x[0].double()))      # the float64 tier's
     ops.ranked_conv_op(torch.ones((13, 1 << 12), dtype=torch.int32), 7)
+    ops.connmask_op(torch.full((2, 5), 31, dtype=torch.int32), 5)
     assert ops.launch_counts() == {"zeta_cluster": 0, "zeta_high": 0,
-                                   "ranked_conv": 0, "minplus_layer": 0}
+                                   "ranked_conv": 0, "minplus_layer": 0,
+                                   "connmask": 0}
     with pytest.raises(ValueError):
         ops.zeta_batch_op(x[0])
 
@@ -362,7 +364,7 @@ def test_fused_f64_program_launches_the_zeta_kernels(cuda_device,
         engine.clear_executable_cache()
     assert counts == {"zeta_cluster": transforms[0],
                       "zeta_high": transforms[0], "ranked_conv": 0,
-                      "minplus_layer": 0}
+                      "minplus_layer": 0, "connmask": 0}
     assert transforms[0] > 0
     assert [o.hex() for o in got.optima] == [o.hex() for o in cpu.optima]
     assert [str(t) for t in got.trees] == [str(t) for t in cpu.trees]

@@ -255,11 +255,11 @@ def test_engine_dispatch_records_compile_execute_split():
 
 
 # the port's split of a record's host time, whether its call replayed
-# CUDA graphs, and its (min,+) sweep's live and total sets, beyond the
-# reference's fields
+# CUDA graphs, and its (min,+) sweep's live and total sets and valid
+# splits, beyond the reference's fields
 HOST_SPLIT = {"queries", "prepare_s", "launch_s", "sync_s", "readback_s",
               "trees_s", "t0_ns", "t1_ns", "graphed", "sweep_sets",
-              "sweep_total"}
+              "sweep_total", "sweep_pairs"}
 
 
 @pytest.mark.parametrize("cost", ["max", "cap", "out"])

@@ -233,12 +233,14 @@ ROUTE_CASES = [(cost, maker, n, connected)
 def test_router_matches_reference(cost):
     """Method, lane, params and reason equal the reference's for every
     topology, size and connectivity flag, without a budget, under the
-    same ceilings: the port's fused C_cap ceiling is 19 (its one-card
-    (min,+) sweep builds no split tables), the reference's 13."""
+    same ceilings: the port's fused C_cap and connected C_out ceilings
+    are 19 (its one-card (min,+) sweep builds no split tables), the
+    reference's 13."""
     from repro.service.router import RouterConfig as RefConfig
     router = Router()
     ref = RefRouter(RefConfig(
-        fused_cap_max_n=router.config.fused_cap_max_n))
+        fused_cap_max_n=router.config.fused_cap_max_n,
+        fused_out_max_n=router.config.fused_out_max_n))
     for c, maker, n, connected in ROUTE_CASES:
         if c != cost:
             continue
@@ -251,8 +253,8 @@ def test_router_matches_reference(cost):
         assert got.lane_cost == want.lane_cost
     assert router.config.small_n == 5
     assert router.config.fused_cap_max_n == 19
-    assert router.config.fused_out_max_n == \
-        RefRouter().config.fused_out_max_n == 13
+    assert router.config.fused_out_max_n == 19
+    assert RefRouter().config.fused_out_max_n == 13
 
 
 # --------------------------------------------------------------- workload
